@@ -1,0 +1,70 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
+use into ``eorb_slam_tpu_torch/build/`` (git-ignored) as a shared library
+whose file name carries a hash of the source and flags, so an edited source
+is rebuilt and an unchanged one is reused. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+# per kernel library: {"seconds": build time (0.0 when reused), "log": nvcc's
+# output, which with -Xptxas -v lists registers, shared memory and spills}
+BUILD_INFO: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is "
+                           "needed to build the CUDA kernels")
+    path = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found at {path}")
+    return path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (or reuse) and load ``csrc/<name>.cu``; raises on failure."""
+    with _LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = os.path.join(SRC_DIR, f"{name}.cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+        info = {"seconds": 0.0, "log": "", "path": out}
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            info["seconds"] = time.perf_counter() - t0
+            info["log"] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on {src}:\n{info['log']}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        _LIBS[name] = lib
+        BUILD_INFO[name] = info
+        return lib

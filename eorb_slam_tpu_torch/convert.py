@@ -1,0 +1,59 @@
+"""Carry state from numpy into the port.
+
+The event front-end has no learned weights; what has to match between the
+JAX package and this one is the builder's state. These functions take that
+state as numpy arrays (e.g. ``np.asarray`` of the JAX builder's fields), so
+the port can continue a stream from the same mid-stream state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from eorb_slam_tpu_torch.event.builder import EventWindowBuilder
+
+
+def cam_from_numpy(cam, device=None) -> torch.Tensor:
+    """Camera parameter vector (e.g. [fx, fy, cx, cy, k1, k2, p1, p2, k3])
+    -> float32 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(cam, np.float32)).to(device)
+
+
+def builder_state_from_numpy(builder: EventWindowBuilder, state: dict) -> None:
+    """Load builder state given as numpy values into ``builder``.
+
+    ``state`` keys (all optional except where noted):
+    - ``prev_img`` (H,W), ``prev_pts`` (Np,2), ``prev_ok`` (Np,) bool: the
+      KLT carry between windows (the JAX builder's ``_win_carry``); all
+      three or none;
+    - ``T_prev``, ``T_cur`` (4,4) and ``med_depth`` (): the L2 pose prior;
+      all three or none;
+    - ``chunk_size`` (int) and ``last_chunk_ts`` (float): the adaptive
+      window's controller state;
+    - ``last_kind`` (str) and ``last_score`` (float): the previous window's
+      winner, which the next PoseImage reports;
+    - ``cam``: the camera vector.
+    """
+    dev = builder.device
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+
+    if "prev_img" in state:
+        builder._win_carry = (
+            f32(state["prev_img"]), f32(state["prev_pts"]),
+            torch.as_tensor(np.asarray(state["prev_ok"], bool)).to(dev),
+        )
+    if "T_prev" in state:
+        builder.set_pose_prior(f32(state["T_prev"]), f32(state["T_cur"]),
+                               f32(state["med_depth"]))
+    if "chunk_size" in state:
+        builder.chunk_size = int(state["chunk_size"])
+    if "last_chunk_ts" in state:
+        builder._last_chunk_ts = float(state["last_chunk_ts"])
+    if "last_kind" in state:
+        builder._last_kind = str(state["last_kind"])
+        builder._last_score = float(state["last_score"])
+    if "cam" in state:
+        builder.cam = cam_from_numpy(state["cam"], dev)
