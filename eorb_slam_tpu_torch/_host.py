@@ -1,0 +1,36 @@
+"""Device-to-host copies that overlap with later work.
+
+A small tensor the host reads later (a window's metadata, a mapping step's
+stats) is copied into pinned host memory with ``non_blocking=True`` and a
+CUDA event is recorded behind the copy; the host reads it once that event
+has completed, without stalling the device queue in between. A CPU tensor
+is its own copy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class HostCopy:
+    """The copy of ``t`` to the host, started now and read later."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+        else:
+            self.host, self.done = t, None
+
+    def ready(self) -> bool:
+        """Has the copy landed (never waits)?"""
+        return self.done is None or self.done.query()
+
+    def numpy(self) -> np.ndarray:
+        """The host value; waits for the copy if it is still in flight."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()

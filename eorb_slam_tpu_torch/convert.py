@@ -1,9 +1,9 @@
 """Carry state from numpy into the port.
 
-The event front-end has no learned weights; what has to match between the
-JAX package and this one is the builder's state. These functions take that
-state as numpy arrays (e.g. ``np.asarray`` of the JAX builder's fields), so
-the port can continue a stream from the same mid-stream state.
+The system has no learned weights; what has to match between the JAX
+package and this one is state: the L1 builder's and the L2 map's. These
+functions take that state as numpy arrays (e.g. ``np.asarray`` of the JAX
+fields), so the port can continue a run from the same mid-run state.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from eorb_slam_tpu_torch.event.builder import EventWindowBuilder
+from eorb_slam_tpu_torch.slam.map_state import MapState, empty_map
 
 
 def cam_from_numpy(cam, device=None) -> torch.Tensor:
@@ -57,3 +58,19 @@ def builder_state_from_numpy(builder: EventWindowBuilder, state: dict) -> None:
         builder._last_score = float(state["last_score"])
     if "cam" in state:
         builder.cam = cam_from_numpy(state["cam"], dev)
+
+
+def map_state_from_numpy(arrays, device=None) -> MapState:
+    """A map given as numpy arrays, one per ``MapState`` field (e.g.
+    ``{k: np.asarray(v) for k, v in jax_map._asdict().items()}``) -> the
+    port's MapState on ``device``, with the same shapes and dtypes."""
+    dtypes = map_state_to_numpy(empty_map(1, 1, 1, 1))
+    return MapState(**{
+        k: torch.from_numpy(np.array(arrays[k], dtype=dtypes[k].dtype)).to(device)
+        for k in MapState._fields
+    })
+
+
+def map_state_to_numpy(m: MapState) -> dict:
+    """The port's MapState -> {field: numpy array} on the host."""
+    return {k: v.cpu().numpy() for k, v in m._asdict().items()}

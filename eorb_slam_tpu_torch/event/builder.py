@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from eorb_slam_tpu_torch._host import HostCopy
 from eorb_slam_tpu_torch.event import contrast_max, klt, tensorize
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.ops import fast
@@ -48,6 +49,9 @@ class BuilderConfig:
     #                                    temporal-strided subset estimates the
     #                                    mean-over-events gradient; the final
     #                                    warp/splat always uses all events)
+    max_window_events: int = 65536     # static capacity of the L2 window
+    #                                    (build_mci's; step_window pads per
+    #                                    chunk and does not read it)
     n_klt_pts: int = 128               # FAST corners tracked per chunk
     overlap: float = 0.5               # re-injection fraction per window
 
@@ -291,12 +295,9 @@ class EventWindowBuilder:
         windows as the device is behind the host."""
         if self._pending_meta is None:
             return
-        host, done = self._pending_meta
-        if done is not None:
-            if not block and not done.query():
-                return
-            done.synchronize()
-        meta = host.numpy()
+        if not block and not self._pending_meta.ready():
+            return
+        meta = self._pending_meta.numpy()
         self._pending_meta = None
         L = self.cfg.l1_num_loop
         best_i = int(meta[0])
@@ -308,16 +309,6 @@ class EventWindowBuilder:
             med = float(np.median(mds))
             self.last_med_disp = med
             self._adapt_chunk_size(med)
-
-    def _post_meta(self, meta: torch.Tensor) -> None:
-        if meta.is_cuda:
-            host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
-            host.copy_(meta, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            self._pending_meta = (host, done)
-        else:
-            self._pending_meta = (meta, None)
 
     def _to_dev(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype).to(self.device, non_blocking=True)
@@ -389,7 +380,7 @@ class EventWindowBuilder:
             cm_iters=cfg.cm_iters, cm_stride=cm_stride,
         )
         self._win_carry = (img_l, pts_l, ok_l)
-        self._post_meta(meta)
+        self._pending_meta = HostCopy(meta)
         self.stats["windows"] += 1
 
         n_keep = int(len(win) * cfg.overlap)

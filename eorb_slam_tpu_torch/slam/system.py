@@ -1,0 +1,578 @@
+"""Monocular SLAM system facade: host orchestration over tensor steps.
+
+PyTorch port of the synchronous path of ``eorb_slam_tpu/slam/system.py``
+(reference System + the Tracking state machine + the LocalMapping thread):
+the host keeps small Python/numpy state (mode, keyframe order, cursors,
+trajectory log) and every compute step — extraction, init matching,
+two-view reconstruction, tracking, triangulation, local BA — runs on the
+device of the camera tensor. One (2,) read per frame carries the tracking
+decision; a mapping step's stats and the keyframe-redundancy ranking travel
+to the host behind pinned non-blocking copies and are read at the next
+keyframe.
+
+States: NOT_INITIALIZED -> OK -> (RECENTLY_LOST -> LOST handling).
+
+Not ported yet (each raises NotImplementedError): the pipelined
+speculation (``pipelined=True``), loop closing (``loop_words``) and with it
+the BoW relocalization and map merging, and ``MixedMonoSlam``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from eorb_slam_tpu_torch._host import HostCopy
+from eorb_slam_tpu_torch.geometry import camera as cam_mod
+from eorb_slam_tpu_torch.geometry import lie, twoview
+from eorb_slam_tpu_torch.ops import frontend, matching
+from eorb_slam_tpu_torch.slam import atlas as atlas_mod
+from eorb_slam_tpu_torch.slam import local_mapping, map_state, relocalization, tracking
+
+NOT_INITIALIZED = 0
+OK = 1
+LOST = 2
+RECENTLY_LOST = 3
+
+
+@dataclasses.dataclass
+class FrameInput:
+    """Pre-extracted features for one frame (undistorted coords)."""
+
+    ts: float
+    xy_ud: torch.Tensor       # (N,2)
+    octave: torch.Tensor      # (N,)
+    angle: torch.Tensor       # (N,)
+    desc_pm1: torch.Tensor    # (N,256) int8
+    valid: torch.Tensor       # (N,)
+
+
+class MonoSlam:
+    """Monocular ORB-SLAM-class pipeline over fixed-capacity map tensors."""
+
+    def __init__(
+        self,
+        cam_params,
+        img_w: int = 752,
+        img_h: int = 480,
+        K: int = 32,
+        M: int = 4096,
+        N: int = 512,
+        P: int = 8,
+        local_window: int = 5,
+        min_init_matches: int = 80,
+        min_init_triangulated: Optional[int] = None,
+        min_track_inliers: int = 15,
+        kf_inlier_ratio: float = 0.7,
+        max_frames_between_kf: int = 10,
+        seed: int = 0,
+        loop_words=None,
+        pipelined: bool = False,
+        device=None,
+    ):
+        if pipelined:
+            raise NotImplementedError(
+                "pipelined speculation is not ported yet (pipelined=False)")
+        if loop_words is not None:
+            raise NotImplementedError("loop closing is not ported yet")
+        self.device = torch.device(device if device is not None else "cpu")
+        self.cam = torch.as_tensor(cam_params, dtype=torch.float32).to(self.device)
+        self.img_w, self.img_h = img_w, img_h
+        self.atlas = atlas_mod.Atlas(K=K, M=M, N=N, P=P, device=self.device)
+        self.state = NOT_INITIALIZED
+        # keyframe lifecycle (KeyFrameCulling + slot reuse): the active
+        # keyframes are an ordered list of slots (temporal order); capacity
+        # K is a window, not a run-length limit
+        self._kf_order: list[int] = []
+        self.kf_culled = 0
+        self.cull_redundancy = 0.9   # >=90% of obs seen in >=3 other KFs
+        self.kf_protect_recent = 3   # never cull the newest KFs
+        self.cull_enabled = True     # periodic redundancy culling
+        # fusion and the descriptor refresh only run at >= 320 px (neither
+        # is ported yet: keyframe_mapping_step raises when asked)
+        self.fuse_enabled = img_w >= 320
+        self.desc_refresh = img_w >= 320
+        self.local_window = local_window
+        self.min_init_matches = min_init_matches
+        self.min_init_triangulated = (
+            min_init_triangulated
+            if min_init_triangulated is not None
+            else max(50, min_init_matches // 2)
+        )
+        self.min_track_inliers = min_track_inliers
+        self.kf_inlier_ratio = kf_inlier_ratio
+        self.max_frames_between_kf = max_frames_between_kf
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+
+        self._init_frame: Optional[FrameInput] = None
+        self.T_last = self._eye4()
+        self.velocity = self._eye4()  # T_curr @ inv(T_last)
+        self.frames_since_kf = 0
+        self.n_inliers_ref = 0
+        self.trajectory: list = []    # (ts, T_rel or None, ref slot)
+        self.stats = {"kf": 0, "lm": 0, "frames": 0, "lost": 0}
+        # failure recovery (reference RECENTLY_LOST grace + CreateMapInAtlas)
+        self.lost_frames = 0
+        self.lost_grace = 5
+        # maps smaller than this are RESET on irrecoverable loss instead of
+        # stored in the Atlas
+        self.min_kf_store = 10
+        self._traj_frozen: list = []
+        # the mapping step's stats and the next culling pass's redundancy
+        # ranking travel to the host in the background (HostCopy) and are
+        # read at the next keyframe
+        self._pending_map_stats: Optional[HostCopy] = None
+        self._pending_redundancy: Optional[HostCopy] = None
+
+    def _eye4(self) -> torch.Tensor:
+        return torch.eye(4, dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------- map/atlas
+
+    @property
+    def map(self) -> map_state.MapState:
+        return self.atlas.current
+
+    @map.setter
+    def map(self, m: map_state.MapState) -> None:
+        self.atlas.current = m
+
+    # -------------------------------------------------- keyframe lifecycle
+
+    @property
+    def n_kf(self) -> int:
+        return len(self._kf_order)
+
+    @n_kf.setter
+    def n_kf(self, v: int) -> None:
+        """Assigning n_kf = v declares slots 0..v-1 active in temporal order
+        (the init paths, which always build into a fresh map)."""
+        self._kf_order = list(range(v))
+
+    def _kf_ref(self) -> int:
+        return self._kf_order[-1] if self._kf_order else 0
+
+    def _alloc_kf_slot(self) -> int:
+        """Next free keyframe slot; culls a keyframe to make room when the
+        map is at capacity."""
+        active = set(self._kf_order)
+        K = self.map.K
+        if len(active) < K:
+            for s in range(K):
+                if s not in active:
+                    return s
+        slot = self._cull_keyframes(force=True)
+        assert slot is not None and slot >= 0
+        return slot
+
+    def _cull_keyframes(self, force: bool = False):
+        """KeyFrameCulling: remove the most redundant keyframe if
+        >= `cull_redundancy` of its observations are covered by >= 3 other
+        keyframes. With force=True a slot is ALWAYS freed (the oldest
+        non-origin KF goes if none is redundant). Returns the slot or None."""
+        order = self._kf_order
+        if not force and not self.cull_enabled:
+            return None
+        if not force and len(order) <= max(self.kf_protect_recent + 1, 3):
+            return None
+        if self._pending_redundancy is not None:
+            # prefetched at the last keyframe insertion; not cleared on read
+            # (a periodic and a forced cull in one insertion share it)
+            packed = self._pending_redundancy.numpy()
+        else:
+            frac, total = map_state.keyframe_redundancy(self.map)
+            packed = torch.cat([frac, total.to(torch.float32)]).cpu().numpy()
+        frac, total = packed[: self.map.K], packed[self.map.K:]
+        protect = self.kf_protect_recent
+        if force:
+            protect = min(protect, max(len(order) - 2, 0))
+        cand = order[1 : len(order) - protect]
+        if not cand:
+            if not force:
+                return None
+            cand = order[1:] or order[:1]
+        best_frac, best_slot = max((frac[s], s) for s in cand)
+        redundant = best_frac >= self.cull_redundancy or total[best_slot] == 0
+        if not redundant:
+            if not force:
+                return None
+            best_slot = cand[0]
+        self._resolve_trajectory_refs(best_slot)
+        self.map = map_state.remove_keyframe(self.map, best_slot)
+        self._pending_redundancy = None   # ranking is stale once a KF left
+        order.remove(best_slot)
+        self.kf_culled += 1
+        self.stats["kf_culled"] = self.kf_culled
+        self.stats["kf"] = self.n_kf
+        return best_slot
+
+    def _resolve_trajectory_refs(self, slot: int) -> None:
+        """Trajectory entries are stored relative to a reference KF slot;
+        before that slot is culled/reused, bake them into absolute poses
+        (ref == -2 marks an absolute Tcw entry), on the device."""
+        hit = [i for i, (_, T_rel, ref) in enumerate(self.trajectory)
+               if ref == slot and T_rel is not None]
+        if not hit:
+            return
+        baked = (torch.stack([self._dev(self.trajectory[i][1]) for i in hit])
+                 @ self.map.kf_T[slot])
+        for j, i in enumerate(hit):
+            self.trajectory[i] = (self.trajectory[i][0], baked[j], -2)
+
+    def _dev(self, x) -> torch.Tensor:
+        # non_blocking: a host array is staged at once, the device stream
+        # is not drained for it
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device,
+                                                          non_blocking=True)
+
+    # ---------------------------------------------------------------- input
+
+    def process_image(self, img: torch.Tensor, ts: float,
+                      max_kp: Optional[int] = None):
+        if max_kp is None:
+            max_kp = self.map.N  # frame capacity == extraction budget
+        if self.state == OK:
+            # fused path: extraction + prediction + tracking in one call
+            ref = self._kf_ref()
+            res, feats, xy_ud, flags, vel_new, T_rel = tracking.track_image_frame(
+                img, self.cam, self.map, self.velocity, self.T_last,
+                self.map.kf_T[ref], max_kp=max_kp,
+                img_w=self.img_w, img_h=self.img_h,
+            )
+            f = FrameInput(ts, xy_ud, feats.octave, feats.angle,
+                           feats.desc_pm1, feats.valid)
+            self.stats["frames"] += 1
+            return self._track_post(f, res, flags, fused=(vel_new, T_rel, ref))
+        feats = frontend.extract(img, max_kp=max_kp)
+        xy_ud = cam_mod.undistort_points(self.cam, feats.xy)
+        return self.process_features(
+            FrameInput(ts, xy_ud, feats.octave, feats.angle,
+                       feats.desc_pm1, feats.valid)
+        )
+
+    def process_features(self, f: FrameInput):
+        self.stats["frames"] += 1
+        if self.state == NOT_INITIALIZED:
+            return self._try_initialize(f)
+        return self._track(f)
+
+    # ----------------------------------------------------------------- init
+
+    def _try_initialize(self, f: FrameInput):
+        if self._init_frame is None:
+            self._init_frame = f
+            return {"state": self.state, "n": 0}
+        ref = self._init_frame
+
+        m12, _ = tracking.match_for_initialization(
+            ref.desc_pm1, ref.valid, ref.xy_ud,
+            f.desc_pm1, f.valid, f.xy_ud,
+        )
+        matched = m12 >= 0
+        n = int(matched.sum())
+        if n < self.min_init_matches:
+            # too few matches: slide the reference frame
+            self._init_frame = f
+            return {"state": self.state, "n": n}
+
+        idx2 = torch.where(matched, m12, 0).long()
+        res = twoview.reconstruct_two_views(
+            self.cam, ref.xy_ud, f.xy_ud[idx2], matched, self.generator,
+            min_triangulated=self.min_init_triangulated,
+        )
+        if not bool(res.success):
+            return {"state": self.state, "n": n}
+
+        # initial map: median-depth normalization (reference
+        # CreateInitialMapMonocular scales by inverse median depth)
+        good = res.is_triangulated.cpu().numpy()
+        pts = res.pts3d.cpu().numpy()
+        med_depth = float(np.median(pts[good, 2]))
+        scale = 1.0 / max(med_depth, 1e-6)
+        pts_s = self._dev(pts * scale)
+        T2 = res.Tcw2.cpu().numpy().copy()
+        T2[:3, 3] *= scale
+
+        N = ref.xy_ud.shape[0]
+        dev = self.device
+        feat_ids = torch.arange(N, dtype=torch.int32, device=dev)
+        no_lm = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        m = self.map
+        m = map_state.insert_keyframe(
+            m, 0, self._eye4(), ref.ts, ref.xy_ud, ref.octave,
+            ref.angle, ref.desc_pm1, ref.valid, no_lm,
+        )
+        m = map_state.insert_keyframe(
+            m, 1, self._dev(T2), f.ts, f.xy_ud, f.octave,
+            f.angle, f.desc_pm1, f.valid, no_lm,
+        )
+        ok = res.is_triangulated & matched
+        m, _ = map_state.alloc_landmarks(
+            m, pts_s, ref.desc_pm1, ok, 0, feat_ids, 1, idx2,
+        )
+        self.map = m
+        self.n_kf = 2
+
+        # init BA: optimize KF1 + landmarks, KF0 fixed (gauge)
+        kf_free = torch.zeros(self.map.K, dtype=torch.bool, device=dev)
+        kf_free[1] = True
+        self.map, _, _ = local_mapping.local_ba(
+            self.map, self.cam, kf_free, iters=10,
+            refresh_desc=self.desc_refresh,
+        )
+        # re-normalize scale after init BA (the monocular scale gauge is
+        # free with a single fixed pose); every active KF translation scales
+        lmv = self.map.lm_valid.cpu().numpy()
+        depths = self.map.lm_pos.cpu().numpy()[lmv, 2]
+        s2 = 1.0 / max(float(np.median(depths)), 1e-6)
+        kf_T2 = self.map.kf_T.cpu().numpy().copy()
+        kf_T2[:, :3, 3] *= s2
+        self.map = self.map._replace(
+            lm_pos=self.map.lm_pos * s2, kf_T=self._dev(kf_T2))
+
+        self.state = OK
+        self.T_last = self.map.kf_T[1]
+        self.velocity = self._eye4()
+        self.frames_since_kf = 0
+        self.n_inliers_ref = int(ok.sum())
+        self._log_pose(f.ts, self.T_last)
+        self.stats["kf"] = 2
+        self.stats["lm"] = int(self.map.lm_valid.sum())
+        return {"state": self.state, "n": n, "n_pts": self.stats["lm"]}
+
+    # ---------------------------------------------------------------- track
+
+    def _track(self, f: FrameInput):
+        res = tracking.track_frame(
+            self.map, self.cam, f.xy_ud, f.octave, f.desc_pm1, f.valid,
+            self.velocity @ self.T_last, img_w=self.img_w, img_h=self.img_h,
+        )
+        return self._track_post(f, res, tracking.track_flags(res))
+
+    def _track_post(self, f: FrameInput, res, flags, fused=None):
+        n_inl, finite = (float(x) for x in flags.cpu().numpy())
+        n_inl = int(n_inl)
+
+        if n_inl < self.min_track_inliers:
+            # wider re-search around the last pose (the motion model may be
+            # off; reference falls back to TrackReferenceKeyFrame)
+            res = tracking.track_frame(
+                self.map, self.cam, f.xy_ud, f.octave, f.desc_pm1, f.valid,
+                self.T_last, img_w=self.img_w, img_h=self.img_h,
+                search_radius=40.0, nn_ratio=0.95,
+            )
+            n_inl, finite = (float(x) for x in
+                             tracking.track_flags(res).cpu().numpy())
+            n_inl = int(n_inl)
+            if n_inl < self.min_track_inliers:
+                return self._handle_lost(f, n_inl)
+            fused = None
+
+        if not finite:
+            # a degenerate GN solve must not poison T_last / the trajectory
+            return self._handle_lost(f, 0)
+
+        self.lost_frames = 0
+        self.state = OK
+        Tcw = res.Tcw
+        if fused is not None and fused[2] == self._kf_ref():
+            self.velocity, T_rel, ref = fused
+        else:
+            ref = self._kf_ref()
+            self.velocity = Tcw @ lie.se3_inv(self.T_last)
+            T_rel = Tcw @ lie.se3_inv(self.map.kf_T[ref])
+        self.T_last = Tcw
+        self.frames_since_kf += 1
+        # the trajectory entry stays on the device; readers pull in batch
+        self.trajectory.append((f.ts, T_rel, ref))
+
+        # keyframe policy (simplified NeedNewKeyFrame; capacity never gates
+        # insertion — KeyFrameCulling frees slots)
+        need_kf = (
+            n_inl < self.kf_inlier_ratio * max(self.n_inliers_ref, 1)
+            or self.frames_since_kf >= self.max_frames_between_kf
+        )
+        out = {"state": self.state, "n_inliers": n_inl, "kf": False}
+        if need_kf:
+            self._insert_keyframe(f, res, n_inl)
+            # n_lm lags one keyframe: the mapping stats are read at the next
+            # drain so tracking never waits for the BA
+            out.update(kf=True, n_lm=self.stats["lm"])
+        return out
+
+    # ------------------------------------------------------------- recovery
+
+    def _handle_lost(self, f: FrameInput, n_inl: int):
+        """Graded recovery: RECENTLY_LOST attempts relocalization for a grace
+        window, then the Atlas resets a tiny active map or stores it and
+        starts fresh (CreateMapInAtlas)."""
+        self._drain_mapping()
+        self.stats["lost"] += 1
+        self.lost_frames += 1
+
+        T_rel, n_rel = self._relocalize(f)
+        if T_rel is not None:
+            self.state = OK
+            self.lost_frames = 0
+            self.velocity = self._eye4()
+            self.T_last = T_rel
+            self._log_pose(f.ts, T_rel)
+            return {"state": self.state, "n_inliers": n_rel, "reloc": True}
+
+        if self.lost_frames <= self.lost_grace:
+            self.state = RECENTLY_LOST
+            # retry from the LAST pose, not an extrapolation of it
+            self.velocity = self._eye4()
+            self._log_pose(f.ts, None)
+            return {"state": self.state, "n_inliers": n_inl}
+
+        # irrecoverable: multi-map recovery
+        self._freeze_trajectory()
+        if self.n_kf < self.min_kf_store:
+            self.atlas.reset_active()
+        else:
+            self.atlas.create_new_map()
+        self.state = NOT_INITIALIZED
+        self.n_kf = 0
+        self.lost_frames = 0
+        self._init_frame = f
+        self.T_last = self._eye4()
+        self.velocity = self._eye4()
+        self.n_inliers_ref = 0
+        return {"state": self.state, "n_inliers": n_inl, "new_map": True}
+
+    def _relocalize(self, f: FrameInput):
+        """Relocalization by global landmark matching + PnP RANSAC (the
+        reference's vocabulary-less fallback; the BoW keyframe-database
+        route waits for loop closing)."""
+        m = self.map
+        if int(m.lm_valid.sum()) < 30:
+            return None, 0
+        feat_lm, _ = matching.match_nnratio(
+            f.desc_pm1, f.valid, m.lm_desc_pm1, m.lm_valid,
+            pair_mask=None, max_dist=matching.TH_LOW, nn_ratio=0.75,
+            mutual=True,
+        )
+        matched = feat_lm >= 0
+        min_inl = max(self.min_track_inliers, 12)
+        if int(matched.sum()) < min_inl:
+            return None, 0
+        pts = m.lm_pos[torch.where(matched, feat_lm, 0).long()]
+        res = relocalization.pnp_ransac(
+            self.cam, pts, f.xy_ud, matched, self.generator,
+            min_inliers=min_inl,
+        )
+        if not bool(res.ok):
+            return None, int(res.n_inliers)
+        return res.Tcw, int(res.n_inliers)
+
+    # --------------------------------------------------------- trajectory
+
+    def _pull_trajectory_rows(self) -> dict:
+        """Every device-resident trajectory row in ONE transfer."""
+        ent = self.trajectory
+        idx = [i for i, (_, T_rel, _) in enumerate(ent) if T_rel is not None]
+        if not idx:
+            return {}
+        arr = torch.stack([self._dev(ent[i][1]) for i in idx]).cpu().numpy()
+        return dict(zip(idx, arr))
+
+    def _freeze_trajectory(self):
+        """Resolve all relative trajectory entries against the CURRENT map's
+        keyframes before switching maps (they reference its slots)."""
+        kf_T = self.map.kf_T.cpu().numpy()
+        rows = self._pull_trajectory_rows()
+        for i, (ts, T_rel, ref) in enumerate(self.trajectory):
+            if T_rel is not None:
+                Tcw = rows[i] if ref == -2 else rows[i] @ kf_T[ref]
+                self._traj_frozen.append((ts, np.linalg.inv(Tcw)))
+        self.trajectory = []
+
+    def _ba_window(self) -> torch.Tensor:
+        """(K,) bool mask of poses the local BA may move: the newest
+        `local_window` keyframes, minus at least TWO older keyframes kept
+        fixed so the monocular scale gauge is pinned."""
+        order = self._kf_order
+        kf_free = np.zeros(self.map.K, bool)
+        for s in order[max(2, len(order) - self.local_window):]:
+            kf_free[s] = True
+        return torch.from_numpy(kf_free).to(self.device, non_blocking=True)
+
+    # -------------------------------------------------------------- mapping
+
+    def _drain_mapping(self):
+        """The previous mapping step's deferred host work: read its stats
+        and run the postponed KeyFrameCulling pass."""
+        if self._pending_map_stats is None:
+            return
+        st = self._pending_map_stats.numpy()
+        self._pending_map_stats = None
+        self.stats["lm"] = int(st[0])
+        self.stats["ba"] = {
+            "opt_kf": int(st[4]), "fixed_kf": int(st[5]),
+            "edges": int(st[6]), "cost0": float(st[2]), "cost": float(st[3]),
+        }
+        self._cull_keyframes()
+
+    def _insert_keyframe(self, f: FrameInput, res: tracking.TrackResult,
+                         n_inl: int):
+        self._drain_mapping()
+        slot = self._alloc_kf_slot()
+        order = self._kf_order
+        # triangulation partners: the 4 most recent keyframes, padded with
+        # `slot` (self-pairs are no-ops)
+        tri = [order[-k] if k <= len(order) else slot for k in range(1, 5)]
+        fuse_nb = list(order[-4:-1]) if self.fuse_enabled else []
+        fuse_nb += [slot] * (3 - len(fuse_nb))
+
+        self._kf_order.append(slot)
+        self.frames_since_kf = 0
+        self.n_inliers_ref = n_inl
+
+        self.map, T_new, stats = local_mapping.keyframe_mapping_step(
+            self.map, self.cam, slot, res.Tcw, f.ts, f.xy_ud, f.octave,
+            f.angle, f.desc_pm1, f.valid, res.feat_lm, tri, fuse_nb,
+            self._ba_window(), do_fuse=self.fuse_enabled,
+            refresh_desc=self.desc_refresh,
+        )
+        self.T_last = T_new
+        self.stats["kf"] = self.n_kf
+        # stats and the next cull's redundancy ranking go to the host in the
+        # background; the next keyframe reads them
+        self._pending_map_stats = HostCopy(stats)
+        frac, total = map_state.keyframe_redundancy(self.map)
+        self._pending_redundancy = HostCopy(
+            torch.cat([frac, total.to(torch.float32)]))
+
+    # ------------------------------------------------------------- output
+    #
+    # Each frame stores its pose RELATIVE to the current reference keyframe
+    # (reference FrameInfo + SaveTrajectoryEuRoC); absolute poses are
+    # recomposed at output time from the keyframe's latest pose, so BA
+    # refinements correct the whole trajectory.
+
+    def _log_pose(self, ts: float, Tcw):
+        if Tcw is None:
+            self.trajectory.append((ts, None, -1))
+            return
+        ref = self._kf_ref()
+        T_rel = (Tcw @ lie.se3_inv(self.map.kf_T[ref])).cpu().numpy()
+        self.trajectory.append((ts, T_rel, ref))
+
+    def trajectory_twc(self):
+        """[(ts, Twc 4x4)] for evaluation (camera-to-world). Entries from
+        earlier Atlas maps were frozen at map-switch time; current-map
+        entries recompose against the latest keyframe poses."""
+        self._drain_mapping()
+        kf_T = self.map.kf_T.cpu().numpy()
+        rows = self._pull_trajectory_rows()
+        out = list(self._traj_frozen)
+        for i, (ts, T_rel, ref) in enumerate(self.trajectory):
+            if T_rel is not None:
+                Tcw = rows[i] if ref == -2 else rows[i] @ kf_T[ref]
+                out.append((ts, np.linalg.inv(Tcw)))
+        out.sort(key=lambda e: e[0])
+        return out

@@ -24,6 +24,13 @@ def test_port_imports_without_jax():
     mods = _port_modules()
     assert "eorb_slam_tpu_torch.ops.hopper_splat" in mods
     assert "eorb_slam_tpu_torch.event.builder" in mods
+    for name in ("optim.robust", "optim.linalg", "optim.reprojection",
+                 "optim.pose_only", "optim.schur_ba", "ops.matching",
+                 "geometry.triangulation", "geometry.twoview",
+                 "slam.map_state", "slam.tracking", "slam.local_mapping",
+                 "slam.relocalization", "slam.atlas", "slam.system",
+                 "slam.event_system", "convert", "_host"):
+        assert f"eorb_slam_tpu_torch.{name}" in mods, name
     code = "\n".join([
         "import sys, importlib",
         "for name in ('jax', 'jaxlib', 'eorb_slam_tpu'):",

@@ -164,6 +164,19 @@ def test_slice_mid_stream_through_convert():
     _compare_windows(jbld, tbld, 3)
 
 
+def test_builder_config_fields_match_jax():
+    """Every field of the JAX BuilderConfig exists in the port's, with the
+    same default, so a JAX config passes as keyword arguments."""
+    import dataclasses
+
+    jf = {f.name: f.default for f in dataclasses.fields(jb.BuilderConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(tb.BuilderConfig)}
+    assert tf == jf
+    cfg = dataclasses.asdict(jb.BuilderConfig(l1_chunk_size=1500,
+                                              max_window_events=16384))
+    assert dataclasses.asdict(tb.BuilderConfig(**cfg)) == cfg
+
+
 def test_pad_events_matches_jax():
     ev = _stream(seconds=0.002)
     for cap, t0 in ((4096, None), (len(ev) // 2, None), (len(ev) + 10, 0.0005)):
