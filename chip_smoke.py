@@ -1,5 +1,7 @@
-"""Drive the PyTorch/CUDA port on one GPU: build the splat kernel, hold it
-against its plain PyTorch version, run the L1 event front-end slice (event
+"""Drive the PyTorch/CUDA port on one GPU: build the splat kernels (forward
+and gather VJP, each in its identity and SE2-warp form), hold them against
+their plain PyTorch versions, time the contrast-maximization ascent that
+calls them, run the L1 event front-end slice (event
 stream -> EventWindowBuilder.step_window -> MCI -> ORB extract), hold L2
 tracking and local BA on the card against the CPU from the same map, then
 run EVENT_ONLY end to end (slam/event_system.EventSlam: L1 + MonoSlam
@@ -9,8 +11,10 @@ tracking, mapping and Schur BA) at DAVIS240 size and shakes density
     python3 chip_smoke.py
 
 Every phase raises on failure and the script then exits non-zero. Output:
-the card's name and power limit, the kernel's build time, the kernel-vs-
-plain comparisons and times, the L1 slice's windows/s, the L2 cuda-vs-cpu
+the card's name and power limit, the kernels' build time, the kernel-vs-
+plain comparisons and times (by CUDA events around eager calls, and device
+only: a CUDA-graph replay and the profiler's time by kernel name), the
+ascent's time and launches per call, the L1 slice's windows/s, the L2 cuda-vs-cpu
 agreement, EventSlam's MCIs/s, real-time factor and ms per MCI by phase,
 then one JSON line describing the kernels and, last, the device line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -28,12 +32,23 @@ import torch
 
 H, W = 180, 240
 SIGMA, TRUNC = 1.0, 2.5
-KERNEL_NS = (8192, 32768, 65536)
+KERNEL_NS = (8192, 16384, 32768, 65536)
+MAIN_N = 16384      # the shape of 125 of a window's 129 splat calls
 FWD_TOL = 1e-5      # x max|ref|: f32 atomics sum in a run-dependent order
-GRAD_TOL = 1e-4     # x max|ref|
+GRAD_TOL = 1e-4     # x max|ref|: per-event sums of <= 36 f32 terms, and for
+#                     dL/dparams a sum over all N events, in another order
+CM_ITERS = 40       # BuilderConfig.cm_iters
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+F32_FLOPS = 67e12            # f32 outside the tensor cores, published
+# operations per event that reaches the image: 12 Gaussians (sub, 2 mul, exp)
+# and 36 taps (forward: product, add; VJP: 3 sums of product, add), plus
+# ~20 for the SE2 warp and its chain rule
+FWD_OPS, VJP_OPS = 12 * 4 + 36 * 2 + 20, 12 * 4 + 36 * 6 + 40
 RATE = 4_000_000    # events/s after the in-image cut (shakes density)
 WARM_S, RUN_S = 0.1, 0.25             # L1 slice
 EV_WARM_S, EV_RUN_S, EV_PHASE_S = 0.2, 0.4, 0.1   # EventSlam
+EV_PHASE_TIMED = 12      # MCIs of the phase pass under timers; the rest (~4)
+#                          run under the profiler
 PACKET = 40_000          # events per EventSlam.track_events call (10 ms)
 L2_KW = dict(K=24, M=2048, P=8)          # EventSlam's defaults
 L2_TRACK_AGREE = 0.98   # feat_lm equal on >= 98% of the features
@@ -76,6 +91,58 @@ def _time_ms(fn, reps=20, trials=7) -> float:
     return float(np.median(times))
 
 
+def _device_ms(fn, reps=100, trials=5) -> float:
+    """Device time per call with the host out of the way: ``reps`` calls
+    captured in one CUDA graph (which also shows the call allocates through
+    torch only, never synchronises and reads nothing back), replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def _profile(fn):
+    """Run ``fn`` under torch.profiler. Returns (fn's result, {device
+    activity name: (count, total device microseconds)}): kernels, memsets
+    and copies as the card saw them (empty if ``fn`` launched nothing)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            per[e.key] = (e.count, float(us))
+    return out, per
+
+
+def _matching(per, *words):
+    """(count, total us) of the profiled device activities whose name holds
+    every one of ``words``."""
+    hit = [v for k, v in per.items() if all(w in k for w in words)]
+    return sum(c for c, _ in hit), sum(us for _, us in hit)
+
+
 def _kernel_events(n, seed):
     """Events as the main path makes them: mostly in the image, some up to
     3 px outside, some parked far away, +-inf from the DPose warp at z~0,
@@ -95,66 +162,257 @@ def _kernel_events(n, seed):
             torch.tensor(w, dtype=torch.float32, device="cuda"))
 
 
-def check_kernel():
-    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
-    from eorb_slam_tpu_torch.ops import hopper_splat
+def _se2_events(n, seed):
+    """Unwarped events as the contrast-maximization ascent sees them: in the
+    image, times relative to the end of a 12 ms window, 15% invalid, and a
+    flow that moves an event by up to ~3 px."""
+    rng = np.random.default_rng(seed)
+    xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1)
+    t = np.sort(rng.uniform(-0.012, 0.0, n))
+    valid = rng.random(n) < 0.85
+    return (torch.tensor(xy, dtype=torch.float32, device="cuda"),
+            torch.tensor(t, dtype=torch.float32, device="cuda"),
+            torch.tensor(valid, device="cuda"),
+            torch.tensor([1.5, 220.0, -130.0], device="cuda"))
 
+
+def _held(got, ref, tol, what):
+    """Max abs error of ``got`` over ``ref``'s finite entries; raises if the
+    two are not finite in the same places or differ by more than
+    tol * max|ref|."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise RuntimeError(f"{what}: finiteness differs from the plain version")
+    err = float((got[fin] - ref[fin]).abs().max())
+    scale = float(ref[fin].abs().max())
+    if not err <= tol * scale:
+        raise RuntimeError(f"{what}: max abs {err} > {tol} * {scale}")
+    return err
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bound(n, n_active, se2, vjp):
+    """(bound ms, "bytes" | "operations"): each input read once, each output
+    written once, over the card's memory rate, against the operations of
+    the ``n_active`` events that reach the image over its f32 rate."""
+    events = (8 + 4 + 1) * n + 12 if se2 else (8 + 4) * n   # xy, t, mask, params | xy, w
+    if vjp:
+        nbytes = 4 * H * W + events + (12 if se2 else 12 * n)
+    else:
+        nbytes = events + 4 * H * W
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = n_active * (VJP_OPS if vjp else FWD_OPS) / F32_FLOPS
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _contrast_grad(splat_fn, params):
+    """d(variance of the image)/dparams, as contrast_max._contrast forms it."""
+    p = params.clone().requires_grad_(True)
+    img = splat_fn(p)
+    (g,) = torch.autograd.grad(torch.mean((img - torch.mean(img)) ** 2), p)
+    return g
+
+
+def check_kernel():
+    """Both kernels, both forms, against their plain versions at every N;
+    then their times. Returns one row per N."""
+    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable, warp_se2
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    center = (W / 2.0, H / 2.0)
+    cfg = (H, W, SIGMA, TRUNC)
     rows = []
     for n in KERNEL_NS:
+        # ---- identity form: forward, VJP (g_xy, g_w), determinism
         xy, w = _kernel_events(n, seed=n)
-        ref = _splat_gauss_separable(xy, w, H, W, SIGMA, TRUNC)
-        got = hopper_splat.splat(xy, w, H, W, SIGMA, TRUNC)
+        ref = _splat_gauss_separable(xy, w, *cfg)
+        got = hs.splat(xy, w, *cfg)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"N={n}: kernel output not finite")
-        scale = float(ref.abs().max())
-        err = float((got - ref).abs().max())
-        if err > FWD_TOL * scale:
-            raise RuntimeError(f"N={n}: forward max abs {err} > {FWD_TOL} * {scale}")
-
+        err = _held(got, ref, FWD_TOL, f"N={n} forward")
         g = torch.randn(H, W, device="cuda", generator=torch.Generator("cuda").manual_seed(n))
-        xk = xy.clone().requires_grad_(True)
-        wk = w.clone().requires_grad_(True)
-        gk = torch.autograd.grad(hopper_splat.splat(xk, wk, H, W, SIGMA, TRUNC),
-                                 (xk, wk), g)
-        xp = xy.clone().requires_grad_(True)
-        wp = w.clone().requires_grad_(True)
-        gp = torch.autograd.grad(_splat_gauss_separable(xp, wp, H, W, SIGMA, TRUNC),
-                                 (xp, wp), g)
-        gerr = []
-        for a, b, name in zip(gk, gp, ("xy", "w")):
-            fin = torch.isfinite(b)
-            if not torch.equal(torch.isfinite(a), fin):
-                raise RuntimeError(f"N={n}: grad {name} finiteness differs")
-            e = float((a[fin] - b[fin]).abs().max())
-            s = float(b[fin].abs().max())
-            if e > GRAD_TOL * s:
-                raise RuntimeError(f"N={n}: grad {name} max abs {e} > {GRAD_TOL} * {s}")
-            gerr.append(e)
+        xk, wk = xy.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        img_k = hs.splat(xk, wk, *cfg)
+        gk = torch.autograd.grad(img_k, (xk, wk), g, retain_graph=True)
+        gk2 = torch.autograd.grad(img_k, (xk, wk), g, retain_graph=True)
+        xp, wp = xy.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        gp = torch.autograd.grad(_splat_gauss_separable(xp, wp, *cfg), (xp, wp), g)
+        gerr = [_held(a, b, GRAD_TOL, f"N={n} VJP g_{name}")
+                for a, b, name in zip(gk, gp, ("xy", "w"))]
+        if not all(_same_bits(a, b) for a, b in zip(gk, gk2)):
+            raise RuntimeError(f"N={n}: two VJP calls differ")
 
-        ms = _time_ms(lambda: hopper_splat.splat(xy, w, H, W, SIGMA, TRUNC))
-        plain_ms = _time_ms(lambda: _splat_gauss_separable(xy, w, H, W, SIGMA, TRUNC))
-        ms2 = _time_ms(lambda: hopper_splat.splat(xy, w, H, W, SIGMA, TRUNC))
-        plain_ms2 = _time_ms(lambda: _splat_gauss_separable(xy, w, H, W, SIGMA, TRUNC))
-        row = dict(n=n, max_abs_err=err, max_ref=scale, grad_xy_err=gerr[0],
-                   grad_w_err=gerr[1], ms=float(np.median([ms, ms2])),
-                   plain_ms=float(np.median([plain_ms, plain_ms2])))
-        _log(f"splat N={n}: fwd max abs {err:.3e} (max|ref| {scale:.3f}, tol "
-             f"{FWD_TOL}x), grad max abs xy {gerr[0]:.3e} w {gerr[1]:.3e}; "
-             f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
-             f"(kernel, plain, kernel, plain: {ms:.4f} {plain_ms:.4f} {ms2:.4f} "
-             f"{plain_ms2:.4f})")
+        # ---- SE2 form: forward, dL/dparams through the contrast, determinism
+        sxy, st, sv, sp = _se2_events(n, seed=n + 1)
+        sref = hs._splat_se2_plain(sxy, st, sv, sp, center, *cfg)
+        sgot = hs.splat_se2(sxy, st, sv, sp, center, *cfg)
+        sscale = float(sref.abs().max())
+        n_flip = int(((sgot - sref).abs() > FWD_TOL * sscale).sum())
+        serr = _held(sgot, sref, FWD_TOL, f"N={n} SE2 forward ({n_flip} px over: "
+                                           f"tap flips if ~{np.exp(-3.125):.3f})")
+        pk = _contrast_grad(lambda p: hs.splat_se2(sxy, st, sv, p, center, *cfg), sp)
+        pp = _contrast_grad(lambda p: hs._splat_se2_plain(sxy, st, sv, p, center, *cfg), sp)
+        perr = _held(pk, pp, GRAD_TOL, f"N={n} SE2 VJP dL/dparams")
+        sq = sp.clone().requires_grad_(True)
+        img_s = hs.splat_se2(sxy, st, sv, sq, center, *cfg)
+        d1, = torch.autograd.grad(img_s, sq, g, retain_graph=True)
+        d2, = torch.autograd.grad(img_s, sq, g, retain_graph=True)
+        if not _same_bits(d1, d2):
+            raise RuntimeError(f"N={n}: two SE2 VJP calls differ: {d1} {d2}")
+
+        # ---- times: CUDA events around eager calls of the wrappers (host
+        # dispatch included; the VJP also as the main path reaches it, through
+        # torch.autograd.grad), device only (graph replay), plain versions
+        def dense_vjp():
+            q = sp.clone().requires_grad_(True)
+            out = _splat_gauss_separable(
+                warp_se2(sxy, st, q, sxy.new_tensor(center)), sv.to(torch.float32), *cfg)
+            return torch.autograd.grad(out, q, g)
+
+        swarped = warp_se2(sxy, st, sp, sxy.new_tensor(center))
+        order = [
+            ("fwd_ms", lambda: hs.splat(xy, w, *cfg)),
+            ("fwd_plain_ms", lambda: _splat_gauss_separable(xy, w, *cfg)),
+            ("fwd_se2_ms", lambda: hs.splat_se2(sxy, st, sv, sp, center, *cfg)),
+            ("fwd_se2_plain_ms", lambda: hs._splat_se2_plain(sxy, st, sv, sp, center, *cfg)),
+            ("vjp_ms", lambda: hs._vjp_cuda(g, xy, None, w, None, (0.0, 0.0), *cfg,
+                                            need_xy=True, need_w=True)),
+            ("vjp_autograd_ms",
+             lambda: torch.autograd.grad(img_k, (xk, wk), g, retain_graph=True)),
+            ("vjp_plain_ms", lambda: hs._splat_vjp_plain(g, xy, w, *cfg)),
+            ("vjp_se2_ms", lambda: hs._vjp_cuda(g, sxy, st, sv, sp, center, *cfg)),
+            ("vjp_se2_autograd_ms",
+             lambda: torch.autograd.grad(img_s, sq, g, retain_graph=True)),
+            ("vjp_se2_plain_ms", lambda: hs._splat_se2_vjp_plain(g, sxy, st, sv, sp, center, *cfg)),
+            ("vjp_se2_dense_ms", dense_vjp),
+        ]
+        t1 = {k: _time_ms(f) for k, f in order}
+        t2 = {k: _time_ms(f) for k, f in reversed(order)}
+        row = {k: float(np.mean([t1[k], t2[k]])) for k in t1}
+        row["fwd_dev_ms"] = _device_ms(lambda: hs.splat(xy, w, *cfg))
+        row["fwd_se2_dev_ms"] = _device_ms(lambda: hs.splat_se2(sxy, st, sv, sp, center, *cfg))
+        row["vjp_dev_ms"] = _device_ms(lambda: hs._vjp_cuda(
+            g, xy, None, w, None, (0.0, 0.0), *cfg, need_xy=True, need_w=True))
+        row["vjp_se2_dev_ms"] = _device_ms(lambda: hs._vjp_cuda(g, sxy, st, sv, sp, center, *cfg))
+        if n in (MAIN_N, KERNEL_NS[-1]):      # lanes per forward atomic
+            row["fwd_se2_dev_ms_by_lanes"] = {
+                v: _device_ms(lambda v=v: hs._splat_cuda(sxy, st, sv, sp, center, *cfg, vec=v))
+                for v in (1, 2, 4)}
+
+        # the kernels' own time by name, and what else one call enqueues
+        def both():
+            for _ in range(20):
+                hs.splat_se2(sxy, st, sv, sp, center, *cfg)
+                hs._vjp_cuda(g, sxy, st, sv, sp, center, *cfg)
+        _, per = _profile(both)
+        prof_us = {k: _matching(per, k)[1] / 20 for k in
+                   ("splat_fwd_kernel", "splat_vjp_kernel", "sum_partials_kernel", "Memset")}
+        if min(prof_us["splat_fwd_kernel"], prof_us["splat_vjp_kernel"]) <= 0:
+            raise RuntimeError(f"profiler saw no splat kernel time: {sorted(per)}")
+
+        near = lambda p, v: int((v & (p[:, 0] > -3.5) & (p[:, 0] < W + 3.5)
+                                 & (p[:, 1] > -3.5) & (p[:, 1] < H + 3.5)).sum())
+        act, sact = near(xy, w != 0), near(swarped, sv)
+        row.update(
+            n=n, fwd_err=err, fwd_ref=float(ref.abs().max()), fwd_se2_err=serr,
+            fwd_se2_ref=sscale, vjp_xy_err=gerr[0], vjp_w_err=gerr[1],
+            vjp_se2_err=perr, vjp_se2_ref=float(pp.abs().max()), prof_us=prof_us,
+            fwd_bound=_bound(n, act, False, False), fwd_se2_bound=_bound(n, sact, True, False),
+            vjp_bound=_bound(n, act, False, True), vjp_se2_bound=_bound(n, sact, True, True))
+        _log(f"splat N={n} identity: fwd max abs {err:.3e} (max|ref| {row['fwd_ref']:.3f}, "
+             f"tol {FWD_TOL}x), VJP max abs xy {gerr[0]:.3e} w {gerr[1]:.3e} (tol "
+             f"{GRAD_TOL}x), two VJP calls bit-equal | ms by events / device only / "
+             f"plain / bound: fwd {row['fwd_ms']:.4f} / {row['fwd_dev_ms']:.5f} / "
+             f"{row['fwd_plain_ms']:.4f} / {row['fwd_bound'][0]:.6f}; VJP "
+             f"{row['vjp_ms']:.4f} (through autograd.grad {row['vjp_autograd_ms']:.4f}) / "
+             f"{row['vjp_dev_ms']:.5f} / {row['vjp_plain_ms']:.4f} / "
+             f"{row['vjp_bound'][0]:.6f}")
+        _log(f"splat N={n} SE2: fwd max abs {serr:.3e} (max|ref| {sscale:.3f}, {n_flip} "
+             f"px over tol), dL/dparams max abs {perr:.3e} (max|ref| "
+             f"{row['vjp_se2_ref']:.3e}), bit-equal twice | fwd {row['fwd_se2_ms']:.4f} / "
+             f"{row['fwd_se2_dev_ms']:.5f} / {row['fwd_se2_plain_ms']:.4f} / "
+             f"{row['fwd_se2_bound'][0]:.6f}; VJP {row['vjp_se2_ms']:.4f} (through "
+             f"autograd.grad {row['vjp_se2_autograd_ms']:.4f}) / "
+             f"{row['vjp_se2_dev_ms']:.5f} / {row['vjp_se2_plain_ms']:.4f} (dense "
+             f"autograd {row['vjp_se2_dense_ms']:.4f}) / {row['vjp_se2_bound'][0]:.6f} | "
+             f"profiler us per call: { {k: round(v, 3) for k, v in prof_us.items()} }"
+             + (f" | fwd device ms by lanes per atomic: {row['fwd_se2_dev_ms_by_lanes']}"
+                if "fwd_se2_dev_ms_by_lanes" in row else ""))
         rows.append(row)
 
-    # a NaN coordinate poisons the whole image in the separable form; the
-    # kernel does the same
-    xy = torch.tensor([[10.0, 10.0], [float("nan"), 5.0]], device="cuda")
-    w = torch.ones(2, device="cuda")
-    got = hopper_splat.splat(xy, w, H, W, SIGMA, TRUNC)
-    ref = _splat_gauss_separable(xy, w, H, W, SIGMA, TRUNC)
+    # non-finite events: a NaN coordinate poisons the whole image in the
+    # separable form, and the kernel does the same; the VJP is NaN exactly
+    # where autograd through the separable form is not finite
+    xy = torch.tensor([[10.0, 10.0], [float("nan"), 5.0], [float("inf"), 7.0],
+                       [30.0, float("-inf")], [50.0, 60.0], [70.0, 80.0]], device="cuda")
+    w = torch.tensor([1.0, 1.0, 0.0, 1.0, float("inf"), float("nan")], device="cuda")
+    got = hs.splat(xy, w, *cfg)
+    ref = _splat_gauss_separable(xy, w, *cfg)
     if not (torch.isnan(got).all() and torch.isnan(ref).all()):
         raise RuntimeError("NaN event: kernel and plain version disagree")
+    g = torch.randn(H, W, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    xk, wk = xy.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    gk = torch.autograd.grad(hs.splat(xk, wk, *cfg), (xk, wk), g)
+    xp, wp = xy.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    gp = torch.autograd.grad(_splat_gauss_separable(xp, wp, *cfg), (xp, wp), g)
+    for a, b, name in zip(gk, gp, ("xy", "w")):
+        _held(a, b, GRAD_TOL, f"non-finite events, VJP g_{name}")
+        if not torch.isnan(a[~torch.isfinite(b)]).all():
+            raise RuntimeError(f"non-finite events, VJP g_{name}: not NaN")
+    _log(f"non-finite events: image NaN in both; VJP NaN in the plain version's "
+         f"{int((~torch.isfinite(gp[0])).sum())} + {int((~torch.isfinite(gp[1])).sum())} places")
     return rows
+
+
+def time_ascent():
+    """One contrast_max.maximize_rt2d call at the main path's shape: its
+    time, and every launch it makes, by name."""
+    from eorb_slam_tpu_torch.event import contrast_max
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    xy, t, valid, _ = _se2_events(MAIN_N, seed=3)
+    run = lambda: contrast_max.maximize_rt2d(xy, t, valid, H, W, iters=CM_ITERS, sigma=SIGMA)
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    hs.splat.launches = hs.splat.vjp_launches = 0
+    (p, c, c0), per = _profile(run)
+    launches = sum(cnt for cnt, _ in per.values())
+    dev_us = sum(us for _, us in per.values())
+    n_fwd, n_vjp = _matching(per, "splat_fwd_kernel")[0], _matching(per, "splat_vjp_kernel")[0]
+    trig = _matching(per, "cos_kernel")[0] + _matching(per, "sin_kernel")[0]
+    # control: the plain SE2 forward does launch them, under that name
+    _, plain_per = _profile(lambda: hs._splat_se2_plain(
+        xy, t, valid, p, (W / 2.0, H / 2.0), H, W, SIGMA, TRUNC))
+    if not (_matching(plain_per, "cos_kernel")[0] and _matching(plain_per, "sin_kernel")[0]):
+        raise RuntimeError(f"torch's cos/sin kernels not recognised by name: {sorted(plain_per)}")
+    _log(f"maximize_rt2d N={MAIN_N} iters={CM_ITERS}: {np.median(walls):.3f} ms per call "
+         f"(host clock, synchronised; 5 calls {min(walls):.3f}-{max(walls):.3f}), "
+         f"{launches} device launches per call ({launches / CM_ITERS:.1f} per iteration), "
+         f"{dev_us / 1e3:.3f} ms of device time; splat_fwd_kernel x{n_fwd}, "
+         f"splat_vjp_kernel x{n_vjp}, torch cos/sin kernels x{trig}; contrast "
+         f"{float(c0):.6f} -> {float(c):.6f}")
+    # the counters are exact; the profiler may drop a record or two
+    want = (1 + 2 * CM_ITERS, CM_ITERS)
+    if (hs.splat.launches, hs.splat.vjp_launches) != want or \
+            n_fwd < 0.9 * want[0] or n_vjp < 0.9 * want[1]:
+        raise RuntimeError(f"the ascent launched {hs.splat.launches} forward and "
+                           f"{hs.splat.vjp_launches} VJP kernels (profiler: {n_fwd}, "
+                           f"{n_vjp}), expected {want}")
+    if trig:
+        raise RuntimeError("the ascent launched torch cos/sin kernels: warp_se2 "
+                           "is not fused into the splat")
+    if not (torch.isfinite(p).all() and float(c) >= float(c0)):
+        raise RuntimeError(f"the ascent went wrong: {p} {c0} -> {c}")
 
 
 def synth_stream(seconds, rate, seed):
@@ -263,13 +521,14 @@ def run_slice():
     if not warm_rec:
         raise RuntimeError("warm-up produced no window")
 
-    hopper_splat.splat.launches = 0
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
     rec = []
     t0 = time.perf_counter()
     drive(run, rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hopper_splat.splat.launches
+    vjp_launches = hopper_splat.splat.vjp_launches
 
     n_win = len(rec)
     if n_win == 0:
@@ -282,15 +541,17 @@ def run_slice():
     if any(s != (MAX_KP, 2) for _, _, _, s, _ in rec) or \
             any(s != (H, W) for _, _, _, _, s in rec):
         raise RuntimeError("unexpected output shapes")
-    if launches != n_win * splats_per_window:
-        raise RuntimeError(f"{launches} splat launches for {n_win} windows, "
-                           f"expected {splats_per_window} per window")
+    if (launches, vjp_launches) != (n_win * splats_per_window, n_win * cfg.cm_iters):
+        raise RuntimeError(f"{launches} splat and {vjp_launches} VJP launches for "
+                           f"{n_win} windows, expected {splats_per_window} and "
+                           f"{cfg.cm_iters} per window")
     data_s = rec[-1][0].ts - warm_rec[-1][0].ts
     b._resolve_window_meta(block=True)
     _log(f"slice: {n_win} windows in {wall:.3f} s wall = {n_win / wall:.3f} "
          f"windows/s; {data_s:.4f} s of data -> real-time x {data_s / wall:.4f}; "
          f"keypoints per window min {min(n_kp)} median {int(np.median(n_kp))}; "
-         f"splat launches {launches} ({splats_per_window} per window); final "
+         f"splat launches {launches} ({splats_per_window} per window), VJP "
+         f"launches {vjp_launches} ({cfg.cm_iters} per window); final "
          f"chunk size {b.chunk_size}; winners "
          f"{ {k: sum(int(r[0].se2_params[0]) == i for r in rec) for i, k in enumerate(eb.KINDS)} }")
     return dict(windows=n_win, wall_s=wall, data_s=data_s, launches=launches)
@@ -313,7 +574,7 @@ def check_l2_small():
 
     ev = synth_stream(0.3, RATE, seed=13)
     cfg = eb.BuilderConfig(**dict(SLICE_CFG, l1_chunk_size=1000, cm_iters=5))
-    slam = event_system.EventSlam(_cam(), cfg, max_kp=MAX_KP, **L2_KW)
+    slam = event_system.EventSlam(_cam(), cfg, max_kp=MAX_KP, device="cpu", **L2_KW)
     slam.builder.feed(ev)
     while not (slam.l2.state == system.OK and slam.l2.n_kf >= 3):
         pi = slam.builder.step_window()
@@ -384,8 +645,8 @@ def check_l2_small():
 def run_event_slam():
     """EventSlam end to end on the card at the synth_ev_only width, through
     EventSlam.track_events: 0.2 s of warm-up (L2 must initialize), 0.4 s
-    timed, then 0.1 s more window by window with synchronised per-phase
-    timers."""
+    timed, then 0.1 s more window by window: 12 MCIs with synchronised
+    per-phase timers, the rest under the profiler."""
     from eorb_slam_tpu_torch.event import builder as eb
     from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import event_system, system
@@ -397,8 +658,10 @@ def run_event_slam():
     warm = ev[ev[:, 0] < t_run]
     run = ev[(ev[:, 0] >= t_run) & (ev[:, 0] < t_phase)]
     phase = ev[ev[:, 0] >= t_phase]
-    slam = event_system.EventSlam(_cam("cuda"), cfg, max_kp=MAX_KP,
-                                  device="cuda", **L2_KW)
+    # no device given: the entry point runs on the card
+    slam = event_system.EventSlam(_cam(), cfg, max_kp=MAX_KP, **L2_KW)
+    if not (slam.builder.device.type == slam.l2.device.type == "cuda"):
+        raise RuntimeError("EventSlam without a device did not go to the card")
 
     def drive(events, rec):
         """Push the stream through the user entry point in sensor-sized
@@ -414,13 +677,14 @@ def run_event_slam():
     if not any(r["state"] == system.OK for r, _ in warm_rec):
         raise RuntimeError(f"L2 did not initialize in the warm-up: {slam.stats}")
 
-    hopper_splat.splat.launches = 0
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
     rec = []
     t0 = time.perf_counter()
     drive(run, rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hopper_splat.splat.launches
+    vjp_launches = hopper_splat.splat.vjp_launches
     n = len(rec)
     if n == 0:
         raise RuntimeError("the timed part produced no MCI")
@@ -445,7 +709,7 @@ def run_event_slam():
     slam.l2._insert_keyframe = timed_insert
     slam.builder.feed(phase)
     t_step, t_l2 = [], []
-    while True:
+    while len(t_step) < EV_PHASE_TIMED:
         torch.cuda.synchronize()
         t = time.perf_counter()
         pi = slam.builder.step_window()
@@ -458,6 +722,20 @@ def run_event_slam():
         torch.cuda.synchronize()
         t_l2.append(time.perf_counter() - t)
     slam.l2._insert_keyframe = insert
+    # what is left of the stream under the profiler, L1 and L2 apart:
+    # device launches and device time per MCI
+    prof = {"L1": [], "L2": []}
+    while True:
+        pi, per = _profile(slam.builder.step_window)
+        if pi is None:
+            break
+        prof["L1"].append(per)
+        prof["L2"].append(_profile(lambda: slam._track_mci(pi))[1])
+    if not prof["L1"]:
+        raise RuntimeError("no window was left for the profiled pass")
+    per_mci = {k: (sum(c for per in v for c, _ in per.values()) / len(v),
+                   sum(us for per in v for _, us in per.values()) / len(v) / 1e3)
+               for k, v in prof.items()}
     if not t_step:
         raise RuntimeError("the phase pass produced no MCI")
     n_ph = len(t_step)
@@ -471,12 +749,16 @@ def run_event_slam():
     _log(f"EventSlam: {n} MCIs in {wall:.3f} s wall = {n / wall:.3f} MCIs/s; "
          f"{data_s:.4f} s of data -> real-time x {data_s / wall:.4f}; "
          f"{n_ok}/{n} timed MCIs OK, {n_prior} with the L2 pose prior set; "
-         f"splat launches {launches} ({splats_per_window} per window); "
-         f"winners {winners}")
+         f"splat launches {launches} ({splats_per_window} per window), VJP "
+         f"launches {vjp_launches} ({cfg.cm_iters} per window); winners {winners}")
     _log(f"EventSlam phases over {n_ph} MCIs (synchronised): step_window "
          f"{ms_step:.2f} ms, process_image tracking {ms_track:.2f} ms, "
          f"keyframe mapping {ms_map:.2f} ms per MCI ({len(t_map)} keyframes, "
          f"{1e3 * sum(t_map) / max(len(t_map), 1):.2f} ms each)")
+    _log(f"EventSlam under torch.profiler over {len(prof['L1'])} MCIs: step_window "
+         f"{per_mci['L1'][0]:.0f} device launches and {per_mci['L1'][1]:.2f} ms of "
+         f"device time per MCI; L2 (tracking and mapping) {per_mci['L2'][0]:.0f} "
+         f"launches and {per_mci['L2'][1]:.2f} ms per MCI")
     _log(f"EventSlam map: {l2.n_kf} keyframes, {n_lm} landmarks, "
          f"{l2.stats['lost']} lost windows, {l2.kf_culled} KFs culled, "
          f"{len(traj)} trajectory poses; stats {slam.stats}")
@@ -486,12 +768,14 @@ def run_event_slam():
         raise RuntimeError(f"only {n_ok}/{n} timed MCIs tracked")
     if not traj or not all(np.isfinite(T).all() for _, T in traj):
         raise RuntimeError("a trajectory pose is not finite")
-    if launches != n * splats_per_window:
-        raise RuntimeError(f"{launches} splat launches for {n} windows, "
-                           f"expected {splats_per_window} per window")
+    if (launches, vjp_launches) != (n * splats_per_window, n * cfg.cm_iters):
+        raise RuntimeError(f"{launches} splat and {vjp_launches} VJP launches for "
+                           f"{n} windows, expected {splats_per_window} and "
+                           f"{cfg.cm_iters} per window")
     if n_prior == 0:
         raise RuntimeError("no timed window ran with the L2 pose prior")
-    return dict(mcis=n, wall_s=wall, data_s=data_s, launches=launches)
+    return dict(mcis=n, wall_s=wall, data_s=data_s, launches=launches,
+                vjp_launches=vjp_launches)
 
 
 def main() -> int:
@@ -510,28 +794,37 @@ def main() -> int:
     t0 = time.perf_counter()
     hopper_splat.build()
     info = _build.BUILD_INFO["splat"]
-    _log(f"build: splat kernel in {time.perf_counter() - t0:.2f} s "
+    _log(f"build: splat kernels in {time.perf_counter() - t0:.2f} s "
          f"(nvcc {info['seconds']:.2f} s) -> {info['path']}")
     if info["log"].strip():
         _log(info["log"].strip())
 
     rows = check_kernel()
+    time_ascent()
     check_slice_small()
     run_slice()
     check_l2_small()
     res = run_event_slam()
 
-    top = rows[-1]      # ms and plain_ms at the largest N, 65,536 events
-    _log(json.dumps({"kernels": [{
-        "name": "splat_gauss",
-        "route": "cuda",
-        "source": "eorb_slam_tpu_torch/csrc/splat.cu",
-        "replaces": "eorb_slam_tpu/ops/pallas_splat.py:60",
-        "launches": res["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": top["ms"],
-        "plain_ms": top["plain_ms"],
-    }]}))
+    # times at the shape and form of 121 of a window's 129 kernel calls:
+    # the SE2 form at 16,384 events; errors are the worst over every N
+    main_row = next(r for r in rows if r["n"] == MAIN_N)
+    common = dict(route="cuda", source="eorb_slam_tpu_torch/csrc/splat.cu",
+                  replaces="eorb_slam_tpu/ops/pallas_splat.py:60", library_ms=None,
+                  n=MAIN_N, form="se2")
+    _log(json.dumps({"kernels": [
+        dict(common, name="splat_gauss", launches=res["launches"],
+             max_abs_err=max(max(r["fwd_err"], r["fwd_se2_err"]) for r in rows),
+             ms=main_row["fwd_se2_ms"], device_ms=main_row["fwd_se2_dev_ms"],
+             plain_ms=main_row["fwd_se2_plain_ms"],
+             bound_ms=main_row["fwd_se2_bound"][0], bound_by=main_row["fwd_se2_bound"][1]),
+        dict(common, name="splat_gauss_vjp", launches=res["vjp_launches"],
+             max_abs_err=max(max(r["vjp_xy_err"], r["vjp_w_err"], r["vjp_se2_err"])
+                             for r in rows),
+             ms=main_row["vjp_se2_ms"], device_ms=main_row["vjp_se2_dev_ms"],
+             plain_ms=main_row["vjp_se2_plain_ms"],
+             bound_ms=main_row["vjp_se2_bound"][0], bound_by=main_row["vjp_se2_bound"][1]),
+    ]}))
     _log(f"gpu: {gpu}")
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

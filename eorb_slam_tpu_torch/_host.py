@@ -1,4 +1,9 @@
-"""Device-to-host copies that overlap with later work.
+"""Host-side helpers: which device an entry point runs on, and
+device-to-host copies that overlap with later work.
+
+The port's entry points (EventWindowBuilder, MonoSlam, EventSlam, Atlas) run
+on the card unless the caller asks for the CPU: ``resolve_device(None)`` is
+``cuda``, and raises where there is none rather than carrying on on the CPU.
 
 A small tensor the host reads later (a window's metadata, a mapping step's
 stats) is copied into pinned host memory with ``non_blocking=True`` and a
@@ -11,6 +16,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means the card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on the card unless "
+            "asked otherwise (pass device='cpu' to run on the CPU)")
+    return torch.device("cuda")
 
 
 class HostCopy:

@@ -17,7 +17,8 @@ from eorb_slam_tpu_torch.slam.map_state import MapState, empty_map
 
 def cam_from_numpy(cam, device=None) -> torch.Tensor:
     """Camera parameter vector (e.g. [fx, fy, cx, cy, k1, k2, p1, p2, k3])
-    -> float32 tensor on ``device``."""
+    -> float32 tensor on ``device``. ``None`` leaves it where numpy had it,
+    on the CPU: a conversion follows its argument and picks no device."""
     return torch.as_tensor(np.asarray(cam, np.float32)).to(device)
 
 
@@ -63,7 +64,9 @@ def builder_state_from_numpy(builder: EventWindowBuilder, state: dict) -> None:
 def map_state_from_numpy(arrays, device=None) -> MapState:
     """A map given as numpy arrays, one per ``MapState`` field (e.g.
     ``{k: np.asarray(v) for k, v in jax_map._asdict().items()}``) -> the
-    port's MapState on ``device``, with the same shapes and dtypes."""
+    port's MapState on ``device``, with the same shapes and dtypes. ``None``
+    leaves the map on the CPU (as ``cam_from_numpy``); the entry points that
+    take it decide where they run."""
     dtypes = map_state_to_numpy(empty_map(1, 1, 1, 1))
     return MapState(**{
         k: torch.from_numpy(np.array(arrays[k], dtype=dtypes[k].dtype)).to(device)

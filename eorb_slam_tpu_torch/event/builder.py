@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from eorb_slam_tpu_torch._host import HostCopy
+from eorb_slam_tpu_torch._host import HostCopy, resolve_device
 from eorb_slam_tpu_torch.event import contrast_max, klt, tensorize
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.ops import fast
@@ -110,10 +110,10 @@ def _make_candidates(
 ):
     """All four MCI candidates of one window and the winner. Returns
     (best_img normalized to [0,1], best index, (4,) scores, (3,) se2).
-    Runs 4 + 1 + 2*cm_iters forward splats."""
-    t_sec = ev[:, 0]
+    Runs 4 + 1 + 2*cm_iters forward splats and cm_iters splat VJPs."""
+    t_sec = ev[:, 0].contiguous()
     t_rel = t_sec / torch.clamp(dt, min=1e-9)                   # [0,1]
-    xy = ev[:, 1:3]
+    xy = ev[:, 1:3].contiguous()
     pol = ev[:, 3]
 
     # candidate 0: plain Gaussian histogram (getEvHist)
@@ -125,10 +125,12 @@ def _make_candidates(
         xy[::cm_stride], t_sec[::cm_stride], valid[::cm_stride],
         H, W, iters=cm_iters, sigma=sigma,
     )
-    center = torch.tensor([W / 2.0, H / 2.0], dtype=xy.dtype, device=xy.device)
-    # aligned to the window END: the MCI is stamped ts = window end
-    xy_se2 = tensorize.warp_se2(xy, t_sec - dt, params, center)
-    img_se2 = tensorize.splat_gauss(xy_se2, valid, pol, H, W, sigma=sigma)
+    center = (W / 2.0, H / 2.0)
+    # aligned to the window END: the MCI is stamped ts = window end. The
+    # SE2 warp runs inside the splat kernel (tensorize.splat_gauss_se2).
+    t_end = t_sec - dt
+    img_se2 = tensorize.splat_gauss_se2(xy, t_end, params, center, valid,
+                                        H, W, sigma=sigma)
 
     # candidate 2: SE3 DPose warp with L2's median depth (getDPoseMCI)
     xy_dp, z_dp = tensorize.warp_se3_depth(
@@ -139,10 +141,10 @@ def _make_candidates(
 
     # candidate 3: SE2 flow fitted to the builder's own KLT correspondences
     params_fit, n_fit = contrast_max.fit_rt2d_points(
-        klt_prev, klt_cur, klt_ok, klt_dt, center
+        klt_prev, klt_cur, klt_ok, klt_dt, xy.new_tensor(center)
     )
-    xy_fit = tensorize.warp_se2(xy, t_sec - dt, params_fit, center)
-    img_fit = tensorize.splat_gauss(xy_fit, valid, pol, H, W, sigma=sigma)
+    img_fit = tensorize.splat_gauss_se2(xy, t_end, params_fit, center, valid,
+                                        H, W, sigma=sigma)
 
     # score the RAW accumulators (same event mass in every candidate)
     imgs_raw = torch.stack([img_h, img_se2, img_dp, img_fit])
@@ -224,14 +226,16 @@ def _window_step(
 
 
 class EventWindowBuilder:
-    """Host orchestrator for the L1 window state machine on one device.
+    """Host orchestrator for the L1 window state machine on one device:
+    the card (``device=None`` is ``cuda``; without one it raises), or the CPU
+    when asked with ``device="cpu"``.
 
     Feed raw event arrays with :meth:`feed`; call :meth:`step_window`, which
     returns a ``PoseImage`` whenever a full window is buffered, else None."""
 
     def __init__(self, cfg: BuilderConfig, cam_params=None, device=None):
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.cam = (
             torch.as_tensor(cam_params, dtype=torch.float32, device=self.device)
             if cam_params is not None

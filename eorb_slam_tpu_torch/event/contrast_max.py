@@ -2,8 +2,10 @@
 
 PyTorch port of ``eorb_slam_tpu/event/contrast_max.py``: the warp, the
 Gaussian splat and the contrast objective are one differentiable function
-and autograd (through the splat's ``autograd.Function``) supplies the
-gradient. The ascent keeps the accept/reject decision on the device
+and autograd supplies the gradient. Warp and splat are one kernel
+(``tensorize.splat_gauss_se2``) and its backward is one kernel that returns
+``dL/dparams``, so an ascent step is two kernel calls and a few small
+reductions. The ascent keeps the accept/reject decision on the device
 (``torch.where``), so the loop never waits on the host.
 """
 
@@ -14,9 +16,11 @@ import torch
 from eorb_slam_tpu_torch.event import tensorize
 
 
-def _contrast(params, xy, t_rel, valid, pol, center, H, W, sigma):
-    xy_w = tensorize.warp_se2(xy, t_rel, params, center)
-    img = tensorize.splat_gauss(xy_w, valid, pol, H, W, sigma=sigma)
+def _contrast(params, xy, t_rel, valid, center, H, W, sigma):
+    """``center`` is (cx, cy) as Python floats; ``xy``, ``t_rel`` and
+    ``valid`` are contiguous. Every event weighs 1 (no polarity)."""
+    img = tensorize.splat_gauss_se2(xy, t_rel, params, center, valid, H, W,
+                                    sigma=sigma)
     # variance objective (mean-square of the mean-removed image): sharper
     # motion-compensated images concentrate mass -> higher variance
     mu = torch.mean(img)
@@ -40,13 +44,15 @@ def maximize_rt2d(
     ascent with per-parameter scaling and step-halving on non-improvement.
     Runs 1 + 2*iters forward splats and ``iters`` backward passes."""
     dt, dev = xy.dtype, xy.device
-    pol = torch.ones(xy.shape[0], dtype=dt, device=dev)
-    center = torch.tensor([W / 2.0, H / 2.0], dtype=dt, device=dev)
+    # what the 1 + 2*iters splats share is made once: contiguous copies of
+    # (possibly strided) inputs and the centre
+    xy, t_rel, valid = xy.contiguous(), t_rel.contiguous(), valid.contiguous()
+    center = (W / 2.0, H / 2.0)
     if params0 is None:
         params0 = torch.zeros(3, dtype=dt, device=dev)
 
     def f(p):
-        return _contrast(p, xy, t_rel, valid, pol, center, H, W, sigma)
+        return _contrast(p, xy, t_rel, valid, center, H, W, sigma)
 
     def grad(p):
         p = p.detach().requires_grad_(True)

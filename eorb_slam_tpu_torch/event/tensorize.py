@@ -25,9 +25,9 @@ def _splat_gauss_separable(
 
     G(dx,dy) = gx(dx)·gy(dy), so the image is ``A^T B`` with
     A[n,h] = w_n·gy(h−y_n), B[n,w] = gx(w−x_n). This is the plain version of
-    the CUDA kernel (ops/hopper_splat.py): the CPU path, the reference the
-    kernel is checked against on the card, and the form the backward
-    differentiates."""
+    the forward CUDA kernel (ops/hopper_splat.py): the CPU path and the
+    reference the kernel is checked against on the card. Autograd through it
+    is the independent reference of the gather VJP."""
     inv2s2 = 1.0 / (2.0 * sigma * sigma)
     dy = torch.arange(H, dtype=xy.dtype, device=xy.device)[None, :] - xy[:, 1:2]
     dx = torch.arange(W, dtype=xy.dtype, device=xy.device)[None, :] - xy[:, 0:1]
@@ -55,6 +55,26 @@ def splat_gauss(
     trunc = stencil / 2.0  # matches the reference's truncated 3-sigma window
     return hopper_splat.splat(xy.contiguous(), w_ev.contiguous(), H, W,
                               sigma, trunc)
+
+
+def splat_gauss_se2(
+    xy: torch.Tensor,        # (N,2) UNWARPED pixel coords of the events
+    t_rel: torch.Tensor,     # (N,) event times the warp multiplies
+    params: torch.Tensor,    # (3,) [omega, vx, vy], on the events' device
+    center,                  # (cx, cy) as two Python floats
+    valid: torch.Tensor,     # (N,) bool
+    H: int,
+    W: int,
+    sigma: float = 1.0,
+    stencil: int = 5,
+) -> torch.Tensor:
+    """``splat_gauss(warp_se2(xy, t_rel, params, center), valid, ...)``
+    without polarity, the warp fused into the splat kernel: no warped
+    coordinates or weights reach device memory. Differentiable w.r.t.
+    ``params`` (the contrast-maximization ascent's gradient). ``xy``,
+    ``t_rel`` and ``valid`` must be contiguous."""
+    return hopper_splat.splat_se2(xy, t_rel, valid, params, center, H, W,
+                                  sigma, stencil / 2.0)
 
 
 def normalize_to_image(acc: torch.Tensor) -> torch.Tensor:

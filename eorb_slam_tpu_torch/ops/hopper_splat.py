@@ -1,19 +1,35 @@
-"""The Gaussian event splat on Hopper: a hand-written CUDA kernel
-(csrc/splat.cu) behind a ``torch.autograd.Function``.
+"""The Gaussian event splat on Hopper: two hand-written CUDA kernels
+(csrc/splat.cu) behind ``torch.autograd.Function``s.
 
-Port of ``eorb_slam_tpu/ops/pallas_splat.py`` (``_splat_kernel`` launched by
-``_splat_pallas``, wrapped by the ``splat`` custom VJP). The splat is the
-hottest op of the event front-end: every chunk image, every MCI candidate
-and every contrast-maximization step runs one (89 forward splats per L1
-window at the default config).
+Port of ``eorb_slam_tpu/ops/pallas_splat.py``: ``_splat_kernel`` (launched by
+``_splat_pallas``) becomes ``splat_gauss_forward``, and the dense autodiff
+that its custom VJP ``_splat_bwd`` ran becomes ``splat_gauss_vjp``, a gather
+of each event's <= 36 taps of the cotangent. The splat is the hottest op of
+the event front-end: per L1 window at the default config 89 forward splats
+(4 chunk images, 4 MCI candidates, 81 inside the contrast-maximization
+ascent) and 40 VJPs (one per ascent step).
 
-- Forward: on a CUDA tensor it launches the kernel, or raises; on a CPU
-  tensor it computes the plain separable version
-  (``event/tensorize._splat_gauss_separable``). There is no other path.
-- Backward: autograd through the plain separable form, as the TPU package's
-  ``_splat_bwd`` does (the TPU had no backward kernel either).
-- ``splat.launches`` counts kernel launches, so a run can show that its main
-  path went through the kernel.
+What bounds the pair on the card is not the device (the bytes that must move
+take 0.1-0.3 us, the image sits in L2) but launches and host time per launch,
+so each kernel exists in two forms of its coordinate source:
+
+- :func:`splat` (identity): the events' own ``(x, y)`` and f32 weights;
+  differentiable w.r.t. both.
+- :func:`splat_se2`: the kernel reads the unwarped ``(x, y)``, the event time
+  ``t`` and ``(omega, vx, vy)`` from device memory and computes
+  ``tensorize.warp_se2`` in registers; the weight may be a bool mask, read as
+  it is. Differentiable w.r.t. ``params``: the VJP kernel chains the gather to
+  ``dL/dparams`` and reduces it on the card in a fixed order (deterministic).
+  One ascent step is then two kernel calls and a few reductions, with no
+  warped coordinates, weight products or dense matrices in device memory.
+
+On a CUDA tensor every forward and backward launches its kernel, or raises;
+on a CPU tensor they compute the plain versions beside them here
+(``_splat_gauss_separable``, ``warp_se2`` in front of it, and
+:func:`_splat_vjp_plain`, the same gather formula in torch). There is no
+other path. ``splat.launches`` counts forward kernel launches and
+``splat.vjp_launches`` VJP kernel launches, so a run can show that its main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,27 +41,32 @@ import math
 import torch
 
 _LIB = "splat"
+_VEC = 4    # f32 lanes per atomic of the forward (csrc/splat.cu)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """Build (or reuse) the library once per process; the bound C entry."""
+def _kernels():
+    """Build (or reuse) the library once per process; the bound C entries
+    (forward, vjp) and the kernels' threads per block."""
     from eorb_slam_tpu_torch import _build
 
     lib = _build.load(_LIB)
-    fn = lib.splat_gauss_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return fn
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = lib.splat_gauss_forward
+    fwd.restype = i32
+    fwd.argtypes = [ptr, ptr, ptr, i32, ptr, f32, f32, ptr,
+                    i32, i32, i32, f32, f32, i32, i32, ptr]
+    vjp = lib.splat_gauss_vjp
+    vjp.restype = i32
+    vjp.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, f32, f32, ptr, ptr, ptr, ptr,
+                    i32, i32, i32, f32, f32, i32, ptr]
+    lib.splat_threads.restype = i32
+    return fwd, vjp, lib.splat_threads()
 
 
 def build() -> None:
     """Build (or reuse) and load the kernel library now."""
-    _kernel()
+    _kernels()
 
 
 def _n_taps(trunc: float) -> int:
@@ -54,42 +75,141 @@ def _n_taps(trunc: float) -> int:
     return int(math.floor(2.0 * trunc)) + 2
 
 
-def _splat_cuda(xy: torch.Tensor, w_ev: torch.Tensor, H: int, W: int,
-                sigma: float, trunc: float) -> torch.Tensor:
-    fn = _kernel()
-    n = xy.shape[0]
-    if n >= 2**31 or H * W >= 2**31:
-        raise ValueError(f"splat too large for int32 indexing: N={n}, {H}x{W}")
-    out = torch.zeros((H, W), dtype=torch.float32, device=xy.device)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _splat_cuda(xy, t, w, params, center, H, W, sigma, trunc, vec=_VEC):
+    """Launch the forward kernel: identity form if ``t`` is None, else SE2."""
+    fwd, _, _ = _kernels()
+    out = torch.empty((H, W), dtype=torch.float32, device=xy.device)
     with torch.cuda.device(xy.device):
-        stream = torch.cuda.current_stream(xy.device).cuda_stream
-        rc = fn(xy.data_ptr(), w_ev.data_ptr(), out.data_ptr(), n, H, W,
-                1.0 / (2.0 * sigma * sigma), float(trunc), _n_taps(trunc),
-                stream)
+        rc = fwd(xy.data_ptr(), _ptr(t), w.data_ptr(), w.dtype != torch.float32,
+                 _ptr(params), center[0], center[1], out.data_ptr(),
+                 xy.shape[0], H, W, 1.0 / (2.0 * sigma * sigma), trunc,
+                 _n_taps(trunc), vec,
+                 torch.cuda.current_stream(xy.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"splat kernel launch failed: cudaError {rc}")
     splat.launches += 1
     return out
 
 
-def _check(xy: torch.Tensor, w_ev: torch.Tensor, H: int, W: int,
-           trunc: float) -> None:
+def _vjp_cuda(g, xy, t, w, params, center, H, W, sigma, trunc,
+              need_xy=False, need_w=False):
+    """Launch the VJP kernel. Identity form (``t`` None): (g_xy, g_w), each
+    None unless asked for. SE2 form: (3,) dL/dparams."""
+    _, vjp, threads = _kernels()
+    n, dev = xy.shape[0], xy.device
+    g = g.contiguous()
+    g_xy = g_w = partials = g_params = None
+    if t is None:
+        g_xy = torch.empty((n, 2), dtype=torch.float32, device=dev) if need_xy else None
+        g_w = torch.empty((n,), dtype=torch.float32, device=dev) if need_w else None
+    else:
+        partials = torch.empty((-(-n // threads), 3), dtype=torch.float32, device=dev)
+        g_params = torch.empty((3,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = vjp(g.data_ptr(), xy.data_ptr(), _ptr(t), w.data_ptr(),
+                 w.dtype != torch.float32, _ptr(params), center[0], center[1],
+                 _ptr(g_xy), _ptr(g_w), _ptr(partials), _ptr(g_params),
+                 n, H, W, 1.0 / (2.0 * sigma * sigma), trunc, _n_taps(trunc),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"splat VJP kernel launch failed: cudaError {rc}")
+    splat.vjp_launches += 1
+    return (g_xy, g_w) if t is None else g_params
+
+
+# ----------------------------------------------------------- plain versions
+
+
+def _splat_vjp_plain(g, xy, w_ev, H, W, sigma, trunc):
+    """Plain version of the VJP kernel: the gather form in torch.
+
+    For each event the taps ``floor(y - trunc) + 0..ntap-1`` (rows) and
+    ``floor(x - trunc) + 0..ntap-1`` (columns) that pass the forward's test
+    are gathered from ``g`` (H,W) with clamped indices and summed against
+    the Gaussian and its derivative. Returns (g_xy (N,2), g_w (N,)). NaN
+    where autograd through the separable form is not finite: every output
+    of an event with a NaN coordinate, the x (y) derivative where x (y) is
+    +-inf, both derivatives under a non-finite weight."""
+    inv2s2 = 1.0 / (2.0 * sigma * sigma)
+    x, y = xy[:, 0], xy[:, 1]
+    near = ((x > -trunc - 1.0) & (x < W + trunc + 1.0)
+            & (y > -trunc - 1.0) & (y < H + trunc + 1.0))
+    k = torch.arange(_n_taps(trunc), dtype=xy.dtype, device=xy.device)
+
+    def taps(p, size):
+        p = torch.where(near, p, torch.zeros_like(p))[:, None]
+        idx = torch.floor(p - trunc) + k                       # (N,ntap)
+        d = idx - p
+        ok = (idx >= 0) & (idx < size) & (torch.abs(d) <= trunc) & near[:, None]
+        return (torch.exp(-d * d * inv2s2) * ok, d,
+                idx.clamp(0, size - 1).to(torch.int64))
+
+    gx, dx, ci = taps(x, W)
+    gy, dy, hi = taps(y, H)
+    gk = g[hi[:, :, None], ci[:, None, :]] * gy[:, :, None] * gx[:, None, :]
+    s = gk.sum(dim=(1, 2))
+    sx = (gk * dx[:, None, :]).sum(dim=(1, 2)) * (2.0 * inv2s2)
+    sy = (gk * dy[:, :, None]).sum(dim=(1, 2)) * (2.0 * inv2s2)
+
+    nan = torch.full_like(s, torch.nan)
+    nan_xy = torch.isnan(x) | torch.isnan(y)
+    bad_w = ~torch.isfinite(w_ev)
+    g_x = torch.where(nan_xy | bad_w | torch.isinf(x), nan, w_ev * sx)
+    g_y = torch.where(nan_xy | bad_w | torch.isinf(y), nan, w_ev * sy)
+    return torch.stack([g_x, g_y], dim=1), torch.where(nan_xy, nan, s)
+
+
+def _splat_se2_plain(xy, t, w, params, center, H, W, sigma, trunc):
+    """Plain version of the SE2 forward: ``warp_se2`` then the separable
+    splat."""
+    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable, warp_se2
+
+    xy_w = warp_se2(xy, t, params, xy.new_tensor(center))
+    return _splat_gauss_separable(xy_w, w.to(xy.dtype), H, W, sigma, trunc)
+
+
+def _splat_se2_vjp_plain(g, xy, t, w, params, center, H, W, sigma, trunc):
+    """Plain version of the SE2 VJP: the gather at the warped coordinates,
+    chained to (3,) dL/d(omega, vx, vy)."""
+    from eorb_slam_tpu_torch.event.tensorize import warp_se2
+
+    xy_w = warp_se2(xy, t, params, xy.new_tensor(center))
+    g_w_xy, _ = _splat_vjp_plain(g, xy_w, w.to(xy.dtype), H, W, sigma, trunc)
+    gx, gy = g_w_xy[:, 0], g_w_xy[:, 1]
+    a = params[0] * t
+    ca, sa = torch.cos(a), torch.sin(a)
+    rx, ry = xy[:, 0] - center[0], xy[:, 1] - center[1]
+    d_omega = t * (gx * (-sa * rx - ca * ry) + gy * (ca * rx - sa * ry))
+    return torch.stack([d_omega.sum(), -(t * gx).sum(), -(t * gy).sum()])
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def _check(xy, w, H, W, trunc, mask_ok=False) -> None:
     if xy.dim() != 2 or xy.shape[1] != 2:
         raise ValueError(f"xy must be (N,2), got {tuple(xy.shape)}")
-    if w_ev.shape != (xy.shape[0],):
-        raise ValueError(f"w_ev must be ({xy.shape[0]},), got {tuple(w_ev.shape)}")
-    if xy.dtype != torch.float32 or w_ev.dtype != torch.float32:
-        raise TypeError(f"splat takes float32, got {xy.dtype} and {w_ev.dtype}")
-    if xy.device != w_ev.device:
-        raise ValueError(f"xy on {xy.device} but w_ev on {w_ev.device}")
+    if w.shape != (xy.shape[0],):
+        raise ValueError(f"w_ev must be ({xy.shape[0]},), got {tuple(w.shape)}")
+    w_types = (torch.float32, torch.bool) if mask_ok else (torch.float32,)
+    if xy.dtype != torch.float32 or w.dtype not in w_types:
+        raise TypeError(f"splat takes float32, got {xy.dtype} and {w.dtype}")
+    if xy.device != w.device:
+        raise ValueError(f"xy on {xy.device} but w_ev on {w.device}")
     if xy.device.type not in ("cpu", "cuda"):
         raise ValueError(f"splat runs on cpu or cuda tensors, not {xy.device}")
-    if not (xy.is_contiguous() and w_ev.is_contiguous()):
+    if not (xy.is_contiguous() and w.is_contiguous()):
         raise ValueError("splat takes contiguous xy and w_ev")
     if H <= 0 or W <= 0:
         raise ValueError(f"bad image size {H}x{W}")
     if not 0.0 <= trunc < 7.0:
         raise ValueError(f"trunc must be in [0, 7), got {trunc}")
+    if xy.shape[0] >= 2**31 or H * W >= 2**31:
+        raise ValueError(f"splat too large for int32 indexing: N={xy.shape[0]}, {H}x{W}")
 
 
 class _Splat(torch.autograd.Function):
@@ -98,27 +218,38 @@ class _Splat(torch.autograd.Function):
         ctx.save_for_backward(xy, w_ev)
         ctx.cfg = (H, W, sigma, trunc)
         if xy.is_cuda:
-            return _splat_cuda(xy, w_ev, H, W, sigma, trunc)
+            return _splat_cuda(xy, None, w_ev, None, (0.0, 0.0), *ctx.cfg)
         from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
 
-        return _splat_gauss_separable(xy, w_ev, H, W, sigma, trunc)
+        return _splat_gauss_separable(xy, w_ev, *ctx.cfg)
 
     @staticmethod
     def backward(ctx, g):
-        """VJP through the separable form (as pallas_splat._splat_bwd)."""
-        from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
-
         xy, w_ev = ctx.saved_tensors
         need_xy, need_w = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
-            xy_ = xy.detach().requires_grad_(need_xy)
-            w_ = w_ev.detach().requires_grad_(need_w)
-            img = _splat_gauss_separable(xy_, w_, *ctx.cfg)
-            wanted = [t for t, need in ((xy_, need_xy), (w_, need_w)) if need]
-            grads = iter(torch.autograd.grad(img, wanted, g))
-        g_xy = next(grads) if need_xy else None
-        g_w = next(grads) if need_w else None
-        return g_xy, g_w, None, None, None, None
+        if xy.is_cuda:
+            g_xy, g_w = _vjp_cuda(g, xy, None, w_ev, None, (0.0, 0.0), *ctx.cfg,
+                                  need_xy=need_xy, need_w=need_w)
+        else:
+            g_xy, g_w = _splat_vjp_plain(g, xy, w_ev, *ctx.cfg)
+        return (g_xy if need_xy else None, g_w if need_w else None,
+                None, None, None, None)
+
+
+class _SplatSe2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, params, xy, t, w, center, H, W, sigma, trunc):
+        ctx.save_for_backward(params, xy, t, w)
+        ctx.cfg = (center, H, W, sigma, trunc)
+        if xy.is_cuda:
+            return _splat_cuda(xy, t, w, params, *ctx.cfg)
+        return _splat_se2_plain(xy, t, w, params, *ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        params, xy, t, w = ctx.saved_tensors
+        vjp = _vjp_cuda if xy.is_cuda else _splat_se2_vjp_plain
+        return (vjp(g, xy, t, w, params, *ctx.cfg),) + (None,) * 8
 
 
 def splat(xy: torch.Tensor, w_ev: torch.Tensor, H: int, W: int,
@@ -126,7 +257,36 @@ def splat(xy: torch.Tensor, w_ev: torch.Tensor, H: int, W: int,
     """(H,W) f32 image of N events ``xy`` (N,2) f32 weighted by ``w_ev``
     (N,) f32; differentiable w.r.t. both."""
     _check(xy, w_ev, H, W, trunc)
-    return _Splat.apply(xy, w_ev, H, W, sigma, trunc)
+    return _Splat.apply(xy, w_ev, H, W, float(sigma), float(trunc))
+
+
+def splat_se2(xy: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
+              params: torch.Tensor, center, H: int, W: int,
+              sigma: float, trunc: float) -> torch.Tensor:
+    """(H,W) f32 image of N events warped by ``tensorize.warp_se2(xy, t,
+    params, center)``, the warp computed inside the kernel.
+
+    ``xy`` (N,2) f32 unwarped coordinates, ``t`` (N,) f32 event times,
+    ``w`` (N,) f32 weights or a bool mask, ``params`` (3,) f32 [omega, vx,
+    vy] on the events' device (it is never read on the host), ``center`` two
+    Python floats. Differentiable w.r.t. ``params`` only."""
+    _check(xy, w, H, W, trunc, mask_ok=True)
+    if t.shape != w.shape or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"t must be contiguous float32 ({xy.shape[0]},), got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if (params.shape != (3,) or params.dtype != torch.float32
+            or not params.is_contiguous()):
+        raise ValueError(f"params must be contiguous float32 (3,), got "
+                         f"{params.dtype} {tuple(params.shape)}")
+    if t.device != xy.device or params.device != xy.device:
+        raise ValueError(f"xy on {xy.device} but t on {t.device} and params "
+                         f"on {params.device}")
+    if xy.requires_grad or t.requires_grad or w.requires_grad:
+        raise ValueError("splat_se2 is differentiable w.r.t. params only")
+    center = (float(center[0]), float(center[1]))
+    return _SplatSe2.apply(params, xy, t, w, center, H, W, float(sigma),
+                           float(trunc))
 
 
 splat.launches = 0
+splat.vjp_launches = 0

@@ -1,16 +1,18 @@
 """Atlas: multi-map container for lost-tracking recovery.
 
 PyTorch port of ``eorb_slam_tpu/slam/atlas.py`` (reference Atlas): a list of
-MapState values on one device + an active index. ``create_new_map`` stores
-the active map and starts a fresh one, ``reset_active`` empties it. The
-Sim3 weld of a stored map into the active one (``merge``) waits for the
-place-recognition slice and raises NotImplementedError.
+MapState values on one device (the card unless ``device`` says otherwise) +
+an active index. ``create_new_map`` stores the active map and starts a fresh
+one, ``reset_active`` empties it. The Sim3 weld of a stored map into the
+active one (``merge``) waits for the place-recognition slice and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 from typing import List
 
+from eorb_slam_tpu_torch._host import resolve_device
 from eorb_slam_tpu_torch.slam import map_state as ms
 
 
@@ -18,8 +20,8 @@ class Atlas:
     def __init__(self, K: int = 32, M: int = 4096, N: int = 512, P: int = 8,
                  device=None):
         self.caps = (K, M, N, P)
-        self.device = device
-        self.maps: List[ms.MapState] = [ms.empty_map(K, M, N, P, device)]
+        self.device = resolve_device(device)
+        self.maps: List[ms.MapState] = [ms.empty_map(K, M, N, P, self.device)]
         self.active = 0
 
     @property

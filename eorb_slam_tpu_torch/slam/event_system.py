@@ -28,7 +28,8 @@ from eorb_slam_tpu_torch.slam import system as slam_system
 
 
 class EventSlam:
-    """Event-only SLAM (EVENT_ONLY mode; reference System::TrackEvent)."""
+    """Event-only SLAM (EVENT_ONLY mode; reference System::TrackEvent). L1
+    and L2 run on ``device``: the card when it is None, as for the builder."""
 
     def __init__(
         self,

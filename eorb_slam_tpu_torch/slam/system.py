@@ -5,7 +5,7 @@ PyTorch port of the synchronous path of ``eorb_slam_tpu/slam/system.py``
 the host keeps small Python/numpy state (mode, keyframe order, cursors,
 trajectory log) and every compute step — extraction, init matching,
 two-view reconstruction, tracking, triangulation, local BA — runs on the
-device of the camera tensor. One (2,) read per frame carries the tracking
+system's device (the card unless ``device`` says otherwise). One (2,) read per frame carries the tracking
 decision; a mapping step's stats and the keyframe-redundancy ranking travel
 to the host behind pinned non-blocking copies and are read at the next
 keyframe.
@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from eorb_slam_tpu_torch._host import HostCopy
+from eorb_slam_tpu_torch._host import HostCopy, resolve_device
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie, twoview
 from eorb_slam_tpu_torch.ops import frontend, matching
@@ -78,7 +78,7 @@ class MonoSlam:
                 "pipelined speculation is not ported yet (pipelined=False)")
         if loop_words is not None:
             raise NotImplementedError("loop closing is not ported yet")
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.cam = torch.as_tensor(cam_params, dtype=torch.float32).to(self.device)
         self.img_w, self.img_h = img_w, img_h
         self.atlas = atlas_mod.Atlas(K=K, M=M, N=N, P=P, device=self.device)

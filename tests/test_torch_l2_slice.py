@@ -104,7 +104,7 @@ def test_monoslam_process_features_matches_jax(jax_draws):
     kw = dict(K=6, M=1024, N=256, P=4, min_init_matches=80,
               max_frames_between_kf=3)
     jslam = jsys.MonoSlam(CAM, **kw)
-    tslam = tsys.MonoSlam(CAM, **kw)
+    tslam = tsys.MonoSlam(CAM, device="cpu", **kw)
     for s in (jslam, tslam):
         s.fuse_enabled = s.desc_refresh = False      # not ported (>= 320 px)
     n_kf_frames = 0
@@ -133,7 +133,7 @@ def test_event_slam_track_events_matches_jax(jax_draws):
     kw = dict(max_kp=256, K=12, M=1024)
     jslam = jes.EventSlam(jnp.asarray(EV_CAM), jb.BuilderConfig(**EV_CFG), **kw)
     jslam.l2.pipelined = False
-    tslam = tes.EventSlam(EV_CAM, tb.BuilderConfig(**EV_CFG), **kw)
+    tslam = tes.EventSlam(EV_CAM, tb.BuilderConfig(**EV_CFG), device="cpu", **kw)
     jslam.builder.feed(ev)
     tslam.builder.feed(ev)
     n, n_dpose = 0, 0
@@ -181,7 +181,7 @@ def test_monoslam_recovery_matches_jax(jax_draws):
     kw = dict(K=8, M=1024, N=256, P=4, min_init_matches=80,
               max_frames_between_kf=3)
     jslam = jsys.MonoSlam(CAM, **kw)
-    tslam = tsys.MonoSlam(CAM, **kw)
+    tslam = tsys.MonoSlam(CAM, device="cpu", **kw)
     for s in (jslam, tslam):
         s.fuse_enabled = s.desc_refresh = False
         s.lost_grace, s.min_kf_store = 2, 3
@@ -217,6 +217,6 @@ def test_monoslam_recovery_matches_jax(jax_draws):
 
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
-        tsys.MonoSlam(CAM, pipelined=True)
+        tsys.MonoSlam(CAM, pipelined=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        tsys.MonoSlam(CAM, loop_words=np.zeros((4, 256), np.int8))
+        tsys.MonoSlam(CAM, loop_words=np.zeros((4, 256), np.int8), device="cpu")

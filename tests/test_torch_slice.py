@@ -123,7 +123,7 @@ def _compare_windows(jbld, tbld, n_windows):
 def test_slice_from_stream_start():
     ev = _stream()
     jbld = jb.EventWindowBuilder(jb.BuilderConfig(**CFG), jnp.asarray(CAM))
-    tbld = tb.EventWindowBuilder(tb.BuilderConfig(**CFG), CAM)
+    tbld = tb.EventWindowBuilder(tb.BuilderConfig(**CFG), CAM, device="cpu")
     jbld.feed(ev)
     tbld.feed(ev)
     _compare_windows(jbld, tbld, 5)
@@ -148,7 +148,8 @@ def test_slice_mid_stream_through_convert():
                         jnp.asarray(3.5, jnp.float32))
 
     tbld = tb.EventWindowBuilder(tb.BuilderConfig(**CFG),
-                                 convert.cam_from_numpy(np.zeros(9)))
+                                 convert.cam_from_numpy(np.zeros(9)),
+                                 device="cpu")
     img, pts, ok = (np.asarray(a) for a in jbld._win_carry)
     convert.builder_state_from_numpy(tbld, dict(
         prev_img=img, prev_pts=pts, prev_ok=ok, T_prev=T_prev, T_cur=T_cur,
@@ -191,7 +192,7 @@ def test_idle_window_resets_carry():
     """A stream below min_ev_gen_rate is gated exactly as in JAX."""
     ev = _stream(seconds=1.0, rate=20_000)
     jbld = jb.EventWindowBuilder(jb.BuilderConfig(**CFG), jnp.asarray(CAM))
-    tbld = tb.EventWindowBuilder(tb.BuilderConfig(**CFG), CAM)
+    tbld = tb.EventWindowBuilder(tb.BuilderConfig(**CFG), CAM, device="cpu")
     jbld.feed(ev)
     tbld.feed(ev)
     assert jbld.step_window() is None and tbld.step_window() is None
