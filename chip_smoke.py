@@ -1,30 +1,42 @@
 """Drive the PyTorch/CUDA port on one GPU: build the splat kernels (forward
-and gather VJP, each in its identity and SE2-warp form), hold them against
-their plain PyTorch versions, time the contrast-maximization ascent that
-calls them, run the L1 event front-end slice (event
-stream -> EventWindowBuilder.step_window -> MCI -> ORB extract), hold L2
-tracking and local BA on the card against the CPU from the same map, then
-run EVENT_ONLY end to end (slam/event_system.EventSlam: L1 + MonoSlam
-tracking, mapping and Schur BA) at DAVIS240 size and shakes density
-(4 M events/s) with the configs/synth_ev_only.yaml settings.
+and gather VJP, each in its identity and SE2-warp form) and the native C++
+I/O library, hold the kernels against their plain PyTorch versions (at the
+event front-end's shapes and at the dataset generator's), time the
+contrast-maximization ascent that calls them, run the L1 event front-end
+slice (event stream -> EventWindowBuilder.step_window -> MCI -> ORB
+extract), hold L2 tracking, duplicate fusion, the descriptor refresh and
+local BA on the card against the CPU from the same map, run EVENT_ONLY end
+to end (slam/event_system.EventSlam: L1 + MonoSlam tracking, mapping and
+Schur BA) at DAVIS240 size and shakes density (4 M events/s), and then the
+app layer: generate an EV-ETHZ sequence with io/synth_dataset (dot renderer
+through the splat kernel), run apps/run_slam.main on it with the
+configs/synth_ev_only.yaml settings and score the trajectory against ground
+truth, and run MONOCULAR at the configs/synth_euroc_mono.yaml width
+(752x480, 512 features) on a generated EuRoC sequence.
 
     python3 chip_smoke.py
 
 Every phase raises on failure and the script then exits non-zero. Output:
-the card's name and power limit, the kernels' build time, the kernel-vs-
-plain comparisons and times (by CUDA events around eager calls, and device
-only: a CUDA-graph replay and the profiler's time by kernel name), the
-ascent's time and launches per call, the L1 slice's windows/s, the L2 cuda-vs-cpu
+the card's name and power limit, the build times, the kernel-vs-plain
+comparisons and times (by CUDA events around eager calls, and device only:
+a CUDA-graph replay and the profiler's time by kernel name), the ascent's
+time and launches per call, the L1 slice's windows/s, the L2 cuda-vs-cpu
 agreement, EventSlam's MCIs/s, real-time factor and ms per MCI by phase,
-then one JSON line describing the kernels and, last, the device line
+the generator's events/s, the two app runs with their accuracy, then one
+JSON line describing the kernels and, last, the device line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -46,7 +58,7 @@ F32_FLOPS = 67e12            # f32 outside the tensor cores, published
 FWD_OPS, VJP_OPS = 12 * 4 + 36 * 2 + 20, 12 * 4 + 36 * 6 + 40
 RATE = 4_000_000    # events/s after the in-image cut (shakes density)
 WARM_S, RUN_S = 0.1, 0.25             # L1 slice
-EV_WARM_S, EV_RUN_S, EV_PHASE_S = 0.2, 0.4, 0.1   # EventSlam
+EV_WARM_S, EV_RUN_S, EV_PHASE_S = 0.2, 0.25, 0.1  # EventSlam
 EV_PHASE_TIMED = 12      # MCIs of the phase pass under timers; the rest (~4)
 #                          run under the profiler
 PACKET = 40_000          # events per EventSlam.track_events call (10 ms)
@@ -61,6 +73,17 @@ CAM = (199.0, 199.0, 120.0, 90.0)
 SLICE_CFG = dict(img_w=W, img_h=H, l1_chunk_size=6000, l1_num_loop=4,
                  max_pixel_disp=3.0, min_ev_gen_rate=0.5)
 MAX_KP = 256
+# the dataset generator (io/synth_dataset): 6,000 dots x 4 sub-dots, splat
+# sigma 1.1, and the event rates a shakes sequence must land between
+GEN_DOTS, GEN_SIGMA = 6000, 1.1
+GEN_S, GEN_SIM_HZ, GEN_FPS = 0.5, 150.0, 24.0
+GEN_RATE_BAND = (1.0e6, 8.0e6)          # events per second of data
+APP_ATE_MAX = 0.50      # ATE rmse / path length, EVENT_ONLY through run_slam: six card
+#                         runs gave 0.087-0.278 (PERF.md section 6)
+APP_MIN_ATE_N = 30
+# MONOCULAR at the configs/synth_euroc_mono.yaml width
+MONO_FRAMES, MONO_PROFILED = 60, 2
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def _log(*a):
@@ -561,11 +584,87 @@ def _cam(device="cpu"):
     return torch.tensor([*CAM, 0, 0, 0, 0, 0], dtype=torch.float32, device=device)
 
 
+FUSE_TABLES = ("kf_feat_lm", "obs_kf", "obs_feat", "obs_valid", "lm_valid",
+               "lm_nobs", "lm_desc_pm1")
+
+
+def _inject_duplicates(m: dict, a: int, b: int, n_simple: int = 8):
+    """Edit a map (numpy arrays by field) so that keyframes ``a`` and ``b``
+    hold duplicate landmarks: ``n_simple`` clones of landmarks both see, bound
+    to b's features, and two groups whose candidate pairs tie exactly in
+    descriptor distance. In each group landmarks L1, L2 (features of a, 1 px
+    apart) both match, at distance 0, two features of b that share ONE
+    landmark X: in the first group L1 and L2 outnumber X and win, so the tied
+    pairs share the loser; in the second X outnumbers them and wins both, and
+    both losers write its one free column. These are the repeated-index
+    scatters of fuse_duplicates. Returns (map, [group]) with each group's
+    landmarks ``l``, features ``fa`` / ``fb`` and ``x``."""
+    m = {k: v.copy() for k, v in m.items()}
+    rng = np.random.default_rng(7)
+    free = list(np.flatnonzero(~m["lm_valid"])[::-1])
+    in_a = {int(l): i for i, l in enumerate(m["kf_feat_lm"][a])
+            if l >= 0 and m["kf_feat_valid"][a, i] and m["lm_valid"][l]}
+    shared = [(int(l), in_a[int(l)], i) for i, l in enumerate(m["kf_feat_lm"][b])
+              if l >= 0 and m["kf_feat_valid"][b, i] and int(l) in in_a]
+    # the tie groups take the landmarks with the fewest observations (but 2
+    # left once b's is dropped), so that X can outnumber them
+    tied = sorted((e for e in shared[n_simple:] if m["lm_nobs"][e[0]] >= 3),
+                  key=lambda e: m["lm_nobs"][e[0]])[:4]
+    if len(shared) < n_simple or len(tied) < 4:
+        raise RuntimeError(f"keyframes {a} and {b} share only {len(shared)} landmarks")
+
+    def drop_obs(lm, kf, feat):
+        col = np.flatnonzero(m["obs_valid"][lm] & (m["obs_kf"][lm] == kf)
+                             & (m["obs_feat"][lm] == feat))
+        m["obs_valid"][lm, col[:1]] = False
+        m["lm_nobs"][lm] = m["obs_valid"][lm].sum()
+
+    def new_landmark(pos, desc, obs):
+        lm = free.pop()
+        m["lm_pos"][lm], m["lm_desc_pm1"][lm] = pos, desc
+        m["lm_valid"][lm], m["lm_first_kf"][lm] = True, obs[0][0]
+        m["obs_valid"][lm] = False
+        for c, (kf, feat) in enumerate(obs):
+            m["obs_kf"][lm, c], m["obs_feat"][lm, c] = kf, feat
+            m["obs_valid"][lm, c] = True
+            m["kf_feat_lm"][kf, feat] = lm
+        m["lm_nobs"][lm] = len(obs)
+        return lm
+
+    for lm, fa, fb in shared[:n_simple]:
+        drop_obs(lm, b, fb)
+        new_landmark(m["lm_pos"][lm] * (1 + 1e-3), m["lm_desc_pm1"][lm], [(b, fb)])
+    other = int([k for k in np.flatnonzero(m["kf_valid"]) if k not in (a, b)][0])
+    spare = list(np.flatnonzero(m["kf_feat_valid"][other] & (m["kf_feat_lm"][other] < 0)))
+    P = m["obs_kf"].shape[1]
+    groups = []
+    for g in range(2):
+        (l1, fa1, fb1), (l2, fa2, fb2) = tied[2 * g: 2 * g + 2]
+        drop_obs(l1, b, fb1)
+        drop_obs(l2, b, fb2)
+        m["kf_xy"][a, fa2] = m["kf_xy"][a, fa1] + np.float32([1.0, 0.0])
+        m["lm_pos"][l2] = m["lm_pos"][l1]
+        d1, d2 = ((rng.integers(0, 2, 256) * 2 - 1).astype(np.int8) for _ in range(2))
+        m["kf_desc_pm1"][a, fa1] = m["kf_desc_pm1"][b, fb1] = d1
+        m["kf_desc_pm1"][a, fa2] = m["kf_desc_pm1"][b, fb2] = d2
+        obs = [(b, fb1), (b, fb2)]
+        if g == 1:      # one observation more than L1 and L2, one column free
+            extra = int(max(m["lm_nobs"][l1], m["lm_nobs"][l2])) + 1 - len(obs)
+            extra = min(extra, P - 1 - len(obs), len(spare))
+            obs += [(other, int(spare.pop())) for _ in range(extra)]
+        x = new_landmark(m["lm_pos"][l1], d1, obs)
+        groups.append(dict(l=(l1, l2), fa=(fa1, fa2), fb=(fb1, fb2), x=x))
+    return m, groups
+
+
 def check_l2_small():
     """L2 on the card against the CPU: EventSlam runs on the CPU until it
     has a map, the map crosses to the card through convert.py, and one new
     frame's features are tracked (tracking.track_frame) and the map
-    bundle-adjusted (local_mapping.local_ba) on both devices."""
+    bundle-adjusted (local_mapping.local_ba) on both devices; then, with
+    duplicates injected, fuse_duplicates, update_landmark_descriptors and
+    local_ba with the refresh: every integer table and the descriptors
+    equal."""
     from eorb_slam_tpu_torch import convert
     from eorb_slam_tpu_torch.event import builder as eb
     from eorb_slam_tpu_torch.geometry import camera
@@ -629,6 +728,49 @@ def check_l2_small():
          f"f64 {BA_ITERS} iters rel diff {dcost64:.3e}; f32 {BA_ITERS} iters cpu "
          f"{c32['cpu'][0]:.4f} -> {c32['cpu'][1]:.4f}, cuda {c32['cuda'][0]:.4f} -> "
          f"{c32['cuda'][1]:.4f}, rel diff {dcost32:.3e} (not gated)")
+    # duplicate fusion, the medoid refresh, and local BA with the refresh.
+    # Fusion and the refresh are integer logic on f32 gates: equal tables.
+    # The BA runs in f64 for the gate (f32 LM after 8 iterations parts ways
+    # across devices, see above, and may prune another observation); the
+    # f32 run is reported.
+    order = l2._kf_order
+    dup_map, _ = _inject_duplicates(host_map, order[-1], order[-2])
+    fuse = {}
+    for dev in ("cpu", "cuda"):
+        m = convert.map_state_from_numpy(dup_map, dev)
+        n_fused = 0
+        for nb in order[-4:-1]:
+            m, nf = local_mapping.fuse_duplicates(m, _cam(dev), order[-1], nb)
+            n_fused += int(nf)
+        m_ref = local_mapping.update_landmark_descriptors(m)
+        f64 = torch.float64
+        m_ba64, _, _ = local_mapping.local_ba(
+            m._replace(kf_T=m.kf_T.to(f64), lm_pos=m.lm_pos.to(f64), kf_xy=m.kf_xy.to(f64)),
+            _cam(dev).to(f64), kf_free.to(dev), iters=BA_ITERS, refresh_desc=True)
+        m_ba32, _, _ = local_mapping.local_ba(m, _cam(dev), kf_free.to(dev),
+                                              iters=BA_ITERS, refresh_desc=True)
+        fuse[dev] = (n_fused, *(convert.map_state_to_numpy(x)
+                                for x in (m, m_ref, m_ba64, m_ba32)))
+    n_fused = fuse["cpu"][0]
+    two_obs = int((fuse["cpu"][1]["lm_nobs"][fuse["cpu"][1]["lm_valid"]] == 2).sum())
+    moved = int((fuse["cpu"][2]["lm_desc_pm1"] != fuse["cpu"][1]["lm_desc_pm1"]).any(1).sum())
+    diff32 = sum(int((fuse["cpu"][4][k] != fuse["cuda"][4][k]).sum()) for k in FUSE_TABLES)
+    _log(f"L2 fusion cuda vs cpu: {n_fused} landmarks fused on the CPU, "
+         f"{fuse['cuda'][0]} on the card (8 clones and 2 groups of tied pairs injected: 12 "
+         f"candidate merges); descriptor refresh moved {moved} descriptors, {two_obs} landmarks "
+         f"with 2 observations (tied medoid scores); tables after fusion, after the "
+         f"refresh and after f64 local_ba with the refresh compared; f32 local_ba: "
+         f"{diff32} table entries differ (not gated)")
+    if fuse["cuda"][0] != n_fused or n_fused < 6:
+        raise RuntimeError(f"fused {n_fused} on the CPU, {fuse['cuda'][0]} on the card")
+    for stage, i in (("fuse_duplicates", 1), ("update_landmark_descriptors", 2),
+                     ("local_ba f64 with refresh", 3)):
+        for k in FUSE_TABLES:
+            if not np.array_equal(fuse["cpu"][i][k], fuse["cuda"][i][k]):
+                raise RuntimeError(f"{stage}: {k} differs between cpu and cuda")
+    if moved == 0 or two_obs == 0:
+        raise RuntimeError("the descriptor refresh had nothing to decide")
+
     if nc < 10:
         raise RuntimeError(f"the CPU tracked only {nc} inliers: no real test")
     if agree < L2_TRACK_AGREE:
@@ -778,12 +920,281 @@ def run_event_slam():
                 vjp_launches=vjp_launches)
 
 
+def check_kernel_generator():
+    """The forward kernel at the shapes the dataset generator gives it
+    (identity form, sigma 1.1): the shakes scene's 24,000 projected sub-dots
+    with the 0/1 f32 weights the renderer really passes, and 6,000 dots with
+    f32 amplitude weights. Returns one row per shape."""
+    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
+    from eorb_slam_tpu_torch.io import synth_dataset as sd
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    scene = sd.make_scene("shakes", W, H, CAM[0], n_dots=GEN_DOTS, seed=0)
+    T = torch.tensor(sd.make_trajectory("shakes", GEN_S)(0.1), dtype=torch.float32,
+                     device="cuda")
+    dots = torch.tensor(scene.dots, device="cuda")
+    pc = dots @ T[:3, :3].T + T[:3, 3]
+    uv = torch.stack([CAM[0] * pc[:, 0] / pc[:, 2] + CAM[2],
+                      CAM[1] * pc[:, 1] / pc[:, 2] + CAM[3]], 1).contiguous()
+    ok = (pc[:, 2] > 0.3) & (uv[:, 0] >= -3) & (uv[:, 0] < W + 3) \
+        & (uv[:, 1] >= -3) & (uv[:, 1] < H + 3)
+    amp = torch.tensor(scene.amp, device="cuda")
+    shapes = [("renderer", uv, ok.to(torch.float32)),
+              ("amplitudes", uv[::4].contiguous(), (amp * ok)[::4].contiguous())]
+    cfg = (H, W, GEN_SIGMA, TRUNC)
+    rows = []
+    for name, xy, w in shapes:
+        n = xy.shape[0]
+        ref = _splat_gauss_separable(xy, w, *cfg)
+        got = hs.splat(xy, w, *cfg)
+        torch.cuda.synchronize()
+        err = _held(got, ref, FWD_TOL, f"generator shape {name} N={n}")
+        act = int(((w != 0) & (xy[:, 0] > -3.5) & (xy[:, 0] < W + 3.5)
+                   & (xy[:, 1] > -3.5) & (xy[:, 1] < H + 3.5)).sum())
+        row = dict(name=name, n=n, err=err, ref=float(ref.abs().max()), active=act,
+                   ms=_time_ms(lambda: hs.splat(xy, w, *cfg)),
+                   dev_ms=_device_ms(lambda: hs.splat(xy, w, *cfg)),
+                   plain_ms=_time_ms(lambda: _splat_gauss_separable(xy, w, *cfg)),
+                   bound=_bound(n, act, False, False))
+        _log(f"splat at the generator's shape ({name}): N={n} ({act} in view), sigma "
+             f"{GEN_SIGMA}, identity form: max abs {err:.3e} (max|ref| {row['ref']:.3f}, "
+             f"tol {FWD_TOL}x) | ms by events / device only / plain / bound "
+             f"(12N + 4HW bytes): {row['ms']:.4f} / {row['dev_ms']:.5f} / "
+             f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
+        rows.append(row)
+    return rows
+
+
+def _settings_with_root(config: str, root: str, out_dir: str) -> str:
+    """A copy of ``configs/<config>`` that differs in ``DS.Paths.root`` only."""
+    with open(os.path.join(REPO, "configs", config)) as f:
+        text = f.read()
+    text, n = re.subn(r'(?m)^DS\.Paths\.root:.*$', f'DS.Paths.root: "{root}"', text)
+    if n != 1:
+        raise RuntimeError(f"{config}: expected one DS.Paths.root line, found {n}")
+    path = os.path.join(out_dir, config)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_generate(work: str):
+    """io/synth_dataset.write_ev_ethz on the card: the shakes trajectory at
+    the synth_ev_only camera, loaded back through io/datasets."""
+    from eorb_slam_tpu_torch.io import datasets, synth_dataset as sd
+    from eorb_slam_tpu_torch.ops import hopper_splat
+
+    root = os.path.join(work, "ev_ethz")
+    scene = sd.make_scene("shakes", W, H, CAM[0], n_dots=GEN_DOTS, seed=0)
+    pose = sd.make_trajectory("shakes", GEN_S)
+    hopper_splat.splat.launches = 0
+    t0 = time.perf_counter()
+    sd.write_ev_ethz(root, "shakes_01", scene, pose, GEN_S, fps=GEN_FPS,
+                     sim_hz=GEN_SIM_HZ, contrast=0.25, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = hopper_splat.splat.launches
+    # one for the gain calibration, one per simulation step (both ends), one
+    # per image
+    poses = 1 + (int(round(GEN_S * GEN_SIM_HZ)) + 1) + int(GEN_S * GEN_FPS)
+    t0 = time.perf_counter()
+    seq = datasets.load_sequence("ev_ethz", root, "shakes_01", ts_factor=1.0)
+    t_load = time.perf_counter() - t0
+    ev = seq.events.events
+    rate = len(ev) / GEN_S
+    _log(f"generate: shakes_01, {GEN_S} s of data in {wall:.2f} s wall: {len(ev)} "
+         f"events ({rate / 1e6:.3f} M events per second of data), {seq.n_frames} "
+         f"images, {len(seq.imu.ts)} IMU rows, {len(seq.gt_ts)} GT rows; "
+         f"{launches} forward splat launches for {poses} rendered poses "
+         f"({launches / GEN_S:.0f} per second of data); loaded back in "
+         f"{t_load:.2f} s, timestamps {ev.dtype}")
+    if launches != poses:
+        raise RuntimeError(f"{launches} splat launches for {poses} rendered poses")
+    if ev.dtype != np.float64 or ev.shape[1] != 4 or np.any(np.diff(ev[:, 0]) < 0):
+        raise RuntimeError(f"events came back as {ev.dtype} {ev.shape}, or unsorted")
+    if not GEN_RATE_BAND[0] <= rate <= GEN_RATE_BAND[1]:
+        raise RuntimeError(f"event rate {rate} outside {GEN_RATE_BAND}")
+    if seq.n_frames != int(GEN_S * GEN_FPS) or seq.gt_pose.shape != (int(GEN_S * 100), 7):
+        raise RuntimeError(f"{seq.n_frames} images, GT {seq.gt_pose.shape}")
+    img = seq.image(0)
+    if img.shape != (H, W) or not (np.isfinite(img).all() and img.max() > 0.2):
+        raise RuntimeError("a rendered image is empty or not finite")
+    return dict(root=root, launches=launches, events=len(ev), wall_s=wall)
+
+
+def run_app_event_only(work: str, data_root: str):
+    """apps/run_slam.main with the configs/synth_ev_only.yaml settings (only
+    DS.Paths.root differs) on the generated sequence, no --device: the
+    system goes to the card; scored against ground truth with --eval."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.ops import hopper_splat
+    from eorb_slam_tpu_torch.slam import event_system, system
+
+    settings = _settings_with_root("synth_ev_only.yaml", data_root, work)
+    states, queues = [], []
+    track_mci = event_system.EventSlam._track_mci
+
+    def recording(self, pi):
+        res = track_mci(self, pi)
+        states.append(res["state"])
+        queues.append(self.builder._q is not None)
+        return res
+
+    event_system.EventSlam._track_mci = recording
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    try:
+        t0 = time.perf_counter()
+        (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
+                                "--out", os.path.join(work, "results_ev")])
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+    finally:
+        event_system.EventSlam._track_mci = track_mci
+    launches, vjp = hopper_splat.splat.launches, hopper_splat.splat.vjp_launches
+    st, ev = out["stats"], out.get("eval", {})
+    n = st["mci"]
+    first_ok = states.index(system.OK) if system.OK in states else n
+    after = states[first_ok:]
+    n_ok = sum(s == system.OK for s in after)
+    with open(out["trajectory_file"]) as f:
+        header = f.readline()
+    path_len = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+    ate_frac = ev.get("ate_rmse", float("inf")) / max(path_len, 1e-12)
+    data_s = GEN_S
+    _log(f"run_slam EVENT_ONLY on {out['device']}: {n} MCIs from {out['iterations']} "
+         f"chunks in {out['wall_s']:.3f} s wall = {n / out['wall_s']:.3f} MCIs/s "
+         f"(real-time x {data_s / out['wall_s']:.4f}; main() with parse and "
+         f"evaluation {t_main:.3f} s); avg_track_ms {out['avg_track_ms']:.2f} per "
+         f"chunk; initialised at MCI {first_ok}, then {n_ok}/{len(after)} tracked; "
+         f"splat launches {launches} forward + {vjp} VJP for {st['windows']} windows; "
+         f"native queue {'in use' if queues and all(queues) else 'NOT in use'}")
+    _log(f"run_slam EVENT_ONLY accuracy: ATE rmse {ev.get('ate_rmse')} m over "
+         f"{ev.get('ate_n')} poses (Sim3-aligned, scale {ev.get('ate_scale')}), path "
+         f"{path_len:.4f} m -> {100 * ate_frac:.2f}% of the path; piecewise APE "
+         f"{ev.get('ape_piecewise', {}).get('ape_pct')}%; RPE trans "
+         f"{ev.get('rpe_trans_rmse')} rot {ev.get('rpe_rot_rmse')}; stats {st}")
+    if out["device"] != "cuda":
+        raise RuntimeError(f"run_slam ran on {out['device']}")
+    if not (queues and all(queues)):
+        raise RuntimeError("EventWindowBuilder did not use the native event queue")
+    if not after or n_ok < 0.8 * len(after):
+        raise RuntimeError(f"only {n_ok}/{len(after)} windows tracked after init")
+    per_window = SLICE_CFG["l1_num_loop"] + 4 + 1 + 2 * CM_ITERS
+    if (launches, vjp) != (st["windows"] * per_window, st["windows"] * CM_ITERS):
+        raise RuntimeError(f"{launches} + {vjp} launches for {st['windows']} windows, "
+                           f"expected {per_window} + {CM_ITERS} per window")
+    if not header.startswith("# tracking:"):
+        raise RuntimeError(f"TUM file starts with {header!r}")
+    if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= APP_MIN_ATE_N):
+        raise RuntimeError(f"evaluate gave {ev}")
+    if not ate_frac <= APP_ATE_MAX:
+        raise RuntimeError(f"ATE is {ate_frac} of the path > {APP_ATE_MAX}")
+    return dict(launches=launches, vjp_launches=vjp, mcis=n, wall_s=out["wall_s"],
+                ate_frac=ate_frac)
+
+
+def run_app_monocular(work: str):
+    """MONOCULAR at the configs/synth_euroc_mono.yaml width (752x480, fx 458,
+    20 fps, 512 features): the corridor trajectory through the textured-box
+    renderer, written in EuRoC layout, then run_slam.run_sequence +
+    evaluate; then a few more frames under the profiler."""
+    from eorb_slam_tpu_torch._host import to_device
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.io import config, datasets, synth_dataset as sd
+    from eorb_slam_tpu_torch.slam import system
+
+    root = os.path.join(work, "euroc")
+    st = config.load_settings(_settings_with_root("synth_euroc_mono.yaml", root, work))
+    Wm, Hm, fx, fps = st.cam.width, st.cam.height, st.cam.fx, st.cam.fps
+    n_all = MONO_FRAMES + MONO_PROFILED
+    t0 = time.perf_counter()
+    scene = sd.make_scene("corridor", Wm, Hm, fx, n_dots=10)
+    sd.write_euroc(root, "corridor_01", scene, sd.make_trajectory("corridor", 30.0),
+                   duration=n_all / fps, fps=fps, verbose=False,
+                   renderer=sd.make_box_renderer("corridor", Wm, Hm, fx))
+    t_gen = time.perf_counter() - t0
+    seq = datasets.load_sequence(st.dataset.format, root, "corridor_01",
+                                 ts_factor=st.dataset.ts_factor)
+    if seq.n_frames != n_all or seq.image(0).shape != (Hm, Wm):
+        raise RuntimeError(f"{seq.n_frames} frames of {seq.image(0).shape}")
+
+    states, t_map = [], []
+    process, insert = system.MonoSlam.process_image, system.MonoSlam._insert_keyframe
+
+    def recording(self, img, ts, **kw):
+        res = process(self, img, ts, **kw)
+        states.append(res["state"])
+        return res
+
+    def timed_insert(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        insert(self, *a, **kw)
+        torch.cuda.synchronize()
+        t_map.append(time.perf_counter() - t)
+
+    system.MonoSlam.process_image = recording
+    system.MonoSlam._insert_keyframe = timed_insert
+    try:
+        slam, out = run_slam.run_sequence(
+            st, seq, out_dir=os.path.join(work, "results_mono"),
+            max_frames=MONO_FRAMES, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        system.MonoSlam.process_image = process
+        system.MonoSlam._insert_keyframe = insert
+    ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
+    stats = out["stats"]
+    first_ok = states.index(system.OK) if system.OK in states else len(states)
+    after = states[first_ok:]
+    n_ok = sum(s == system.OK for s in after)
+    ms_frame = out["avg_track_ms"]
+    ms_map = 1e3 * sum(t_map) / max(len(states), 1)
+    # launches per frame, by the profiler, on the frames that follow
+    per_frame = []
+    for i in range(MONO_FRAMES, n_all):
+        img = (seq.image(i) * 255.0).astype(np.uint8)
+        _, per = _profile(lambda: slam.process_image(to_device(img, slam.device),
+                                                     float(seq.image_ts[i])))
+        per_frame.append((sum(c for c, _ in per.values()),
+                          sum(us for _, us in per.values()) / 1e3))
+    path_len = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+    _log(f"run_slam MONOCULAR {Wm}x{Hm}, N={slam.map.N}, on {slam.device}: "
+         f"{len(states)} frames (generated in {t_gen:.2f} s) in {out['wall_s']:.3f} s "
+         f"wall = {len(states) / out['wall_s']:.3f} frames/s; {ms_frame:.2f} ms per "
+         f"frame, of which keyframe mapping {ms_map:.2f} ms ({len(t_map)} keyframes, "
+         f"{1e3 * sum(t_map) / max(len(t_map), 1):.2f} ms each, synchronised) and "
+         f"extraction + tracking {ms_frame - ms_map:.2f} ms; initialised at frame "
+         f"{first_ok}, then {n_ok}/{len(after)} tracked; {stats.get('fuse_steps', 0)} "
+         f"mapping steps ran fuse_duplicates ({stats.get('fused', 0)} landmarks fused), "
+         f"{stats.get('refresh_steps', 0)} the descriptor refresh")
+    _log(f"run_slam MONOCULAR under torch.profiler, {len(per_frame)} frames: "
+         f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
+         f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame "
+         f"(per frame: {[c for c, _ in per_frame]})")
+    _log(f"run_slam MONOCULAR accuracy: ATE rmse {ev.get('ate_rmse')} over "
+         f"{ev.get('ate_n')} poses (Sim3-aligned), path {path_len:.4f} m -> "
+         f"{100 * ev.get('ate_rmse', np.inf) / max(path_len, 1e-12):.3f}% of the path; "
+         f"stats {stats}")
+    if slam.device.type != "cuda" or not (slam.fuse_enabled and slam.desc_refresh):
+        raise RuntimeError("MONOCULAR did not run on the card with fusion and refresh on")
+    if slam.map.N != 512 or (slam.img_w, slam.img_h) != (752, 480):
+        raise RuntimeError(f"not the full width: N={slam.map.N} {slam.img_w}x{slam.img_h}")
+    if not after or n_ok < 0.8 * len(after):
+        raise RuntimeError(f"only {n_ok}/{len(after)} frames tracked after init")
+    if stats.get("fuse_steps", 0) < 1 or stats.get("refresh_steps", 0) < 1:
+        raise RuntimeError(f"no mapping step ran fusion and the refresh: {stats}")
+    if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= 0.8 * len(after)):
+        raise RuntimeError(f"evaluate gave {ev}")
+    return dict(frames=len(states), wall_s=out["wall_s"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     import eorb_slam_tpu_torch  # noqa: F401  (sets TF32 off)
     from eorb_slam_tpu_torch import _build
+    from eorb_slam_tpu_torch.io import native
     from eorb_slam_tpu_torch.ops import hopper_splat
 
     gpu = _gpu_line()
@@ -791,39 +1202,66 @@ def main() -> int:
     _log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}")
 
+    # both builds at once: g++ on the native I/O library, nvcc on the kernels
     t0 = time.perf_counter()
+    gxx = threading.Thread(target=native.get_lib)
+    gxx.start()
     hopper_splat.build()
+    t_nvcc = time.perf_counter() - t0
+    gxx.join()
     info = _build.BUILD_INFO["splat"]
-    _log(f"build: splat kernels in {time.perf_counter() - t0:.2f} s "
-         f"(nvcc {info['seconds']:.2f} s) -> {info['path']}")
+    _log(f"build: splat kernels in {t_nvcc:.2f} s (nvcc {info['seconds']:.2f} s) "
+         f"-> {info['path']}; with the native I/O library (g++) "
+         f"{time.perf_counter() - t0:.2f} s in all")
     if info["log"].strip():
         _log(info["log"].strip())
+    lib = native.get_lib()
+    if lib is None:
+        raise RuntimeError(f"the native I/O library did not build: {native.BUILD_ERROR}")
+    _log(f"build: native I/O library -> {lib._name}")
 
     rows = check_kernel()
+    gen_rows = check_kernel_generator()
     time_ascent()
     check_slice_small()
     run_slice()
     check_l2_small()
     res = run_event_slam()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        gen = run_generate(work)
+        app = run_app_event_only(work, gen["root"])
+        run_app_monocular(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # times at the shape and form of 121 of a window's 129 kernel calls:
-    # the SE2 form at 16,384 events; errors are the worst over every N
+    # the SE2 form at 16,384 events; errors are the worst over every N.
+    # `launches` counts the EventSlam phase, `launches_run_slam` the app's.
     main_row = next(r for r in rows if r["n"] == MAIN_N)
+    gen_row = gen_rows[0]
     common = dict(route="cuda", source="eorb_slam_tpu_torch/csrc/splat.cu",
-                  replaces="eorb_slam_tpu/ops/pallas_splat.py:60", library_ms=None,
-                  n=MAIN_N, form="se2")
+                  replaces="eorb_slam_tpu/ops/pallas_splat.py:60", library_ms=None)
     _log(json.dumps({"kernels": [
-        dict(common, name="splat_gauss", launches=res["launches"],
+        dict(common, name="splat_gauss", n=MAIN_N, form="se2",
+             launches=res["launches"], launches_run_slam=app["launches"],
              max_abs_err=max(max(r["fwd_err"], r["fwd_se2_err"]) for r in rows),
              ms=main_row["fwd_se2_ms"], device_ms=main_row["fwd_se2_dev_ms"],
              plain_ms=main_row["fwd_se2_plain_ms"],
              bound_ms=main_row["fwd_se2_bound"][0], bound_by=main_row["fwd_se2_bound"][1]),
-        dict(common, name="splat_gauss_vjp", launches=res["vjp_launches"],
+        dict(common, name="splat_gauss_vjp", n=MAIN_N, form="se2",
+             launches=res["vjp_launches"], launches_run_slam=app["vjp_launches"],
              max_abs_err=max(max(r["vjp_xy_err"], r["vjp_w_err"], r["vjp_se2_err"])
                              for r in rows),
              ms=main_row["vjp_se2_ms"], device_ms=main_row["vjp_se2_dev_ms"],
              plain_ms=main_row["vjp_se2_plain_ms"],
              bound_ms=main_row["vjp_se2_bound"][0], bound_by=main_row["vjp_se2_bound"][1]),
+        # the same forward kernel as the dataset generator calls it
+        dict(common, name="splat_gauss (generator: identity form, sigma 1.1)",
+             n=gen_row["n"], form="identity", launches=gen["launches"],
+             max_abs_err=max(r["err"] for r in gen_rows),
+             ms=gen_row["ms"], device_ms=gen_row["dev_ms"], plain_ms=gen_row["plain_ms"],
+             bound_ms=gen_row["bound"][0], bound_by=gen_row["bound"][1]),
     ]}))
     _log(f"gpu: {gpu}")
     _log(json.dumps({"ok": True, "device": {

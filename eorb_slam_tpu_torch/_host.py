@@ -29,6 +29,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array (e.g. a uint8 frame) -> tensor on ``device``. For the
+    card the array is staged in pinned memory and copied without blocking,
+    so the host goes on while the transfer runs; the consumer casts on the
+    device."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class HostCopy:
     """The copy of ``t`` to the host, started now and read later."""
 

@@ -1,0 +1,294 @@
+"""Unified dataset-driven SLAM runner — the app layer of the port.
+
+PyTorch port of ``eorb_slam_tpu/apps/run_slam.py``. One YAML settings file
+drives everything, like the reference's ``fmt_ev_ethz`` / ``fmt_euroc``
+mains: per image timestamp (or, in the event-only modes, per fixed-size
+event chunk: System::TrackEvent), dispatch on the sensor config to the right
+pipeline, time every iteration, and save TUM trajectories with the
+timing-stats header.
+
+Ported so far: EVENT_ONLY through the discrete tracker
+(``Event.contTracking: 0``) and MONOCULAR with ORB features
+(``Features.mode: 0``). Every other sensor configuration raises
+NotImplementedError naming the ROADMAP row that owns it. The system runs on
+the card unless ``--device`` says otherwise; without a card it raises
+rather than carrying on on the CPU.
+
+Usage:
+    python -m eorb_slam_tpu_torch.apps.run_slam <settings.yaml> [--out DIR]
+        [--max-frames N] [--eval] [--sequence NAME] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+
+from eorb_slam_tpu_torch._host import resolve_device, to_device
+from eorb_slam_tpu_torch.io import config as cfg_mod
+from eorb_slam_tpu_torch.io import datasets, trajectory
+from eorb_slam_tpu_torch.io.config import SensorConfig
+
+# sensor configurations that are not ported yet -> the ROADMAP row (Queue 1)
+_UNPORTED = {
+    SensorConfig.STEREO: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
+    SensorConfig.RGBD: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
+    SensorConfig.IMU_MONOCULAR: "row 9 (IMU: slam/vi_system.py)",
+    SensorConfig.IMU_STEREO: "rows 9 and 10 (IMU, stereo)",
+    SensorConfig.EVENT_IMU: "row 12 (slam/event_inertial.py)",
+    SensorConfig.EVENT_MONO: "row 12 (event + image: slam/ev_image_system.py)",
+    SensorConfig.EVENT_IMU_MONO: "row 12 (slam/event_inertial.py)",
+}
+
+
+def make_vocab(st: cfg_mod.Settings, seq=None):
+    """The place-recognition vocabulary (reference loads ORBvoc.txt in
+    System::System). None when the settings configure none; a configured
+    vocabulary raises until ``retrieval/bow.py`` is ported."""
+    if st.vocab.path or st.vocab.train_words > 0:
+        raise NotImplementedError(
+            "a place-recognition vocabulary is configured (Vocabulary.path / "
+            "Vocabulary.trainWords), but retrieval/bow.py and loop closing "
+            "are not ported yet: ROADMAP.md Queue 1 row 11")
+    return None
+
+
+def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
+    """System::System equivalent: construct the pipeline for the sensor
+    config on ``device`` (None: the card)."""
+    from eorb_slam_tpu_torch.event import builder as ev_builder
+
+    device = resolve_device(device)
+    s = st.sensor
+    if s in _UNPORTED:
+        raise NotImplementedError(
+            f"sensor configuration {s.name} is not ported yet: ROADMAP.md "
+            f"Queue 1 {_UNPORTED[s]}")
+    if loop_words is not None:
+        raise NotImplementedError(
+            "loop closing is not ported yet: ROADMAP.md Queue 1 row 11")
+    cam = st.cam.params_array()
+    if s is SensorConfig.MONOCULAR:
+        if st.features.mode != 0:
+            raise NotImplementedError(
+                f"Features.mode {st.features.mode} (AKAZE / mixed features, "
+                "MixedMonoSlam) is not ported yet: ROADMAP.md Queue 1 row 13")
+        from eorb_slam_tpu_torch.slam.system import MonoSlam
+
+        # the reference app turns the pipelined speculation on; the port has
+        # none yet (ROADMAP.md Queue 1 row 8), so decisions are synchronous
+        return MonoSlam(
+            cam, img_w=st.cam.width or 240, img_h=st.cam.height or 180,
+            N=min(max(st.features.n_features, 128), 1024),
+            K=st.slam.max_keyframes, M=st.slam.max_landmarks,
+            local_window=st.slam.local_window,
+            max_frames_between_kf=st.slam.max_frames_between_kf,
+            pipelined=False, device=device,
+        )
+    if s is SensorConfig.EVENT_ONLY:
+        if st.event.continuous:
+            raise NotImplementedError(
+                "the continuous event tracker (Event.contTracking: 1, "
+                "EventSlamContinuous) is not ported yet: ROADMAP.md Queue 1 "
+                "row 14")
+        from eorb_slam_tpu_torch.slam.event_system import EventSlam
+
+        ev_cfg = ev_builder.BuilderConfig(
+            img_w=st.cam.width or 240, img_h=st.cam.height or 180,
+            l1_chunk_size=st.event.l1_chunk_size,
+            l1_num_loop=st.event.l1_num_loop,
+            min_ev_gen_rate=st.event.min_ev_gen_rate,
+            max_pixel_disp=st.event.max_pixel_disp,
+            sigma=st.event.sigma,
+        )
+        return EventSlam(cam, ev_cfg, device=device)
+    raise ValueError(f"unsupported sensor config: {s}")
+
+
+def run_sequence(
+    st: cfg_mod.Settings,
+    seq: datasets.Sequence,
+    out_dir: str = "results",
+    max_frames: Optional[int] = None,
+    pace: bool = False,
+    verbose: bool = True,
+    device=None,
+):
+    """One sequence through the pipeline; returns (slam, result dict)."""
+    loop_words = make_vocab(st, seq) if st.sensor.is_image() else None
+    slam = build_system(st, loop_words=loop_words, device=device)
+    s = st.sensor
+    main_timer = trajectory.SmartTimer("tracking")
+    t_wall0 = time.perf_counter()
+
+    if s is SensorConfig.EVENT_ONLY:
+        # event-clock loop: fixed-size chunks (System::TrackEvent)
+        if seq.events is None:
+            raise ValueError("event mode needs an event stream")
+        chunk_n = st.event.l1_chunk_size * st.event.l1_num_loop
+        n_chunks = 0
+        while not seq.events.exhausted:
+            chunk = seq.events.next_chunk_count(chunk_n)
+            if len(chunk) == 0:
+                break
+            main_timer.tic()
+            slam.track_events(chunk)
+            main_timer.toc()
+            n_chunks += 1
+            if max_frames is not None and n_chunks >= max_frames:
+                break
+        n_iter = n_chunks
+    else:
+        # image-clock loop (fmt_ev_ethz main loop)
+        n = seq.n_frames if max_frames is None else min(seq.n_frames, max_frames)
+        for i in range(n):
+            t = float(seq.image_ts[i])
+            # the loader serves [0,1]; FAST thresholds are 8-bit units. A
+            # uint8 frame keeps the host-to-device copy small; extract casts
+            # on the device.
+            img = (seq.image(i) * 255.0).astype(np.uint8)
+            main_timer.tic()
+            slam.process_image(to_device(img, slam.device), t)
+            main_timer.toc()
+            if pace:
+                sleep = 1.0 / max(st.cam.fps, 1.0) - main_timer.deltas[-1]
+                if sleep > 0:
+                    time.sleep(sleep)
+            if verbose and i % 50 == 0:
+                print(f"[{seq.name}] frame {i}/{n}", file=sys.stderr)
+        n_iter = n
+
+    wall = time.perf_counter() - t_wall0
+    os.makedirs(out_dir, exist_ok=True)
+    traj = slam.trajectory_twc()
+    out = {
+        "sequence": seq.name,
+        "iterations": n_iter,
+        "wall_s": wall,
+        "tracked_poses": len(traj),
+        "avg_track_ms": main_timer.average * 1e3,
+        "stats": dict(slam.stats),
+    }
+    if traj:
+        ts = np.asarray([x for x, _ in traj])
+        Twc = np.stack([T for _, T in traj])
+        path = os.path.join(out_dir, f"{seq.name}_{s.name.lower()}.txt")
+        trajectory.save_tum(path, ts, Twc, timers=(main_timer,))
+        out["trajectory_file"] = path
+    return slam, out
+
+
+def evaluate(seq: datasets.Sequence, traj_file: str, monocular: bool = True):
+    """Score a saved trajectory against the sequence GT (the reference's
+    evaluate_ate_scale.py / my_eval_ape.py protocol)."""
+    from eorb_slam_tpu_torch.evals import ate, kitti_odom, rpe
+    from eorb_slam_tpu_torch.io.trajectory import load_tum, tum_to_mats
+
+    if seq.gt_ts is None:
+        return {"error": "no ground truth in sequence"}
+    rows = load_tum(traj_file)
+    ts_e, Twc_e = tum_to_mats(rows)
+    est = list(zip(ts_e.tolist(), Twc_e))
+    gt_rows = np.concatenate([seq.gt_ts[:, None], seq.gt_pose], axis=1)
+    ts_g, Twc_g = tum_to_mats(gt_rows)
+    gt = list(zip(ts_g.tolist(), Twc_g))
+    out = {}
+    r, n, scale, _, _ = ate.ate_rmse(est, gt, with_scale=monocular)
+    out["ate_rmse"] = r
+    out["ate_n"] = n
+    out["ate_scale"] = scale
+    out["ape_piecewise"] = {
+        k: v for k, v in rpe.ate_piecewise(est, gt, with_scale=monocular).items()
+        if k != "pieces"
+    }
+    rp = rpe.rpe(est, gt, delta=1, scale_norm=monocular)
+    out["rpe_trans_rmse"] = rp["trans_rmse"]
+    out["rpe_rot_rmse"] = rp["rot_rmse"]
+    # KITTI-devkit sub-sequence odometry metrics when enough overlap exists
+    ia, ib = ate.associate(ts_e, ts_g, 0.02)
+    if len(ia) >= 50:
+        ko = kitti_odom.kitti_odom_eval(Twc_g[ib], Twc_e[ia])
+        if ko["n_subseq"]:
+            out["kitti_t_err_pct"] = ko["t_err_pct"]
+            out["kitti_r_err_deg_per_100m"] = ko["r_err_deg_per_100m"]
+    return out
+
+
+@contextlib.contextmanager
+def _profile(out_dir: Optional[str]):
+    """``torch.profiler`` over the block; the chrome trace and the table of
+    operators by device time go into ``out_dir``. No-op without one."""
+    if not out_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    with open(os.path.join(out_dir, "key_averages.txt"), "w") as f:
+        f.write(prof.key_averages().table(row_limit=50))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("settings", help="YAML settings file (reference format)")
+    p.add_argument("--out", default="results")
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--sequence", default=None,
+                   help="override DS target sequence name")
+    p.add_argument("--eval", action="store_true", dest="do_eval")
+    p.add_argument("--pace", action="store_true",
+                   help="sleep to dataset frame rate (real-time pacing)")
+    p.add_argument("--device", default=None,
+                   help="default: the card (raises without one); 'cpu' runs "
+                        "the system on the CPU")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the first "
+                        "sequence into DIR (trace.json for chrome://tracing "
+                        "and key_averages.txt)")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    st = cfg_mod.load_settings(args.settings)
+    seqs = list(st.dataset.sequences) or [""]
+    if args.sequence is not None:
+        seqs = [args.sequence]
+    elif st.dataset.seq_target >= 0:
+        seqs = [seqs[st.dataset.seq_target]]
+
+    results = []
+    for i, name in enumerate(seqs):
+        seq = datasets.load_sequence(
+            st.dataset.format, st.dataset.root, name,
+            ts_factor=st.dataset.ts_factor,
+        )
+        with _profile(args.profile if i == 0 else None):
+            slam, out = run_sequence(
+                st, seq, out_dir=args.out, max_frames=args.max_frames,
+                pace=args.pace, device=device,
+            )
+        out["device"] = str(slam.device)
+        if args.do_eval and "trajectory_file" in out:
+            out["eval"] = evaluate(
+                seq, out["trajectory_file"],
+                monocular=st.sensor.is_monocular() and not st.sensor.is_inertial(),
+            )
+        print(out)
+        results.append(out)
+    return results
+
+
+if __name__ == "__main__":
+    main()

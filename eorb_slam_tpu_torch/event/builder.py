@@ -10,9 +10,12 @@ the winner picked by patch-STD. All of it stays on the builder's device; the
 host keeps scalar control state (adaptive chunk size, cursor) and reads one
 small metadata vector a window late, through a non-blocking copy.
 
+The host event buffer is the native C++ queue (``io/native``: O(1) consume
+and front re-injection, background file streaming) where the library
+builds, else a numpy array.
+
 Not ported yet: the per-chunk ``step()`` state machine with its
-``_chunk_image``, ``build_mci`` and ``_finish_window``, and the native C++
-event queue (the buffer here is the JAX package's numpy branch).
+``_chunk_image``, ``build_mci`` and ``_finish_window``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from eorb_slam_tpu_torch._host import HostCopy, resolve_device
 from eorb_slam_tpu_torch.event import contrast_max, klt, tensorize
 from eorb_slam_tpu_torch.geometry import lie
+from eorb_slam_tpu_torch.io import native
 from eorb_slam_tpu_torch.ops import fast
 
 KINDS = ("hist", "se2", "dpose", "klt2d")
@@ -78,6 +82,9 @@ def _pad_events(ev: np.ndarray, cap: int, t0: Optional[float] = None):
     n_drop = max(len(ev) - cap, 0)
     if t0 is None:
         t0 = float(ev[n_drop, 0]) if len(ev) else 0.0
+    nat = native.pad_rebase(ev, cap, t0)
+    if nat is not None:
+        return nat
     ev = ev[n_drop:]
     n = len(ev)
     out = np.zeros((cap, 4), np.float32)
@@ -244,7 +251,9 @@ class EventWindowBuilder:
                 dtype=torch.float32, device=self.device)
         )
         # host event buffer stays float64: raw timestamps must not be
-        # quantized before window rebasing
+        # quantized before window rebasing. The native queue where the
+        # library is available, else the numpy array
+        self._q = native.make_queue()
         self.buf = np.zeros((0, 4), np.float64)
         self.chunk_size = cfg.l1_chunk_size
         self.last_med_disp = float("nan")
@@ -262,17 +271,31 @@ class EventWindowBuilder:
 
     def feed(self, events: np.ndarray) -> None:
         if len(events):
-            self.buf = np.concatenate([self.buf, np.asarray(events, np.float64)])
+            if self._q is not None:
+                self._q.feed(np.asarray(events, np.float64))
+            else:
+                self.buf = np.concatenate(
+                    [self.buf, np.asarray(events, np.float64)])
+
+    def stream_file(self, path: str, max_rows=None) -> bool:
+        """Start the native background streamer parsing ``path`` (ts x y p
+        text) into the queue; returns False when unavailable."""
+        return self._q is not None and self._q.stream_file(path, max_rows)
 
     def pending_events(self) -> int:
-        return len(self.buf)
+        return len(self._q) if self._q is not None else len(self.buf)
 
     def _consume(self, n: int) -> np.ndarray:
+        if self._q is not None:
+            return self._q.consume(n)
         chunk, self.buf = self.buf[:n], self.buf[n:]
         return chunk
 
     def _inject_front(self, events: np.ndarray) -> None:
-        self.buf = np.concatenate([events, self.buf])
+        if self._q is not None:
+            self._q.inject_front(events)
+        else:
+            self.buf = np.concatenate([events, self.buf])
 
     def set_pose_prior(self, T0, T1, med_depth):
         """L2 pose/depth feedback (PoseDepthInfo analog). Device tensors are

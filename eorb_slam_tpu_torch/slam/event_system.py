@@ -47,6 +47,7 @@ class EventSlam:
         self.cfg = cfg or ev_builder.BuilderConfig()
         self.builder = ev_builder.EventWindowBuilder(self.cfg, cam_params,
                                                      device=device)
+        self.device = self.builder.device
         self.max_kp = max_kp
         self.l2 = slam_system.MonoSlam(
             cam_params,

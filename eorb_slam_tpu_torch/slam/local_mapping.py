@@ -1,13 +1,14 @@
-"""Local mapping: new-landmark triangulation and local BA with culling.
+"""Local mapping: new-landmark triangulation, duplicate fusion, and local
+BA with culling and the descriptor refresh.
 
-PyTorch port of the event path of ``eorb_slam_tpu/slam/local_mapping.py``
-(reference LocalMapping::ProcessNewKeyFrame -> MapPointCulling ->
-CreateNewMapPoints -> local BA): ``create_new_landmarks``,
-``keyframe_mapping_step`` and ``local_ba``. Duplicate fusion
-(``fuse_duplicates``), the medoid descriptor refresh
-(``update_landmark_descriptors``) and the depth / slot-aligned landmark
-makers are not ported yet; the event tracker runs without them (sensors
-narrower than 320 px), and asking for them raises NotImplementedError.
+PyTorch port of ``eorb_slam_tpu/slam/local_mapping.py`` (reference
+LocalMapping::ProcessNewKeyFrame -> MapPointCulling -> CreateNewMapPoints
+-> SearchInNeighbors -> local BA): ``create_new_landmarks``,
+``fuse_duplicates``, ``keyframe_mapping_step``,
+``update_landmark_descriptors`` and ``local_ba``. The depth and slot-aligned
+landmark makers (``create_depth_landmarks``,
+``create_new_landmarks_aligned``) belong to the stereo/RGB-D and continuous
+trackers and are not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +77,114 @@ def create_new_landmarks(
     return m, (lm_ids >= 0).sum(dtype=torch.int32)
 
 
+def fuse_duplicates(
+    m: ms.MapState,
+    cam_params: torch.Tensor,
+    kf_a,                # new keyframe slot
+    kf_b,                # covisible neighbor slot
+    search_px: float = 3.0,
+):
+    """Merge duplicate landmarks between two keyframes
+    (LocalMapping::SearchInNeighbors + ORBmatcher::Fuse): project the
+    neighbor's landmarks into the new keyframe; where a landmark-bearing
+    feature of A descriptor-matches a projected landmark of B that is a
+    DIFFERENT landmark, the two are duplicates of one 3D point. The one with
+    more observations wins (MapPoint::Replace), the loser's observations are
+    rewired into the winner's row and every feature link is redirected.
+
+    Hamming distances are integers, so two candidate pairs often tie; where
+    tied pairs share a winner or a loser, the pair later in feature order
+    wins every write (``scatter_set_last``), on the CPU and on the card
+    alike, which is what XLA's CPU scatter does in the reference.
+
+    Returns (MapState, n_fused () int32)."""
+    M, P = m.obs_kf.shape
+    dev = m.obs_kf.device
+    Ta = m.kf_T[kf_a]
+    la = m.kf_feat_lm[kf_a]
+    lb = m.kf_feat_lm[kf_b]
+    la_c = torch.clamp(la, min=0).long()
+    lb_c = torch.clamp(lb, min=0).long()
+    va = m.kf_feat_valid[kf_a] & (la >= 0) & m.lm_valid[la_c]
+    vb = m.kf_feat_valid[kf_b] & (lb >= 0) & m.lm_valid[lb_c]
+
+    # project B's landmarks into A's image; gate candidate pairs by pixel
+    # distance to A's features
+    pc = lie.se3_apply(Ta, m.lm_pos[lb_c])
+    uv = cam_mod.pinhole_project_linear(cam_params, pc)
+    vb = vb & (pc[:, 2] > 0.05) & torch.isfinite(uv).all(dim=-1)
+    d2 = ((m.kf_xy[kf_a][:, None, :] - uv[None, :, :]) ** 2).sum(-1)
+    pair = d2 <= search_px**2
+
+    j, dist = matching.match_nnratio(
+        m.kf_desc_pm1[kf_a], va, m.kf_desc_pm1[kf_b], vb,
+        pair_mask=pair, max_dist=matching.TH_LOW, nn_ratio=0.8, mutual=True,
+    )
+    lb_j = lb[torch.clamp(j, min=0).long()]
+    lbj_c = torch.clamp(lb_j, min=0).long()
+    dup = (j >= 0) & va & (la != lb_j)
+    # 3D consistency: duplicates of one physical point sit close in space;
+    # without this gate coarse features merge distinct nearby landmarks
+    pos_a = m.lm_pos[la_c]
+    z_a = lie.se3_apply(Ta, pos_a)[:, 2]
+    d3 = torch.linalg.norm(pos_a - m.lm_pos[lbj_c], dim=-1)
+    dup = dup & (d3 <= 0.03 * torch.clamp(z_a, min=1e-3))
+
+    # winner = more observations (MapPoint::Replace keeps higher nObs)
+    a_wins = m.lm_nobs[la_c] >= m.lm_nobs[lbj_c]
+    w_c = torch.where(a_wins, la_c, lbj_c)
+    l_c = torch.where(a_wins, lbj_c, la_c)
+
+    # keep one merge per loser and per winner (best descriptor distance),
+    # and never merge a landmark that is simultaneously a winner elsewhere
+    d_eff = torch.where(dup, dist, matching.BIG)
+    inf = torch.full((M,), matching.BIG, dtype=d_eff.dtype, device=dev)
+    best_l = inf.scatter_reduce(0, l_c, d_eff, reduce="amin", include_self=True)
+    best_w = inf.scatter_reduce(0, w_c, d_eff, reduce="amin", include_self=True)
+    keep = dup & (d_eff <= best_l[l_c]) & (d_eff <= best_w[w_c])
+    # targets carry one spare row M that takes every dropped update
+    win_mask = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+    win_mask[torch.where(keep, w_c, M)] = True
+    keep = keep & ~win_mask[l_c]
+
+    # move the loser's valid observations into the winner's free columns
+    occ_w = m.obs_valid[w_c].sum(1)                               # (N,)
+    lrow_valid = m.obs_valid[l_c] & keep[:, None]                 # (N,P)
+    tgt = occ_w[:, None] + torch.cumsum(lrow_valid, dim=1) - 1
+    ok_move = lrow_valid & (tgt >= 0) & (tgt < P)
+    row_idx = torch.where(ok_move, w_c[:, None], M).reshape(-1)
+    col_idx = torch.clamp(tgt, 0, P - 1).reshape(-1)
+
+    def spare(t):
+        return torch.cat([t, t[:1]])
+
+    def move(table, values):
+        return ms._flat_set_last(spare(table), row_idx, col_idx,
+                                 values.reshape(-1))
+
+    obs_kf = move(m.obs_kf, m.obs_kf[l_c])[:M]
+    obs_feat = move(m.obs_feat, m.obs_feat[l_c])[:M]
+    obs_valid = move(m.obs_valid, torch.ones_like(ok_move))
+
+    # kill the losers: invalidate their rows, redirect every feature link
+    dead = torch.where(keep, l_c, M)
+    gone = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+    gone[dead] = True
+    gone = gone[:M]
+    obs_valid = obs_valid[:M] & ~gone[:, None]
+    remap = ms.scatter_set_last(
+        torch.arange(M + 1, dtype=torch.int32, device=dev), dead, w_c)[:M]
+    kf_feat_lm = torch.where(
+        m.kf_feat_lm >= 0, remap[torch.clamp(m.kf_feat_lm, min=0).long()], -1)
+
+    m = m._replace(
+        obs_kf=obs_kf, obs_feat=obs_feat, obs_valid=obs_valid,
+        lm_valid=m.lm_valid & ~gone, kf_feat_lm=kf_feat_lm,
+        lm_nobs=obs_valid.sum(1, dtype=torch.int32),
+    )
+    return m, keep.sum(dtype=torch.int32)
+
+
 def keyframe_mapping_step(
     m: ms.MapState,
     cam_params: torch.Tensor,
@@ -96,20 +205,25 @@ def keyframe_mapping_step(
     refresh_desc: bool = True,
 ):
     """The per-keyframe mapping pass: KF insertion, multi-partner
-    triangulation and local BA with culling (LocalMapping::Run minus
-    KeyFrameCulling, which is host policy).
+    triangulation, duplicate fusion, and local BA with culling and the
+    descriptor refresh (LocalMapping::Run minus KeyFrameCulling, which is
+    host policy).
 
     Returns (MapState, Tcw_optimized, stats (7,) float32 =
     [n_lm, n_fused, cost0, cost, opt_kf, fixed_kf, edges]). Padded partners
-    equal to `slot` are no-ops (zero baseline fails the parallax gate)."""
-    if do_fuse:
-        raise NotImplementedError(
-            "duplicate fusion (fuse_duplicates) is not ported yet")
+    equal to `slot` are no-ops (zero baseline fails the parallax gate;
+    self-fusion only merges genuine in-frame duplicates)."""
     m = ms.insert_keyframe(
         m, slot, Tcw, ts, xy, octave, angle, desc_pm1, feat_valid, feat_lm
     )
     for ref_slot in tri_partners:
         m, _ = create_new_landmarks(m, cam_params, slot, ref_slot)
+
+    n_fused = torch.zeros((), dtype=torch.int32, device=m.obs_kf.device)
+    if do_fuse:
+        for nb in fuse_partners:
+            m, nf = fuse_duplicates(m, cam_params, slot, nb)
+            n_fused = n_fused + nf
 
     m, c0, c1 = local_ba(m, cam_params, kf_free, iters=iters,
                          refresh_desc=refresh_desc)
@@ -119,12 +233,39 @@ def keyframe_mapping_step(
     f32 = torch.float32
     stats = torch.stack([
         m.lm_valid.sum().to(f32),
-        torch.zeros((), dtype=f32, device=c0.device), c0, c1,
+        n_fused.to(f32), c0, c1,
         (kf_free & m.kf_valid).sum().to(f32),
         (~kf_free & m.kf_valid).sum().to(f32),
         n_edges.to(f32),
     ])
     return m, m.kf_T[slot], stats
+
+
+def update_landmark_descriptors(m: ms.MapState) -> ms.MapState:
+    """Recompute each landmark's representative descriptor as the MEDOID of
+    its observed descriptors (least mean Hamming distance to the others;
+    MapPoint::ComputeDistinctiveDescriptors). Without it the founding
+    descriptor goes stale as the viewpoint changes. The +-1 products are
+    integers in f32, exact with TF32 off; equal scores (always so with two
+    observations) keep the first column."""
+    P = m.obs_kf.shape[1]
+    d = m.kf_desc_pm1[m.obs_kf.long(), m.obs_feat.long()]      # (M,P,256)
+    valid = m.obs_valid                                        # (M,P)
+    df = d.float()
+    dist = (256.0 - df @ df.transpose(1, 2)) * 0.5             # (M,P,P)
+    pair_ok = valid[:, :, None] & valid[:, None, :]
+    sums = torch.where(pair_ok, dist, 0.0).sum(-1)
+    cnt = pair_ok.sum(-1)
+    score = torch.where(valid & (cnt > 0), sums / torch.clamp(cnt, min=1), 1e9)
+    # first column among the least scores: argmin's tie order is not promised
+    cols = torch.arange(P, device=score.device)
+    least = score == score.min(dim=1, keepdim=True).values
+    best = torch.where(least, cols, P).min(dim=1).values       # (M,)
+    new_desc = torch.gather(
+        d, 1, best[:, None, None].expand(-1, 1, d.shape[2]))[:, 0]
+    has = valid.any(dim=1)
+    return m._replace(
+        lm_desc_pm1=torch.where(has[:, None], new_desc, m.lm_desc_pm1))
 
 
 def local_ba(
@@ -136,11 +277,8 @@ def local_ba(
 ):
     """Local bundle adjustment directly over the map arrays (the
     landmark-major obs table IS the BAProblem), then outlier-observation
-    pruning and landmark culling. Returns (MapState, cost0, cost)."""
-    if refresh_desc:
-        raise NotImplementedError(
-            "the landmark descriptor refresh (update_landmark_descriptors) "
-            "is not ported yet")
+    pruning, landmark culling and (``refresh_desc``) the medoid descriptor
+    refresh. Returns (MapState, cost0, cost)."""
     obs_kf = m.obs_kf.long()
     obs_feat = m.obs_feat.long()
     obs_uv = m.kf_xy[obs_kf, obs_feat]                        # (M,P,2)
@@ -171,4 +309,8 @@ def local_ba(
     link_ok = (m.kf_feat_lm >= 0) & lm_valid[torch.clamp(m.kf_feat_lm, min=0).long()]
     m = m._replace(lm_valid=lm_valid, lm_nobs=nobs,
                    kf_feat_lm=torch.where(link_ok, m.kf_feat_lm, -1))
+    if refresh_desc:
+        # gated off for small sensors by the caller: on blurry event-image
+        # features the medoid hops between unstable observations
+        m = update_landmark_descriptors(m)
     return m, res.cost0, res.cost

@@ -91,8 +91,9 @@ class MonoSlam:
         self.cull_redundancy = 0.9   # >=90% of obs seen in >=3 other KFs
         self.kf_protect_recent = 3   # never cull the newest KFs
         self.cull_enabled = True     # periodic redundancy culling
-        # fusion and the descriptor refresh only run at >= 320 px (neither
-        # is ported yet: keyframe_mapping_step raises when asked)
+        # fusion and the descriptor refresh only run at >= 320 px: on the
+        # coarse features of small event images they merge distinct
+        # landmarks and let the medoid hop between unstable observations
         self.fuse_enabled = img_w >= 320
         self.desc_refresh = img_w >= 320
         self.local_window = local_window
@@ -511,6 +512,8 @@ class MonoSlam:
         st = self._pending_map_stats.numpy()
         self._pending_map_stats = None
         self.stats["lm"] = int(st[0])
+        if self.fuse_enabled:
+            self.stats["fused"] = self.stats.get("fused", 0) + int(st[1])
         self.stats["ba"] = {
             "opt_kf": int(st[4]), "fixed_kf": int(st[5]),
             "edges": int(st[6]), "cost0": float(st[2]), "cost": float(st[3]),
@@ -540,6 +543,11 @@ class MonoSlam:
         )
         self.T_last = T_new
         self.stats["kf"] = self.n_kf
+        # mapping steps that ran duplicate fusion / the descriptor refresh
+        self.stats["fuse_steps"] = (
+            self.stats.get("fuse_steps", 0) + int(self.fuse_enabled))
+        self.stats["refresh_steps"] = (
+            self.stats.get("refresh_steps", 0) + int(self.desc_refresh))
         # stats and the next cull's redundancy ranking go to the host in the
         # background; the next keyframe reads them
         self._pending_map_stats = HostCopy(stats)

@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from eorb_slam_tpu_torch import _host, convert
+from eorb_slam_tpu_torch.apps import run_slam as trun
 from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.io import config as tcfg, synth_dataset as tsd
 from eorb_slam_tpu_torch.slam import atlas as tatlas
 from eorb_slam_tpu_torch.slam import event_system as tes
 from eorb_slam_tpu_torch.slam import system as tsys
@@ -16,7 +18,27 @@ from eorb_slam_tpu_torch.slam import system as tsys
 CAM = np.asarray([199.0, 199.0, 120.0, 90.0, 0, 0, 0, 0, 0], np.float32)
 SMALL = dict(K=4, M=64, P=4)
 
+_SCENE = tsd.make_scene("shakes", 48, 36, 40.0, n_dots=20)
+_MONO = tcfg.Settings(cam=tcfg.CameraConfig(fx=40.0, fy=40.0, cx=24.0, cy=18.0,
+                                            width=48, height=36),
+                      slam=tcfg.SlamConfig(max_keyframes=4, max_landmarks=64),
+                      features=tcfg.FeatureConfig(n_features=128))
+
+
+class _Renderer:
+    """A renderer with the ``device`` its tensors live on."""
+
+    def __init__(self, render):
+        self.render = render
+        self.device = render(np.eye(4, dtype=np.float32)).device
+
+
 ENTRY_POINTS = {
+    "build_system": lambda **kw: trun.build_system(_MONO, **kw),
+    "dot_renderer": lambda **kw: _Renderer(tsd._renderer(
+        tsd.make_scene("shakes", 48, 36, 40.0, n_dots=20), **kw)),
+    "box_renderer": lambda **kw: _Renderer(tsd.make_box_renderer(
+        "corridor", 48, 36, 40.0, **kw)),
     "EventWindowBuilder": lambda **kw: tb.EventWindowBuilder(
         tb.BuilderConfig(), CAM, **kw),
     "MonoSlam": lambda **kw: tsys.MonoSlam(CAM, N=32, **SMALL, **kw),
@@ -56,3 +78,32 @@ def test_conversions_follow_their_argument():
     """convert.*_from_numpy pick no device: None leaves the state on the CPU."""
     assert convert.cam_from_numpy(CAM).device.type == "cpu"
     assert convert.cam_from_numpy(CAM, "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["run_slam", "synth_dataset"])
+def test_cli_default_device_is_the_card(cli, tmp_path):
+    """Neither command line carries on on the CPU when it finds no card; with
+    ``--device cpu`` both run (tests/test_torch_apps.py,
+    tests/test_torch_synth_dataset.py)."""
+    if cli == "run_slam":
+        settings = tsd.write_settings_yaml(
+            str(tmp_path / "s.yaml"), fmt="ev_ethz", root=str(tmp_path), seqs=["s"],
+            sensor="event_only", scene=_SCENE, fps=24.0, ts_factor=1.0)
+        run = lambda: trun.main([settings, "--out", str(tmp_path / "o")])
+    else:
+        run = lambda: tsd.main(["--out", str(tmp_path), "--kind", "ev_ethz",
+                                "--duration", "0.02"])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is exercised by chip_smoke.py")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run()
+    assert not (tmp_path / "o").exists() and not (tmp_path / "seq01").exists()
+
+
+def test_writers_default_to_the_card(tmp_path):
+    pose = tsd.make_trajectory("shakes", 1.0)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is exercised by chip_smoke.py")
+    for write in (tsd.write_ev_ethz, tsd.write_euroc):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            write(str(tmp_path), "s", _SCENE, pose, 0.05, verbose=False)

@@ -209,14 +209,17 @@ def test_keyframe_mapping_step_from_jax_map(jax_run):
 
 
 def test_unported_mapping_options_raise(jax_run):
+    """Fusion and the descriptor refresh used to raise NotImplementedError;
+    both are ported now, so asking for them runs (their parity with JAX is
+    held in tests/test_torch_fuse.py)."""
     slam, f, _ = jax_run
     tmap = convert.map_state_from_numpy(_np_map(slam.map))
     free = torch.zeros(tmap.K, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tlm.local_ba(tmap, _t(CAM), free, refresh_desc=True)
-    with pytest.raises(NotImplementedError):
-        tlm.keyframe_mapping_step(
-            tmap, _t(CAM), 7, torch.eye(4), 0.0, _t(f.xy_ud), _t(f.octave),
-            _t(f.angle), _t(f.desc_pm1), _t(f.valid),
-            torch.full((N_SLOTS,), -1, dtype=torch.int32), [7] * 4, [7] * 3,
-            free, do_fuse=True, refresh_desc=False)
+    m, c0, c1 = tlm.local_ba(tmap, _t(CAM), free, refresh_desc=True)
+    assert m.lm_desc_pm1.shape == tmap.lm_desc_pm1.shape and torch.isfinite(c1)
+    m, T, stats = tlm.keyframe_mapping_step(
+        tmap, _t(CAM), 7, torch.eye(4), 0.0, _t(f.xy_ud), _t(f.octave),
+        _t(f.angle), _t(f.desc_pm1), _t(f.valid),
+        torch.full((N_SLOTS,), -1, dtype=torch.int32), [7] * 4, [7] * 3,
+        free, do_fuse=True, refresh_desc=False)
+    assert bool(m.kf_valid[7]) and stats.shape == (7,) and stats[1] >= 0

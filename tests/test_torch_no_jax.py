@@ -29,7 +29,11 @@ def test_port_imports_without_jax():
                  "geometry.triangulation", "geometry.twoview",
                  "slam.map_state", "slam.tracking", "slam.local_mapping",
                  "slam.relocalization", "slam.atlas", "slam.system",
-                 "slam.event_system", "convert", "_host"):
+                 "slam.event_system", "convert", "_host",
+                 "io.config", "io.native", "io.trajectory", "io.datasets",
+                 "io.synth_dataset", "evals.ate", "evals.rpe",
+                 "evals.kitti_odom", "slam.covisibility", "geometry.camera",
+                 "apps.run_slam"):
         assert f"eorb_slam_tpu_torch.{name}" in mods, name
     code = "\n".join([
         "import sys, importlib",
@@ -48,3 +52,49 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_port_modules_need_no_yaml_or_pil_to_import():
+    """PyYAML and Pillow are used inside the functions that read settings
+    and images; importing the port (and chip_smoke.py) needs neither."""
+    code = "\n".join([
+        "import sys, importlib",
+        "for name in ('yaml', 'PIL', 'h5py'):",
+        "    sys.modules[name] = None",
+        f"for m in {_port_modules()!r}:",
+        "    importlib.import_module(m)",
+        "import chip_smoke",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_clis_start_without_jax(tmp_path):
+    """Both command lines run in an interpreter where jax and the JAX package
+    are blocked (here on the CPU, at a tiny size)."""
+    code = "\n".join([
+        "import sys",
+        "for name in ('jax', 'jaxlib', 'eorb_slam_tpu'):",
+        "    sys.modules[name] = None",
+        "from eorb_slam_tpu_torch.io import synth_dataset",
+        "from eorb_slam_tpu_torch.apps import run_slam",
+        f"root = {str(tmp_path)!r}",
+        "synth_dataset.main(['--out', root, '--kind', 'euroc', '--seq', 'c',",
+        "                    '--duration', '0.15', '--size', '96x64', '--device', 'cpu'])",
+        "scene = synth_dataset.make_scene('corridor', 96, 64, 458.0, n_dots=4)",
+        "y = synth_dataset.write_settings_yaml(root + '/s.yaml', fmt='euroc', root=root,",
+        "        seqs=['c'], sensor='monocular', scene=scene, fps=20.0, ts_factor=1e9,",
+        "        n_features=128)",
+        "res = run_slam.main([y, '--device', 'cpu', '--out', root + '/out'])",
+        "assert res[0]['iterations'] == 3 and res[0]['device'] == 'cpu', res",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
