@@ -8,9 +8,11 @@ pipeline, time every iteration, and save TUM trajectories with the
 timing-stats header.
 
 Ported so far: EVENT_ONLY through the discrete tracker
-(``Event.contTracking: 0``) and MONOCULAR with ORB features
-(``Features.mode: 0``). Every other sensor configuration raises
-NotImplementedError naming the ROADMAP row that owns it. The system runs on
+(``Event.contTracking: 0``), MONOCULAR with ORB features
+(``Features.mode: 0``), IMU_MONOCULAR (slam/vi_system.MonoInertialSlam) and
+EVENT_IMU (slam/event_inertial.EventInertialSlam). Every other sensor
+configuration raises NotImplementedError naming the ROADMAP row that owns
+it. The system runs on
 the card unless ``--device`` says otherwise; without a card it raises
 rather than carrying on on the CPU.
 
@@ -39,11 +41,10 @@ from eorb_slam_tpu_torch.io.config import SensorConfig
 _UNPORTED = {
     SensorConfig.STEREO: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
     SensorConfig.RGBD: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
-    SensorConfig.IMU_MONOCULAR: "row 9 (IMU: slam/vi_system.py)",
-    SensorConfig.IMU_STEREO: "rows 9 and 10 (IMU, stereo)",
-    SensorConfig.EVENT_IMU: "row 12 (slam/event_inertial.py)",
+    SensorConfig.IMU_STEREO: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
     SensorConfig.EVENT_MONO: "row 12 (event + image: slam/ev_image_system.py)",
-    SensorConfig.EVENT_IMU_MONO: "row 12 (slam/event_inertial.py)",
+    SensorConfig.EVENT_IMU_MONO: "row 12 (EvImageInertialSlam over "
+                                 "slam/ev_image_system.py)",
 }
 
 
@@ -63,6 +64,7 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
     """System::System equivalent: construct the pipeline for the sensor
     config on ``device`` (None: the card)."""
     from eorb_slam_tpu_torch.event import builder as ev_builder
+    from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 
     device = resolve_device(device)
     s = st.sensor
@@ -74,6 +76,26 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         raise NotImplementedError(
             "loop closing is not ported yet: ROADMAP.md Queue 1 row 11")
     cam = st.cam.params_array()
+    kw = dict(
+        img_w=st.cam.width or 240, img_h=st.cam.height or 180,
+        N=min(max(st.features.n_features, 128), 1024),
+        K=st.slam.max_keyframes, M=st.slam.max_landmarks,
+        local_window=st.slam.local_window,
+        max_frames_between_kf=st.slam.max_frames_between_kf,
+        device=device,
+    )
+    calib = pre_mod.make_calib(
+        Tbc=st.imu.Tbc, gyro_noise=st.imu.noise_gyro, acc_noise=st.imu.noise_acc,
+        gyro_walk=st.imu.walk_gyro, acc_walk=st.imu.walk_acc, freq=st.imu.freq,
+    )
+    ev_cfg = ev_builder.BuilderConfig(
+        img_w=st.cam.width or 240, img_h=st.cam.height or 180,
+        l1_chunk_size=st.event.l1_chunk_size,
+        l1_num_loop=st.event.l1_num_loop,
+        min_ev_gen_rate=st.event.min_ev_gen_rate,
+        max_pixel_disp=st.event.max_pixel_disp,
+        sigma=st.event.sigma,
+    )
     if s is SensorConfig.MONOCULAR:
         if st.features.mode != 0:
             raise NotImplementedError(
@@ -81,16 +103,13 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
                 "MixedMonoSlam) is not ported yet: ROADMAP.md Queue 1 row 13")
         from eorb_slam_tpu_torch.slam.system import MonoSlam
 
-        # the reference app turns the pipelined speculation on; the port has
-        # none yet (ROADMAP.md Queue 1 row 8), so decisions are synchronous
-        return MonoSlam(
-            cam, img_w=st.cam.width or 240, img_h=st.cam.height or 180,
-            N=min(max(st.features.n_features, 128), 1024),
-            K=st.slam.max_keyframes, M=st.slam.max_landmarks,
-            local_window=st.slam.local_window,
-            max_frames_between_kf=st.slam.max_frames_between_kf,
-            pipelined=False, device=device,
-        )
+        # pipelined: the per-frame decision read overlaps the next frame's
+        # work (host decisions trail one frame), as in the reference app
+        return MonoSlam(cam, pipelined=True, **kw)
+    if s is SensorConfig.IMU_MONOCULAR:
+        from eorb_slam_tpu_torch.slam.vi_system import MonoInertialSlam
+
+        return MonoInertialSlam(cam, calib, **kw)
     if s is SensorConfig.EVENT_ONLY:
         if st.event.continuous:
             raise NotImplementedError(
@@ -99,16 +118,29 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
                 "row 14")
         from eorb_slam_tpu_torch.slam.event_system import EventSlam
 
-        ev_cfg = ev_builder.BuilderConfig(
-            img_w=st.cam.width or 240, img_h=st.cam.height or 180,
-            l1_chunk_size=st.event.l1_chunk_size,
-            l1_num_loop=st.event.l1_num_loop,
-            min_ev_gen_rate=st.event.min_ev_gen_rate,
-            max_pixel_disp=st.event.max_pixel_disp,
-            sigma=st.event.sigma,
-        )
         return EventSlam(cam, ev_cfg, device=device)
+    if s is SensorConfig.EVENT_IMU:
+        from eorb_slam_tpu_torch.slam.event_inertial import EventInertialSlam
+
+        return EventInertialSlam(cam, calib, ev_cfg, device=device)
     raise ValueError(f"unsupported sensor config: {s}")
+
+
+def _imu_chunk(seq: datasets.Sequence, t0: float, t1: float):
+    """The sequence's IMU samples in (t0, t1], with boundary-bridging dts."""
+    from eorb_slam_tpu_torch.slam.vi_system import ImuChunk
+
+    if seq.imu is None:
+        return ImuChunk(gyro=np.zeros((0, 3), np.float32),
+                        acc=np.zeros((0, 3), np.float32),
+                        dts=np.zeros(0, np.float32))
+    i0 = int(np.searchsorted(seq.imu.ts, t0, side="right"))
+    i1 = int(np.searchsorted(seq.imu.ts, t1, side="right"))
+    ts = seq.imu.ts[i0:i1]
+    dts = np.diff(ts, prepend=t0).astype(np.float32)
+    return ImuChunk(gyro=seq.imu.gyro[i0:i1].astype(np.float32),
+                    acc=seq.imu.acc[i0:i1].astype(np.float32),
+                    dts=np.clip(dts, 1e-5, 0.1))
 
 
 def run_sequence(
@@ -127,19 +159,25 @@ def run_sequence(
     main_timer = trajectory.SmartTimer("tracking")
     t_wall0 = time.perf_counter()
 
-    if s is SensorConfig.EVENT_ONLY:
+    if s in (SensorConfig.EVENT_ONLY, SensorConfig.EVENT_IMU):
         # event-clock loop: fixed-size chunks (System::TrackEvent)
         if seq.events is None:
             raise ValueError("event mode needs an event stream")
         chunk_n = st.event.l1_chunk_size * st.event.l1_num_loop
         n_chunks = 0
+        last_t = float(seq.events.events[0, 0]) if len(seq.events) else 0.0
         while not seq.events.exhausted:
             chunk = seq.events.next_chunk_count(chunk_n)
             if len(chunk) == 0:
                 break
+            t_hi = float(chunk[-1, 0])
+            if s is SensorConfig.EVENT_IMU and seq.imu is not None:
+                sel = (seq.imu.ts > last_t) & (seq.imu.ts <= t_hi)
+                slam.grab_imu(seq.imu.ts[sel], seq.imu.gyro[sel], seq.imu.acc[sel])
             main_timer.tic()
             slam.track_events(chunk)
             main_timer.toc()
+            last_t = t_hi
             n_chunks += 1
             if max_frames is not None and n_chunks >= max_frames:
                 break
@@ -147,15 +185,22 @@ def run_sequence(
     else:
         # image-clock loop (fmt_ev_ethz main loop)
         n = seq.n_frames if max_frames is None else min(seq.n_frames, max_frames)
+        last_t = None
         for i in range(n):
             t = float(seq.image_ts[i])
+            t_prev = last_t if last_t is not None else t - 1.0 / max(st.cam.fps, 1.0)
             # the loader serves [0,1]; FAST thresholds are 8-bit units. A
             # uint8 frame keeps the host-to-device copy small; extract casts
             # on the device.
             img = (seq.image(i) * 255.0).astype(np.uint8)
             main_timer.tic()
-            slam.process_image(to_device(img, slam.device), t)
+            if s is SensorConfig.IMU_MONOCULAR:
+                slam.process_image_imu(to_device(img, slam.device), t,
+                                       _imu_chunk(seq, t_prev, t))
+            else:
+                slam.process_image(to_device(img, slam.device), t)
             main_timer.toc()
+            last_t = t
             if pace:
                 sleep = 1.0 / max(st.cam.fps, 1.0) - main_timer.deltas[-1]
                 if sleep > 0:

@@ -1,9 +1,11 @@
 """Carry state from numpy into the port.
 
 The system has no learned weights; what has to match between the JAX
-package and this one is state: the L1 builder's and the L2 map's. These
-functions take that state as numpy arrays (e.g. ``np.asarray`` of the JAX
-fields), so the port can continue a run from the same mid-run state.
+package and this one is state: the L1 builder's, the L2 map's and the
+inertial state (calibration, preintegrations, the marginal prior, and a
+MonoInertialSlam's per-keyframe chain). These functions take that state as
+numpy arrays (e.g. ``np.asarray`` of the JAX fields), so the port can
+continue a run from the same mid-run state, and give it back the same way.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import numpy as np
 import torch
 
 from eorb_slam_tpu_torch.event.builder import EventWindowBuilder
+from eorb_slam_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
+from eorb_slam_tpu_torch.optim.marginalize import PoseImuPrior
 from eorb_slam_tpu_torch.slam.map_state import MapState, empty_map
 
 
@@ -77,3 +81,69 @@ def map_state_from_numpy(arrays, device=None) -> MapState:
 def map_state_to_numpy(m: MapState) -> dict:
     """The port's MapState -> {field: numpy array} on the host."""
     return {k: v.cpu().numpy() for k, v in m._asdict().items()}
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def _fields(obj) -> dict:
+    """{field: value} of a dict or of a NamedTuple (JAX's or the port's)."""
+    return dict(obj) if isinstance(obj, dict) else obj._asdict()
+
+
+def calib_from_numpy(calib, device=None) -> ImuCalib:
+    """An IMU calibration (dict or NamedTuple of arrays by ``ImuCalib``
+    field, e.g. the JAX package's ``ImuCalib``) -> the port's, float32."""
+    c = _fields(calib)
+    return ImuCalib(*(_f32(c[k], device) for k in ImuCalib._fields))
+
+
+def pre_from_numpy(pre, device=None) -> Preintegrated:
+    """A preintegration, stacked or not (dict or NamedTuple of arrays by
+    ``Preintegrated`` field) -> the port's, float32."""
+    p = _fields(pre)
+    return Preintegrated(*(_f32(p[k], device) for k in Preintegrated._fields))
+
+
+def pre_to_numpy(pre: Preintegrated) -> dict:
+    return {k: v.cpu().numpy() for k, v in pre._asdict().items()}
+
+
+def prior_from_numpy(prior, device=None) -> PoseImuPrior:
+    p = _fields(prior)
+    return PoseImuPrior(*(_f32(p[k], device) for k in PoseImuPrior._fields))
+
+
+def prior_to_numpy(prior: PoseImuPrior) -> dict:
+    return {k: v.cpu().numpy() for k, v in prior._asdict().items()}
+
+
+VI_STATE = ("pre_kf", "kf_vel", "kf_bg", "kf_ba", "kf_prev", "bg", "ba", "vel")
+
+
+def vi_state_from_numpy(slam, state: dict) -> None:
+    """Load a MonoInertialSlam's per-keyframe inertial state into ``slam``
+    (on its device): ``pre_kf`` (a stacked preintegration), ``kf_vel``,
+    ``kf_bg``, ``kf_ba`` (K,3), ``kf_prev`` (K,) int, ``bg``, ``ba``,
+    ``vel`` (3,); optional ``pre_since_kf`` and ``pre_last_frame``."""
+    dev = slam.device
+    slam.pre_kf = pre_from_numpy(state["pre_kf"], dev)
+    for k in ("kf_vel", "kf_bg", "kf_ba", "bg", "ba", "vel"):
+        setattr(slam, k, _f32(state[k], dev))
+    slam.kf_prev = np.array(state["kf_prev"], dtype=np.int32)
+    for k in ("pre_since_kf", "pre_last_frame"):
+        if k in state:
+            setattr(slam, k, pre_from_numpy(state[k], dev))
+
+
+def vi_state_to_numpy(slam) -> dict:
+    """A MonoInertialSlam's inertial state as numpy arrays (the keys of
+    ``vi_state_from_numpy``, both optional ones included)."""
+    out = {k: getattr(slam, k) for k in VI_STATE}
+    out = {k: (np.array(v) if isinstance(v, np.ndarray) else v.cpu().numpy())
+           for k, v in out.items() if k != "pre_kf"}
+    out["pre_kf"] = pre_to_numpy(slam.pre_kf)
+    out["pre_since_kf"] = pre_to_numpy(slam.pre_since_kf)
+    out["pre_last_frame"] = pre_to_numpy(slam.pre_last_frame)
+    return out

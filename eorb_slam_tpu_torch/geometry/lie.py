@@ -43,10 +43,17 @@ def vee(M: torch.Tensor) -> torch.Tensor:
     return torch.stack([M[..., 2, 1], M[..., 0, 2], M[..., 1, 0]], dim=-1)
 
 
+def _or1(small, x):
+    """``x`` with 1 where ``small``. The 1 is a tensor, not a Python scalar:
+    ``torch.func.jvp`` gives a 0-dim ``where`` of a scalar and a tensor a
+    float64 tangent, which then meets float32 in a matmul."""
+    return torch.where(small, torch.ones_like(x), x)
+
+
 def _safe_theta(t2):
     """sqrt(t2) whose gradient is finite at t2=0 (clamp BEFORE sqrt)."""
     small = t2 < _SMALL2
-    return small, torch.sqrt(torch.where(small, 1.0, t2))
+    return small, torch.sqrt(_or1(small, t2))
 
 
 def _sinc_sq(t2):
@@ -60,7 +67,7 @@ def _cosc_sq(t2):
     small, th = _safe_theta(t2)
     return torch.where(
         small, 0.5 - t2 / 24.0,
-        (1.0 - torch.cos(th)) / torch.where(small, 1.0, t2),
+        (1.0 - torch.cos(th)) / _or1(small, t2),
     )
 
 
@@ -95,7 +102,7 @@ def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
     K2 = K @ K
     small, ts = _safe_theta(t2)
     a = torch.where(small, 1.0 / 6.0 - t2 / 120.0,
-                    (ts - torch.sin(ts)) / torch.where(small, 1.0, ts * t2))
+                    (ts - torch.sin(ts)) / _or1(small, ts * t2))
     b = _cosc_sq(t2)
     return _eye3(phi, K.shape) - b[..., None, None] * K + a[..., None, None] * K2
 
@@ -110,7 +117,7 @@ def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
     c = torch.where(
         small,
         1.0 / 12.0 + t2 / 720.0,
-        1.0 / torch.where(small, 1.0, t2)
+        1.0 / _or1(small, t2)
         - (1.0 + torch.cos(ts)) / (2.0 * ts * torch.sin(ts) + 1e-38),
     )
     return _eye3(phi, K.shape) + 0.5 * K + c[..., None, None] * K2
@@ -187,7 +194,7 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     v = q[..., 1:]
     vn2 = torch.sum(v * v, dim=-1)
     small = vn2 < 1e-18
-    vn = torch.sqrt(torch.where(small, 1.0, vn2))   # clamp BEFORE sqrt
+    vn = torch.sqrt(_or1(small, vn2))   # clamp BEFORE sqrt
     theta = 2.0 * torch.atan2(vn, w)
     scale = torch.where(small, 2.0 / torch.clamp(w, min=1e-9), theta / vn)
     return v * scale[..., None]
@@ -264,7 +271,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     small, ts = _safe_theta(t2)
     b = _cosc_sq(t2)
     c = torch.where(small, 1.0 / 6.0 - t2 / 120.0,
-                    (ts - torch.sin(ts)) / torch.where(small, 1.0, ts * t2))
+                    (ts - torch.sin(ts)) / _or1(small, ts * t2))
     V = _eye3(xi, K.shape) + b[..., None, None] * K + c[..., None, None] * K2
     t = (V @ rho[..., None])[..., 0]
     return se3(R, t)
@@ -282,7 +289,7 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         small,
         1.0 / 12.0 + t2 / 720.0,
         (1.0 - ts * torch.cos(ts / 2.0) / (2.0 * torch.sin(ts / 2.0) + 1e-38))
-        / torch.where(small, 1.0, t2),
+        / _or1(small, t2),
     )
     Vinv = _eye3(T, K.shape) - 0.5 * K + c[..., None, None] * K2
     rho = (Vinv @ se3_trans(T)[..., None])[..., 0]

@@ -10,10 +10,9 @@ The L2 -> L1 feedback (reference PoseDepthInfo) stays on the device: after
 each tracked MCI the pose pair and the median scene depth are posted to the
 builder, whose next DPose candidate motion-compensates with them.
 
-One deliberate divergence from the JAX package: the L2 tracker runs with
-``pipelined=False`` (the JAX EventSlam speculates one MCI ahead to hide
-remote-TPU round trips; that path is not ported), so after a keyframe the
-next MCI starts from the BA-refined pose.
+The L2 tracker speculates one MCI ahead (``pipelined=True``, as the
+reference's): the decision on an MCI is read while the next window is built,
+and after a keyframe the MCI in flight keeps its predicted pose.
 """
 
 from __future__ import annotations
@@ -58,7 +57,8 @@ class EventSlam:
             min_init_triangulated=max(15, min_init_matches * 3 // 4),
             min_track_inliers=min_track_inliers,
             seed=seed,
-            pipelined=False,
+            # the per-MCI decision read overlaps the next window's work
+            pipelined=True,
             # event-KF cadence: MCIs decorrelate far faster than camera
             # frames, so keyframes land every few windows (the reference's
             # needNewKeyFrame fires at MCI rate)

@@ -10,11 +10,17 @@ decision; a mapping step's stats and the keyframe-redundancy ranking travel
 to the host behind pinned non-blocking copies and are read at the next
 keyframe.
 
+With ``pipelined=True`` (what EventSlam and the MONOCULAR app build, as the
+reference does) the tracking decision trails one frame: the frame's pose is
+taken as tracked, its (2,) flags go to the host in the background, and the
+next frame resolves them; a frame that did not track rolls the speculation
+back and is replayed synchronously.
+
 States: NOT_INITIALIZED -> OK -> (RECENTLY_LOST -> LOST handling).
 
-Not ported yet (each raises NotImplementedError): the pipelined
-speculation (``pipelined=True``), loop closing (``loop_words``) and with it
-the BoW relocalization and map merging, and ``MixedMonoSlam``.
+Not ported yet (each raises NotImplementedError): loop closing
+(``loop_words``) and with it the BoW relocalization and map merging, and
+``MixedMonoSlam``.
 """
 
 from __future__ import annotations
@@ -73,9 +79,6 @@ class MonoSlam:
         pipelined: bool = False,
         device=None,
     ):
-        if pipelined:
-            raise NotImplementedError(
-                "pipelined speculation is not ported yet (pipelined=False)")
         if loop_words is not None:
             raise NotImplementedError("loop closing is not ported yet")
         self.device = resolve_device(device)
@@ -87,6 +90,8 @@ class MonoSlam:
         # keyframes are an ordered list of slots (temporal order); capacity
         # K is a window, not a run-length limit
         self._kf_order: list[int] = []
+        self._kf_seq_next = 0        # keyframes ever declared (monotone)
+        self.last_kf_slot = -1
         self.kf_culled = 0
         self.cull_redundancy = 0.9   # >=90% of obs seen in >=3 other KFs
         self.kf_protect_recent = 3   # never cull the newest KFs
@@ -115,6 +120,12 @@ class MonoSlam:
         self.n_inliers_ref = 0
         self.trajectory: list = []    # (ts, T_rel or None, ref slot)
         self.stats = {"kf": 0, "lm": 0, "frames": 0, "lost": 0}
+        self.last_frame: Optional[FrameInput] = None
+        self.last_track = None
+        # pipelined tracking: the frame in flight is (frame, result, its
+        # flags' HostCopy, the (T_last, velocity) it was predicted from)
+        self.pipelined = pipelined
+        self._pipe = None
         # failure recovery (reference RECENTLY_LOST grace + CreateMapInAtlas)
         self.lost_frames = 0
         self.lost_grace = 5
@@ -122,6 +133,11 @@ class MonoSlam:
         # stored in the Atlas
         self.min_kf_store = 10
         self._traj_frozen: list = []
+        self._last_kf_ts: Optional[float] = None  # host cache, no device read
+        # map welds (loop closures, Atlas merges); both stay 0 until loop
+        # closing is ported, and the speculation reads them
+        self.loops_closed = 0
+        self.map_merges = 0
         # the mapping step's stats and the next culling pass's redundancy
         # ranking travel to the host in the background (HostCopy) and are
         # read at the next keyframe
@@ -152,6 +168,8 @@ class MonoSlam:
         """Assigning n_kf = v declares slots 0..v-1 active in temporal order
         (the init paths, which always build into a fresh map)."""
         self._kf_order = list(range(v))
+        self._kf_seq_next += v
+        self.last_kf_slot = self._kf_order[-1] if self._kf_order else -1
 
     def _kf_ref(self) -> int:
         return self._kf_order[-1] if self._kf_order else 0
@@ -202,6 +220,7 @@ class MonoSlam:
                 return None
             best_slot = cand[0]
         self._resolve_trajectory_refs(best_slot)
+        self._on_cull_keyframe(best_slot)
         self.map = map_state.remove_keyframe(self.map, best_slot)
         self._pending_redundancy = None   # ranking is stale once a KF left
         order.remove(best_slot)
@@ -209,6 +228,10 @@ class MonoSlam:
         self.stats["kf_culled"] = self.kf_culled
         self.stats["kf"] = self.n_kf
         return best_slot
+
+    def _on_cull_keyframe(self, slot: int) -> None:
+        """Subclass hook fired before KF `slot` is erased (the inertial
+        system merges the preintegration chain across the gap here)."""
 
     def _resolve_trajectory_refs(self, slot: int) -> None:
         """Trajectory entries are stored relative to a reference KF slot;
@@ -235,7 +258,7 @@ class MonoSlam:
                       max_kp: Optional[int] = None):
         if max_kp is None:
             max_kp = self.map.N  # frame capacity == extraction budget
-        if self.state == OK:
+        if self.state == OK and type(self)._track is MonoSlam._track:
             # fused path: extraction + prediction + tracking in one call
             ref = self._kf_ref()
             res, feats, xy_ud, flags, vel_new, T_rel = tracking.track_image_frame(
@@ -246,13 +269,93 @@ class MonoSlam:
             f = FrameInput(ts, xy_ud, feats.octave, feats.angle,
                            feats.desc_pm1, feats.valid)
             self.stats["frames"] += 1
+            if self.pipelined:
+                return self._speculate(f, res, flags, vel_new, T_rel, ref)
             return self._track_post(f, res, flags, fused=(vel_new, T_rel, ref))
+        self.flush_pipeline()
         feats = frontend.extract(img, max_kp=max_kp)
         xy_ud = cam_mod.undistort_points(self.cam, feats.xy)
         return self.process_features(
             FrameInput(ts, xy_ud, feats.octave, feats.angle,
                        feats.desc_pm1, feats.valid)
         )
+
+    # ------------------------------------------------- pipelined tracking
+
+    def _speculate(self, f, res, flags, vel_new, T_rel, ref):
+        """Advance the pose state for this frame WITHOUT reading its flags,
+        then resolve the PREVIOUS frame's decisions: their copy to the host
+        ran behind this frame's work, so the read does not stall it."""
+        prev = self._pipe
+        saved = (self.T_last, self.velocity)
+        self.velocity = vel_new
+        self.T_last = res.Tcw
+        self.trajectory.append((f.ts, T_rel, ref))
+        self._pipe = (f, res, HostCopy(flags), saved)
+        out = {"state": self.state, "pipelined": True, "n_inliers": -1}
+        if prev is not None:
+            out = self._resolve_speculation(prev, successor=True)
+        return out
+
+    def flush_pipeline(self):
+        """Resolve any in-flight speculation (call before reading the
+        trajectory or the stats)."""
+        if self._pipe is not None:
+            prev, self._pipe = self._pipe, None
+            return self._resolve_speculation(prev, successor=False)
+        return None
+
+    def _resolve_speculation(self, pend, successor: bool):
+        f, res, flags, saved = pend
+        n_inl, finite = (float(x) for x in flags.numpy())
+        n_inl = int(n_inl)
+        if n_inl >= self.min_track_inliers and finite:
+            # prediction confirmed: commit the host-side bookkeeping
+            self.last_frame = f
+            self.last_track = res
+            self.lost_frames = 0
+            self.frames_since_kf += 1
+            need_kf = (
+                n_inl < self.kf_inlier_ratio * max(self.n_inliers_ref, 1)
+                or self.frames_since_kf >= self.max_frames_between_kf
+                or self._need_kf_extra(f)
+            )
+            out = {"state": self.state, "n_inliers": n_inl, "kf": False}
+            if need_kf:
+                T_spec, vel_spec = self.T_last, self.velocity
+                welds0 = self.loops_closed + self.map_merges
+                self._insert_keyframe(f, res, n_inl)
+                corrected = (self.loops_closed + self.map_merges) != welds0
+                if successor and not corrected:
+                    # the KF's refined pose must not clobber the newer
+                    # in-flight frame's speculated pose
+                    self.T_last, self.velocity = T_spec, vel_spec
+                elif successor and corrected:
+                    # a loop/merge moved the map under the in-flight
+                    # speculation: drop it and reprocess its frame
+                    # synchronously against the corrected map
+                    succ = self._pipe
+                    self._pipe = None
+                    if succ is not None:
+                        if self.trajectory:
+                            self.trajectory.pop()
+                        self._track(succ[0])
+                out.update(kf=True, n_lm=self.stats["lm"])
+            return out
+        # misprediction: this frame did NOT track. Unwind every speculative
+        # trajectory entry at or after it, restore the pre-frame state and
+        # run the synchronous recovery; a successor speculation was
+        # predicted from the bad pose, so its frame is replayed too.
+        for _ in range(1 + (1 if successor else 0)):
+            if self.trajectory:
+                self.trajectory.pop()
+        succ_f = self._pipe[0] if (successor and self._pipe) else None
+        self._pipe = None
+        self.T_last, self.velocity = saved
+        out = self._track(f)
+        if succ_f is not None:
+            out = self._track(succ_f)
+        return out
 
     def process_features(self, f: FrameInput):
         self.stats["frames"] += 1
@@ -339,6 +442,7 @@ class MonoSlam:
         self.velocity = self._eye4()
         self.frames_since_kf = 0
         self.n_inliers_ref = int(ok.sum())
+        self._last_kf_ts = f.ts
         self._log_pose(f.ts, self.T_last)
         self.stats["kf"] = 2
         self.stats["lm"] = int(self.map.lm_valid.sum())
@@ -354,6 +458,7 @@ class MonoSlam:
         return self._track_post(f, res, tracking.track_flags(res))
 
     def _track_post(self, f: FrameInput, res, flags, fused=None):
+        self.last_frame = f
         n_inl, finite = (float(x) for x in flags.cpu().numpy())
         n_inl = int(n_inl)
 
@@ -376,6 +481,7 @@ class MonoSlam:
             # a degenerate GN solve must not poison T_last / the trajectory
             return self._handle_lost(f, 0)
 
+        self.last_track = res
         self.lost_frames = 0
         self.state = OK
         Tcw = res.Tcw
@@ -395,6 +501,7 @@ class MonoSlam:
         need_kf = (
             n_inl < self.kf_inlier_ratio * max(self.n_inliers_ref, 1)
             or self.frames_since_kf >= self.max_frames_between_kf
+            or self._need_kf_extra(f)
         )
         out = {"state": self.state, "n_inliers": n_inl, "kf": False}
         if need_kf:
@@ -403,6 +510,11 @@ class MonoSlam:
             # drain so tracking never waits for the BA
             out.update(kf=True, n_lm=self.stats["lm"])
         return out
+
+    def _need_kf_extra(self, f) -> bool:
+        """Extra sensor-specific KF triggers (the inertial system forces a
+        KF on elapsed time)."""
+        return False
 
     # ------------------------------------------------------------- recovery
 
@@ -521,7 +633,8 @@ class MonoSlam:
         self._cull_keyframes()
 
     def _insert_keyframe(self, f: FrameInput, res: tracking.TrackResult,
-                         n_inl: int):
+                         n_inl: Optional[int] = None):
+        self._last_kf_ts = f.ts
         self._drain_mapping()
         slot = self._alloc_kf_slot()
         order = self._kf_order
@@ -532,8 +645,11 @@ class MonoSlam:
         fuse_nb += [slot] * (3 - len(fuse_nb))
 
         self._kf_order.append(slot)
+        self._kf_seq_next += 1
+        self.last_kf_slot = slot
         self.frames_since_kf = 0
-        self.n_inliers_ref = n_inl
+        # an n_inl from flags already on the host saves a device read
+        self.n_inliers_ref = int(res.n_inliers) if n_inl is None else int(n_inl)
 
         self.map, T_new, stats = local_mapping.keyframe_mapping_step(
             self.map, self.cam, slot, res.Tcw, f.ts, f.xy_ud, f.octave,
@@ -570,10 +686,37 @@ class MonoSlam:
         T_rel = (Tcw @ lie.se3_inv(self.map.kf_T[ref])).cpu().numpy()
         self.trajectory.append((ts, T_rel, ref))
 
+    def _rescale_trajectory(self, s: float, Ryw=None):
+        """Apply a map world transform (gravity rotation ``Ryw`` + scale
+        ``s``) to the stored trajectory entries, on the device.
+
+        RELATIVE entries (ref >= 0) recompose against the transformed
+        keyframe poses, so only their translation scales (T_rel' = Sim3(s)
+        T_rel Sim3(s)^-1). ABSOLUTE entries (ref == -2, baked at keyframe
+        culls) carry the full pose and need both factors: R' = R Ryw^T,
+        t' = s t."""
+        idx = [i for i, (_, T_rel, _) in enumerate(self.trajectory)
+               if T_rel is not None]
+        if not idx:
+            return
+        T = torch.stack([self._dev(self.trajectory[i][1]) for i in idx])
+        t = T[:, :3, 3] * s
+        R = T[:, :3, :3]
+        if Ryw is not None:
+            absolute = torch.tensor([self.trajectory[i][2] == -2 for i in idx]
+                                    ).to(self.device, non_blocking=True)
+            R = torch.where(absolute[:, None, None],
+                            R @ self._dev(Ryw).transpose(0, 1), R)
+        T = lie.se3(R, t)
+        for j, i in enumerate(idx):
+            ts, _, ref = self.trajectory[i]
+            self.trajectory[i] = (ts, T[j], ref)
+
     def trajectory_twc(self):
         """[(ts, Twc 4x4)] for evaluation (camera-to-world). Entries from
         earlier Atlas maps were frozen at map-switch time; current-map
         entries recompose against the latest keyframe poses."""
+        self.flush_pipeline()
         self._drain_mapping()
         kf_T = self.map.kf_T.cpu().numpy()
         rows = self._pull_trajectory_rows()

@@ -4,10 +4,10 @@ ONE on-disk dataset (written once by the port's generator) through both
 MONOCULAR at 320x240, the narrowest width that turns duplicate fusion and
 the descriptor refresh on.
 
-What is made equal by hand, as in tests/test_torch_l2_slice.py: the JAX
-system is built with ``pipelined=False`` (the port has no speculation), its
-RANSAC draws and two-view minimal-set fits are replayed into the port in
-call order, and the JAX builder resolves its window metadata blocking (the
+What is made equal by hand, as in tests/test_torch_l2_slice.py: both
+systems are built as their apps build them (EventSlam and MONOCULAR with
+the pipelined speculation on), JAX's RANSAC draws and two-view minimal-set
+fits are replayed into the port in call order, and the JAX builder resolves its window metadata blocking (the
 port on the CPU always has it at once). For speed both builders run 5
 contrast-maximization iterations. Everything else runs on its own: parser,
 loader, native queue, L1, ORB, tracking, fusion, BA, TUM writer, evaluator.
@@ -90,21 +90,19 @@ def both(monkeypatch, jax_draws):
     and log both sides' per-frame results."""
     log = {"j": [], "t": [], "two": [], "pnp": [], "i_two": 0, "i_pnp": 0}
 
-    def build_alike(run, pipelined_off):
+    def build_alike(run):
         build = run.build_system
 
         def wrapped(st, **kw):
             slam = build(st, **kw)
-            if pipelined_off:
-                getattr(slam, "l2", slam).pipelined = False
             if hasattr(slam, "cfg"):
                 slam.cfg.cm_iters = CM_ITERS
             return slam
 
         monkeypatch.setattr(run, "build_system", wrapped)
 
-    build_alike(jrun, True)
-    build_alike(trun, False)
+    build_alike(jrun)
+    build_alike(trun)
     j_meta = jb.EventWindowBuilder._resolve_window_meta
     monkeypatch.setattr(jb.EventWindowBuilder, "_resolve_window_meta",
                         lambda self, block=False: j_meta(self, block=True))
@@ -211,8 +209,7 @@ def test_run_sequence_monocular_320_matches_jax(data, both, tmp_path):
 
 
 @pytest.mark.parametrize("sensor,row", [
-    ("stereo", "row 10"), ("rgbd", "row 10"), ("imu_monocular", "row 9"),
-    ("imu_stereo", "rows 9 and 10"), ("event_imu", "row 12"),
+    ("stereo", "row 10"), ("rgbd", "row 10"), ("imu_stereo", "row 10"),
     ("event_mono", "row 12"), ("event_imu_mono", "row 12")])
 def test_unported_sensor_configs_name_their_roadmap_row(sensor, row):
     st = tcfg.Settings(sensor=tcfg.sensor_from_string(sensor))

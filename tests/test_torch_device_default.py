@@ -10,10 +10,13 @@ import torch
 from eorb_slam_tpu_torch import _host, convert
 from eorb_slam_tpu_torch.apps import run_slam as trun
 from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.imu import preintegration as tpre
 from eorb_slam_tpu_torch.io import config as tcfg, synth_dataset as tsd
 from eorb_slam_tpu_torch.slam import atlas as tatlas
+from eorb_slam_tpu_torch.slam import event_inertial as tei
 from eorb_slam_tpu_torch.slam import event_system as tes
 from eorb_slam_tpu_torch.slam import system as tsys
+from eorb_slam_tpu_torch.slam import vi_system as tvs
 
 CAM = np.asarray([199.0, 199.0, 120.0, 90.0, 0, 0, 0, 0, 0], np.float32)
 SMALL = dict(K=4, M=64, P=4)
@@ -43,6 +46,10 @@ ENTRY_POINTS = {
         tb.BuilderConfig(), CAM, **kw),
     "MonoSlam": lambda **kw: tsys.MonoSlam(CAM, N=32, **SMALL, **kw),
     "EventSlam": lambda **kw: tes.EventSlam(CAM, max_kp=32, **SMALL, **kw),
+    "MonoInertialSlam": lambda **kw: tvs.MonoInertialSlam(
+        CAM, tpre.make_calib(), N=32, **SMALL, **kw),
+    "EventInertialSlam": lambda **kw: tei.EventInertialSlam(
+        CAM, tpre.make_calib(), max_kp=32, **SMALL, **kw),
     "Atlas": lambda **kw: tatlas.Atlas(N=32, **SMALL, **kw),
 }
 
@@ -52,7 +59,7 @@ def test_default_device_is_the_card(name):
     make = ENTRY_POINTS[name]
     if torch.cuda.is_available():
         obj = make()
-        dev = obj.builder.device if name == "EventSlam" else obj.device
+        dev = obj.builder.device if hasattr(obj, "builder") else obj.device
         assert dev.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -62,11 +69,14 @@ def test_default_device_is_the_card(name):
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_cpu_runs_when_asked(name):
     obj = ENTRY_POINTS[name](device="cpu")
-    if name == "EventSlam":
+    if hasattr(obj, "l2"):
         assert obj.builder.device.type == obj.l2.device.type == "cpu"
         assert obj.l2.map.kf_T.device.type == "cpu"
     else:
         assert obj.device.type == "cpu"
+    if hasattr(getattr(obj, "l2", obj), "calib"):
+        vi = getattr(obj, "l2", obj)
+        assert vi.calib.Tbc.device.type == vi.pre_kf.C.device.type == "cpu"
 
 
 def test_resolve_device_follows_an_explicit_argument():

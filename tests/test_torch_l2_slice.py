@@ -10,8 +10,8 @@ their f32 normal-equation eigensolve turns last-ulp differences into 1e-2
 differences of the model (see tests/test_torch_twoview.py), which RANSAC
 then turns into a different winner. Everything else runs on its own.
 
-The JAX EventSlam speculates one MCI ahead (``pipelined=True``); the port
-does not, so the JAX instance here runs with ``l2.pipelined = False``.
+Both EventSlams speculate one MCI ahead (``pipelined=True``), as their
+constructors set it.
 
 Tolerances: SynthWorld — the same state and keyframe decision on every
 frame, poses within 1e-3. EventSlam (metadata resolved with ``block=True``
@@ -44,6 +44,12 @@ from tests.test_torch_slice import CAM as EV_CAM, CFG as EV_CFG, _stream
 def jax_draws(monkeypatch):
     """Record the keys the JAX system hands its RANSACs; make the port's
     samplers (and two-view fits) return JAX's results for those keys."""
+    return install_jax_draws(monkeypatch)
+
+
+def install_jax_draws(monkeypatch):
+    """The body of ``jax_draws``, for fixtures of a wider scope (pass a
+    ``pytest.MonkeyPatch`` and ``undo()`` it after)."""
     keys = {}
     j_two, j_pnp = jtv.reconstruct_two_views, jrl.pnp_ransac
 
@@ -132,7 +138,6 @@ def test_event_slam_track_events_matches_jax(jax_draws):
     ev = _stream(seconds=0.2, rate=600_000, seed=5)
     kw = dict(max_kp=256, K=12, M=1024)
     jslam = jes.EventSlam(jnp.asarray(EV_CAM), jb.BuilderConfig(**EV_CFG), **kw)
-    jslam.l2.pipelined = False
     tslam = tes.EventSlam(EV_CAM, tb.BuilderConfig(**EV_CFG), device="cpu", **kw)
     jslam.builder.feed(ev)
     tslam.builder.feed(ev)
@@ -216,7 +221,6 @@ def test_monoslam_recovery_matches_jax(jax_draws):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tsys.MonoSlam(CAM, pipelined=True, device="cpu")
+    assert tsys.MonoSlam(CAM, pipelined=True, device="cpu").pipelined
     with pytest.raises(NotImplementedError):
         tsys.MonoSlam(CAM, loop_words=np.zeros((4, 256), np.int8), device="cpu")

@@ -33,7 +33,9 @@ def test_port_imports_without_jax():
                  "io.config", "io.native", "io.trajectory", "io.datasets",
                  "io.synth_dataset", "evals.ate", "evals.rpe",
                  "evals.kitti_odom", "slam.covisibility", "geometry.camera",
-                 "apps.run_slam"):
+                 "apps.run_slam", "imu.preintegration", "optim.inertial",
+                 "optim.marginalize", "optim.vi_ba", "slam.vi_system",
+                 "slam.event_inertial"):
         assert f"eorb_slam_tpu_torch.{name}" in mods, name
     code = "\n".join([
         "import sys, importlib",

@@ -1,0 +1,140 @@
+"""Where the IMU initializes on generated sequences, in the JAX package (the
+reference) or in the PyTorch port, run through each package's
+``apps.run_slam`` on the same data (written by the port's generator).
+
+    # IMU_MONOCULAR at the configs/synth_euroc_vi.yaml width on a room loop
+    python tools/vi_init_check.py --out DIR --package jax --kind room --loop 10 \
+        --frames 84 --max-frames 80
+    python tools/vi_init_check.py --out DIR --package port --device cuda --seed 1 ...
+    # EVENT_IMU with the configs/synth_ev_imu.yaml settings on 0.5 s of shakes
+    python tools/vi_init_check.py --out DIR --package jax --event-imu
+
+Prints every inertial-init attempt (frame, GN iterations, scale, chi2 per
+residual dof against the 3.0 gate), the first initialized frame, the
+tracked share and the ATE with the scale fixed at 1 and Sim3-aligned. The
+sequence is generated on the CPU once per DIR. ``--seed`` reseeds the
+port's RANSAC generator (the JAX package keeps its PRNGKey(0)).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def _settings(config: str, root: str, path: str, seq: str) -> str:
+    text = open(os.path.join(REPO, "configs", config)).read()
+    text = re.sub(r'(?m)^DS\.Paths\.root:.*$', f'DS.Paths.root: "{root}"', text)
+    text = re.sub(r'(?ms)^DS\.Seq\.names:\n(  - .*?\n)+', f'DS.Seq.names:\n  - "{seq}"\n', text)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _generate(a) -> str:
+    from eorb_slam_tpu_torch.io import synth_dataset as sd
+
+    if a.event_imu:
+        seq = "shakes_01"
+        if not os.path.exists(os.path.join(a.out, seq)):
+            scene = sd.make_scene("shakes", 240, 180, 199.0, n_dots=6000, seed=0)
+            sd.write_ev_ethz(a.out, seq, scene, sd.make_trajectory("shakes", 0.5), 0.5,
+                             fps=24.0, sim_hz=150.0, contrast=0.25, verbose=False,
+                             device="cpu")
+        return _settings("synth_ev_imu.yaml", a.out, os.path.join(a.out, "s.yaml"), seq)
+    seq = f"{a.kind}_01"
+    if not os.path.exists(os.path.join(a.out, seq)):
+        W, H, fx, fps = 752, 480, 458.0, 20.0
+        sd.write_euroc(a.out, seq, sd.make_scene(a.kind, W, H, fx, n_dots=10),
+                       sd.make_trajectory(a.kind, a.loop), duration=a.frames / fps,
+                       fps=fps, verbose=False,
+                       renderer=sd.make_box_renderer(a.kind, W, H, fx, device="cpu"))
+    return _settings("synth_euroc_vi.yaml", a.out, os.path.join(a.out, "s.yaml"), seq)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--out", required=True)
+    p.add_argument("--package", choices=["jax", "port"], required=True)
+    p.add_argument("--event-imu", action="store_true")
+    p.add_argument("--kind", default="room", choices=["room", "corridor"])
+    p.add_argument("--loop", type=float, default=10.0, help="room loop period, s")
+    p.add_argument("--frames", type=int, default=84, help="frames generated")
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--seed", type=int, default=0)
+    a = p.parse_args(argv)
+    os.makedirs(a.out, exist_ok=True)
+    settings = _generate(a)
+    if a.package == "jax":
+        from eorb_slam_tpu.apps import run_slam
+        from eorb_slam_tpu.optim import inertial
+        from eorb_slam_tpu.slam import vi_system
+        extra = []
+    else:
+        from eorb_slam_tpu_torch.apps import run_slam
+        from eorb_slam_tpu_torch.optim import inertial
+        from eorb_slam_tpu_torch.slam import vi_system
+        extra = ["--device", a.device]
+        build = run_slam.build_system
+
+        def seeded(*args, **kw):
+            slam = build(*args, **kw)
+            (getattr(slam, "l2", slam)).generator.manual_seed(a.seed)
+            return slam
+
+        run_slam.build_system = seeded
+
+    # one entry per frame / MCI (process_image_imu calls
+    # process_features_imu until the IMU initializes: count the outer call)
+    frames, depth = [], [0]
+    for name in ("process_image_imu", "process_features_imu"):
+        fn = getattr(vi_system.MonoInertialSlam, name)
+
+        def counted(self, *args, _fn=fn, **kw):
+            if not depth[0]:
+                frames.append(self.imu_initialized)
+            depth[0] += 1
+            try:
+                return _fn(self, *args, **kw)
+            finally:
+                depth[0] -= 1
+
+        setattr(vi_system.MonoInertialSlam, name, counted)
+    solve = inertial.inertial_init
+
+    def logged(Twb, pre, edge_valid, **kw):
+        res = solve(Twb, pre, edge_valid, **kw)
+        ev, prev = np.asarray(edge_valid), np.asarray(kw["prev"])
+        n = int((ev & (prev >= 0)).sum())
+        print(f"init attempt at frame {len(frames) - 1}: {kw['iters']} iterations, scale "
+              f"{float(res.scale):.4f}, chi2/dof {float(res.cost) / max(9 * n, 1):.3f}",
+              flush=True)
+        return res
+
+    inertial.inertial_init = logged
+    args = [settings, "--eval", "--out", os.path.join(a.out, a.package)] + extra
+    if a.max_frames:
+        args += ["--max-frames", str(a.max_frames)]
+    (out,) = run_slam.main(args)
+    st, ev = out["stats"], out.get("eval", {})
+    init = frames.index(True) - 1 if True in frames else None
+    mci = "mci" in st
+    tracked = st["tracked"] if mci else out["tracked_poses"]
+    total = st["mci"] if mci else st["frames"]
+    print(f"RESULT {a.package}: first initialized after frame {init}; {tracked} of {total} "
+          f"{'MCIs' if mci else 'frames'} tracked ({st.get('l2_lost', st.get('lost'))} lost); "
+          f"ATE with the scale fixed at 1 {ev.get('ate_rmse')} m over "
+          f"{ev.get('ape_piecewise', {}).get('traj_len')} m of path")
+
+
+if __name__ == "__main__":
+    main()
