@@ -19,7 +19,15 @@ the CPU (preintegration, inertial init, the VI pose optimization, VI-BA),
 IMU_MONOCULAR through run_slam.main at the configs/synth_euroc_vi.yaml
 width on the same EuRoC sequence (with its IMU), and EVENT_IMU through
 run_slam.main with the configs/synth_ev_imu.yaml settings on the generated
-EV-ETHZ sequence (with its IMU).
+EV-ETHZ sequence (with its IMU). Then stereo, depth and place recognition:
+the depth modules (stereo_match, the depth lookup, depth landmarks) and the
+loop modules (Sim3 RANSAC, the f64 pose graph, BoW scoring) on the card
+against the CPU, the reference's merge-after-loss scene through
+MonoSlam(loop_words=...) on the card, STEREO, RGBD and IMU_STEREO through
+run_slam.main with their configs/synth_euroc_*.yaml settings on one
+generated corridor with a right camera and depth, and MONOCULAR with a
+trained vocabulary at configs/synth_euroc_room_large.yaml on a generated
+room loop of two turns, with the loop closer's gate decisions.
 
     python3 chip_smoke.py
 
@@ -30,7 +38,8 @@ a CUDA-graph replay and the profiler's time by kernel name), the ascent's
 time and launches per call, the L1 slice's windows/s, the L2 cuda-vs-cpu
 agreement, EventSlam's MCIs/s, real-time factor and ms per MCI by phase,
 the generator's events/s, the app runs with their accuracy, blocking host
-reads per frame / MCI (torch's sync debug mode), then one JSON line
+reads per frame / MCI (torch's sync debug mode), launches and device time
+per frame, the splat launches of each app path, then one JSON line
 describing the kernels and, last, the device line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -67,8 +76,8 @@ F32_FLOPS = 67e12            # f32 outside the tensor cores, published
 FWD_OPS, VJP_OPS = 12 * 4 + 36 * 2 + 20, 12 * 4 + 36 * 6 + 40
 RATE = 4_000_000    # events/s after the in-image cut (shakes density)
 WARM_S, RUN_S = 0.1, 0.25             # L1 slice
-EV_WARM_S, EV_RUN_S, EV_PHASE_S = 0.2, 0.15, 0.1  # EventSlam
-EV_PHASE_TIMED = 12      # MCIs of the phase pass under timers; the rest (~4)
+EV_WARM_S, EV_RUN_S, EV_PHASE_S = 0.2, 0.15, 0.085  # EventSlam
+EV_PHASE_TIMED = 12      # MCIs of the phase pass under timers; the rest (~2)
 #                          run under the profiler
 PACKET = 40_000          # events per EventSlam.track_events call (10 ms)
 L2_KW = dict(K=24, M=2048, P=8)          # EventSlam's defaults
@@ -98,7 +107,7 @@ APP_MIN_ATE_N = 30
 # run-to-run spread of the forward's atomics.
 EVI_TRACK_MIN = 0.60
 # MONOCULAR at the configs/synth_euroc_mono.yaml width
-MONO_FRAMES, MONO_PROFILED = 60, 2
+MONO_FRAMES, MONO_PROFILED = 40, 2
 # IMU_MONOCULAR at the configs/synth_euroc_vi.yaml width on a generated
 # room_01 (one of that file's sequences): VI_GEN_FRAMES frames of the room
 # loop at 10 s per turn, box renderer. On the MONOCULAR phase's corridor the
@@ -108,7 +117,26 @@ MONO_FRAMES, MONO_PROFILED = 60, 2
 # tools/vi_init_check.py); the port's own RANSAC draws initialize earlier on
 # the card (PERF.md). VI_FRAMES are timed, then VI_EXTRA frames run under
 # the sync counter and the profiler.
-VI_GEN_FRAMES, VI_FRAMES, VI_EXTRA, VI_INIT_REF, VI_ROOM_S = 84, 60, 4, 71, 10.0
+VI_GEN_FRAMES, VI_FRAMES, VI_EXTRA, VI_INIT_REF, VI_ROOM_S = 84, 60, 2, 71, 10.0
+# STEREO, RGBD and IMU_STEREO at the configs/synth_euroc_{stereo,rgbd,
+# imu_stereo}.yaml width share one generated corridor_st_01 (cam1 at
+# bf / fx = 0.11 m, depth0); each runs its frames through run_slam, then
+# DEPTH_EXTRA more under the read counter and the profiler
+DEPTH_BASELINE = 0.11
+DEPTH_GEN_FRAMES, DEPTH_FRAMES, IMU_STEREO_FRAMES, DEPTH_EXTRA = 66, 30, 64, 2
+# IMU_STEREO: the JAX app on a CPU initializes the IMU after frame
+# IMU_STEREO_INIT_REF of this sequence (tools/vi_init_check.py --stereo
+# --kind corridor); IMU_STEREO_FRAMES leaves ~20 inertial frames after it
+IMU_STEREO_INIT_REF = 44
+DEPTH_TOL = 1e-5           # stereo depth, relative, cuda vs cpu
+DEPTH_POS_TOL = 1e-3       # depth landmarks, m, at up to 60 m (f32)
+SIM3_TOL = 1e-4            # sim3_ransac R, t, s, max abs, cuda vs cpu
+POSE_GRAPH_TOL_F64 = 1e-9  # optimize_pose_graph, float64, max abs
+BOW_TOL = 1e-6             # L1 scores, cuda vs cpu (another summation order)
+APP_TRACK_MIN = 0.8        # tracked share after init, the image modes
+# MONOCULAR with place recognition at configs/synth_euroc_room_large.yaml:
+# LOOP_TURNS turns of the room loop, so the path revisits its start
+LOOP_ROOM_S, LOOP_TURNS = 10.0, 2.0
 # the pipelined check: box-rendered corridor frames at 320x240
 PIPE_W, PIPE_H, PIPE_FX, PIPE_FRAMES, PIPE_BLANK = 320, 240, 195.0, 40, 24
 PIPE_KW = dict(img_w=PIPE_W, img_h=PIPE_H, K=8, M=1024, N=256, max_frames_between_kf=4)
@@ -822,7 +850,7 @@ def check_l2_small():
 def run_event_slam():
     """EventSlam end to end on the card at the synth_ev_only width, through
     EventSlam.track_events: 0.2 s of warm-up (L2 must initialize), 0.15 s
-    timed, then 0.1 s more window by window: 12 MCIs with synchronised
+    timed, then 0.085 s more window by window: 12 MCIs with synchronised
     per-phase timers, the rest under the profiler."""
     from eorb_slam_tpu_torch.event import builder as eb
     from eorb_slam_tpu_torch.ops import hopper_splat
@@ -1748,6 +1776,498 @@ def run_app_event_imu(work: str, data_root: str):
     return dict(launches=launches, vjp_launches=vjp, mcis=n, wall_s=out["wall_s"])
 
 
+# ------------------------------------------------- stereo, depth and loops
+
+
+def _ids_equal(a, b, what):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    if not np.array_equal(a, b):
+        raise RuntimeError(f"{what}: {int((a != b).sum())} of {a.size} entries differ")
+
+
+def check_depth_small():
+    """The depth modules on the card against the CPU from the same inputs:
+    stereo_match on a rendered corridor pair at the synth_euroc_stereo width
+    (752x480, 512 features per image, baseline 0.11 m), depth_from_depthmap
+    on that frame's depth map, create_depth_landmarks into a map."""
+    from eorb_slam_tpu_torch.geometry import camera as cam_mod
+    from eorb_slam_tpu_torch.io import synth_dataset as sd
+    from eorb_slam_tpu_torch.ops import frontend, stereo_match
+    from eorb_slam_tpu_torch.slam import local_mapping, map_state
+
+    Wd, Hd, fx = 752, 480, 458.0
+    cam = torch.tensor([fx, fx, Wd / 2, Hd / 2, 0, 0, 0, 0, 0], dtype=torch.float32)
+    render = sd.make_box_renderer("corridor", Wd, Hd, fx)
+    Tcw = np.asarray(sd.make_trajectory("corridor", 10.0)(1.0), np.float32)
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -DEPTH_BASELINE
+    img_l, depth_map = render.with_depth(Tcw)
+    img_r = render(T_rl @ Tcw)
+    fl = frontend.extract(img_l * 255.0, max_kp=512)
+    fr = frontend.extract(img_r * 255.0, max_kp=512)
+    xy_l, xy_r = cam_mod.undistort_points(cam.cuda(), fl.xy), cam_mod.undistort_points(cam.cuda(), fr.xy)
+    args = (xy_l, fl.octave, fl.desc_pm1, fl.valid, xy_r, fr.octave, fr.desc_pm1, fr.valid)
+    t0 = time.perf_counter()
+    out = {d: stereo_match.stereo_match(*(a.to(d) for a in args), fx, DEPTH_BASELINE)
+           for d in ("cuda", "cpu")}
+    (dg, ug, okg), (dc, uc, okc) = out["cuda"], out["cpu"]
+    _ids_equal(okg, okc, "stereo_match matched set")
+    _ids_equal(ug, uc, "stereo_match u_right")
+    ok = okc.numpy()
+    rel = float(np.max(np.abs(dg.cpu().numpy()[ok] - dc.numpy()[ok]) / dc.numpy()[ok]))
+    if rel > DEPTH_TOL or ok.sum() < 100:
+        raise RuntimeError(f"stereo depth rel err {rel} over {ok.sum()} matches")
+    dmg, vg = stereo_match.depth_from_depthmap(fl.xy, depth_map, fl.valid)
+    dmc, vc = stereo_match.depth_from_depthmap(fl.xy.cpu(), depth_map.cpu(), fl.valid.cpu())
+    _ids_equal(dmg, dmc, "depth_from_depthmap depth")
+    _ids_equal(vg, vc, "depth_from_depthmap valid")
+    maps = {}
+    for d in ("cuda", "cpu"):
+        m = map_state.empty_map(K=8, M=2048, N=512, P=8, device=d)
+        m = map_state.insert_keyframe(
+            m, 3, torch.from_numpy(Tcw).to(d), 1.0, xy_l.to(d), fl.octave.to(d),
+            fl.angle.to(d), fl.desc_pm1.to(d), fl.valid.to(d),
+            torch.full((512,), -1, dtype=torch.int32, device=d))
+        maps[d] = local_mapping.create_depth_landmarks(m, cam.to(d), 3, dc.to(d))
+    (mg, ng), (mc, nc) = maps["cuda"], maps["cpu"]
+    for k in ("lm_valid", "kf_feat_lm", "obs_kf", "obs_feat", "obs_valid", "lm_nobs"):
+        _ids_equal(getattr(mg, k), getattr(mc, k), f"create_depth_landmarks {k}")
+    pos_err = float((mg.lm_pos.cpu() - mc.lm_pos).abs().max())
+    if pos_err > DEPTH_POS_TOL or int(ng) != int(nc) or int(nc) < 100:
+        raise RuntimeError(f"create_depth_landmarks: {int(ng)} vs {int(nc)}, pos {pos_err}")
+    _log(f"depth modules cuda vs cpu (752x480 corridor pair, baseline {DEPTH_BASELINE} m): "
+         f"stereo_match {int(ok.sum())} of {int(fl.valid.sum())} left features matched, the "
+         f"same set and u_right, depth rel err {rel:.2e}; depth_from_depthmap equal "
+         f"({int(vc.sum())} with depth); create_depth_landmarks {int(nc)} landmarks, tables "
+         f"equal, positions {pos_err:.2e}; {time.perf_counter() - t0:.2f} s")
+
+
+def _dot_scene(seed, n):
+    """tests/test_loop_closing.py's dot scene at 240x180 (fx 200), rendered
+    with the plain splat on the CPU: float images in [0,255]."""
+    from eorb_slam_tpu_torch.event import tensorize
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(6, 12, n)], 1)
+    amp = torch.tensor(rng.uniform(0.3, 1.0, n), dtype=torch.float32)
+
+    def render(x, y=0.0):
+        pc = pts - np.asarray([x, y, 0.0])
+        uv = np.stack([200.0 * pc[:, 0] / pc[:, 2] + 120.0,
+                       200.0 * pc[:, 1] / pc[:, 2] + 90.0], 1).astype(np.float32)
+        ok = (pc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < 240) & (uv[:, 1] >= 0) \
+            & (uv[:, 1] < 180)
+        img = tensorize.splat_gauss(torch.from_numpy(uv), torch.from_numpy(ok), amp,
+                                    180, 240, sigma=1.2)
+        return tensorize.normalize_to_image(img) * 255.0
+
+    return render
+
+
+def check_loop_small():
+    """Place recognition and loop closing on the card against the CPU:
+    sim3_ransac with fixed minimal sets, optimize_pose_graph in float64 (the
+    sim3 and 4-DoF charts), BoW quantization, scores and top-k (flat and
+    2-level); then tests/test_loop_closing.py's merge-after-loss scene
+    through MonoSlam(loop_words=...) on the card: the stored map is found
+    by its BoW index and welded in (map_merges >= 1)."""
+    from eorb_slam_tpu_torch.geometry import lie, sim3_solver
+    from eorb_slam_tpu_torch.ops import frontend
+    from eorb_slam_tpu_torch.optim import pose_graph
+    from eorb_slam_tpu_torch.retrieval import bow
+    from eorb_slam_tpu_torch.slam import system
+
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    # Sim3 RANSAC, 30% outliers, the same minimal sets on both devices
+    N = 512
+    P = np.concatenate([rng.uniform(-2, 2, (N, 2)), rng.uniform(3, 8, (N, 1))], 1)
+    R = lie.so3_exp(torch.tensor([0.05, 0.1, -0.05])).numpy()
+    Q = 1.3 * P @ R.T + [0.2, 0.1, -0.3]
+    out = rng.random(N) < 0.3
+    Q[out] += rng.normal(0, 1.0, (out.sum(), 3))
+    sets = torch.from_numpy(rng.integers(0, N, (128, 3)))
+    draw = sim3_solver._draw_minimal_sets
+    sim3_solver._draw_minimal_sets = lambda g, probs, n: sets.to(probs.device)
+    try:
+        res = {d: sim3_solver.sim3_ransac(
+            torch.tensor(P, dtype=torch.float32, device=d),
+            torch.tensor(Q, dtype=torch.float32, device=d),
+            torch.ones(N, dtype=torch.bool, device=d), None,
+            torch.full((N,), 9.21, device=d), _cam(d), _cam(d)) for d in ("cuda", "cpu")}
+    finally:
+        sim3_solver._draw_minimal_sets = draw
+    _ids_equal(res["cuda"].inliers, res["cpu"].inliers, "sim3_ransac inliers")
+    s_err = max(float((getattr(res["cuda"], k).cpu() - getattr(res["cpu"], k)).abs().max())
+                for k in ("R", "t", "s"))
+    if s_err > SIM3_TOL or int(res["cpu"].n_inliers) < 0.8 * (~out).sum():
+        raise RuntimeError(f"sim3_ransac: R/t/s err {s_err}, {int(res['cpu'].n_inliers)} inliers")
+    # pose graph, float64: a drifted loop of 24 keyframes with a loop edge
+    K, E = 24, 64
+    ang = 2 * np.pi * np.arange(K) / K
+    T = [lie.se3_exp(torch.tensor([3 * np.cos(a), 3 * np.sin(a), 0.0, 0.0, 0.0, a],
+                                  dtype=torch.float64)) for a in ang]
+    T_gt = torch.stack(T)
+    drift = lie.se3_exp(torch.tensor([0.01, -0.005, 0.01, 0.002, 0.003, -0.002],
+                                     dtype=torch.float64))
+    T_est, acc = [T_gt[0]], torch.eye(4, dtype=torch.float64)
+    for k in range(1, K):
+        acc = acc @ drift
+        T_est.append(T_gt[k] @ acc)
+    T_est = torch.stack(T_est)
+    pairs = [(k, k + 1) for k in range(K - 1)] + [(K - 1, 0)]
+    ei = torch.zeros(E, dtype=torch.int32)
+    ej = torch.zeros(E, dtype=torch.int32)
+    ew = torch.zeros(E, dtype=torch.float64)
+    eT = torch.eye(4, dtype=torch.float64).repeat(E, 1, 1)
+    for n, (i, j) in enumerate(pairs):
+        ei[n], ej[n], ew[n] = i, j, 1.0
+        eT[n] = T_gt[j] @ torch.linalg.inv(T_gt[i])
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    pg_err = {}
+    for chart in ("sim3", "4dof"):
+        g = {d: pose_graph.PoseGraph(
+            R=T_est[:, :3, :3].to(d), t=T_est[:, :3, 3].to(d),
+            s=torch.ones(K, dtype=torch.float64, device=d),
+            kf_valid=torch.ones(K, dtype=torch.bool, device=d), fixed=fixed.to(d),
+            edge_i=ei.to(d), edge_j=ej.to(d), edge_R=eT[:, :3, :3].to(d),
+            edge_t=eT[:, :3, 3].to(d), edge_s=torch.ones(E, dtype=torch.float64, device=d),
+            edge_w=ew.to(d)) for d in ("cuda", "cpu")}
+        o = {d: pose_graph.optimize_pose_graph(g[d], iters=15, chart=chart) for d in g}
+        pg_err[chart] = max(float((getattr(o["cuda"], k).cpu() - getattr(o["cpu"], k)).abs().max())
+                            for k in ("R", "t", "s"))
+        moved = float((o["cpu"].t - g["cpu"].t).abs().max())
+        if pg_err[chart] > POSE_GRAPH_TOL_F64 or moved < 1e-3:
+            raise RuntimeError(f"pose graph {chart}: cuda vs cpu {pg_err[chart]}, moved {moved}")
+    # BoW: a flat and a 2-level vocabulary from random descriptors
+    descs = torch.from_numpy(rng.integers(0, 2, (2048, 256)).astype(np.int8) * 2 - 1)
+    words = bow.train_vocab(descs.cuda(), 256, iters=4)
+    voc = bow.train_hier_vocab(descs.cuda(), K1=16, K2=16, iters=4)
+    frames = [descs[rng.choice(2048, 512, replace=False)] for _ in range(12)]
+    valid = torch.from_numpy(rng.random(512) > 0.05)
+    bow_err, bres = 0.0, {}
+    for d in ("cuda", "cpu"):
+        db = bow.empty_database(16, 256, d)
+        sdb = bow.empty_sparse_database(16, 512, d)
+        w, v = words.to(d), bow.HierVocab(*(x.to(d) for x in voc))
+        for i, f in enumerate(frames[:10]):
+            db = bow.add_keyframe(db, i, bow.quantize(f.to(d), valid.to(d), w)[1])
+            sdb = bow.sparse_add_keyframe(sdb, i, *bow.quantize_hier(f.to(d), valid.to(d), v))
+        q = frames[0]
+        wid, bq = bow.quantize(q.to(d), valid.to(d), w)
+        hid, hw = bow.quantize_hier(q.to(d), valid.to(d), v)
+        row = bow.sparse_bow_row(hid, hw)
+        excl = torch.zeros(16, dtype=torch.bool, device=d)
+        bres[d] = (wid, hid, bow.detect_candidates(db, bq, excl, top_k=4),
+                  bow.sparse_detect_candidates(sdb, *row, excl, top_k=4),
+                  bow.all_scores(db, bq), bow.sparse_all_scores(sdb, *row))
+    (wg, hg, dg, sg, ag, sag), (wc, hc, dc, sc, ac, sac) = bres["cuda"], bres["cpu"]
+    _ids_equal(wg, wc, "quantize word ids")
+    _ids_equal(hg, hc, "quantize_hier word ids")
+    for (sa, ia), (sb, ib), what in ((dg, dc, "detect_candidates"),
+                                     (sg, sc, "sparse_detect_candidates")):
+        _ids_equal(ia, ib, f"{what} top-k")
+        bow_err = max(bow_err, float((sa.cpu() - sb).abs().max()))
+    bow_err = max(bow_err, float((ag.cpu() - ac).abs().max()),
+                  float((sag.cpu() - sac).abs().max()))
+    if bow_err > BOW_TOL or int(dc[1][0]) != 0:
+        raise RuntimeError(f"BoW scores differ by {bow_err}, or the revisit ranks {dc[1]}")
+    t_mods = time.perf_counter() - t0
+    # the merge-after-loss scene on the card
+    render = _dot_scene(8, 300)
+    cam = np.asarray([200.0, 200.0, 120.0, 90.0, 0, 0, 0, 0, 0], np.float32)
+    f0 = frontend.extract(render(0.0).cuda(), max_kp=256)
+    slam = system.MonoSlam(cam, img_w=240, img_h=180, N=256, K=32, M=4096,
+                           min_init_matches=30, min_track_inliers=8,
+                           max_frames_between_kf=2, loop_min_gap=99,
+                           loop_words=bow.train_vocab(f0.desc_pm1, 32, iters=3))
+    slam.lost_grace = 2
+    frames = [(render(float(x)), 0.1 * i) for i, x in enumerate(np.arange(0.0, 1.4, 0.04))]
+    frames += [(torch.zeros(180, 240), 10.0 + 0.1 * k) for k in range(6)]
+    frames += [(render(float(x), 0.05), 20.0 + 0.1 * i)
+               for i, x in enumerate(np.arange(0.3, 1.5, 0.06))]
+    frames = [(img.cuda(), ts) for img, ts in frames]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stored = 0
+    for img, ts in frames:
+        slam.process_image(img, ts)
+        stored = max(stored, slam.atlas.n_maps())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    _log(f"loop modules cuda vs cpu: sim3_ransac {int(res['cpu'].n_inliers)} of {N} inliers, the "
+         f"same set, R/t/s {s_err:.2e}; optimize_pose_graph f64 (K={K}, 15 iterations) sim3 "
+         f"{pg_err['sim3']:.2e}, 4dof {pg_err['4dof']:.2e}; BoW word ids and top-k equal, "
+         f"scores {bow_err:.2e}; {t_mods:.2f} s")
+    _log(f"merge-after-loss scene on {slam.device}, 240x180: {len(frames)} frames in "
+         f"{wall:.2f} s; {stored} maps at the most, map_merges {slam.map_merges}, "
+         f"{slam.atlas.n_maps()} map(s) left, {slam.n_kf} keyframes, lost {slam.stats['lost']}, "
+         f"final state {slam.state}")
+    if slam.device.type != "cuda" or stored < 2 or slam.map_merges < 1 \
+            or slam.atlas.n_maps() != 1 or slam.state != system.OK:
+        raise RuntimeError(f"no merge after the loss: {slam.stats}")
+
+
+class _LoopLog:
+    """The eorb.loop gate decisions while active."""
+
+    def __enter__(self):
+        import logging
+
+        rec = self.lines = []
+
+        class H(logging.Handler):
+            def emit(self, r):
+                rec.append(r.getMessage())
+
+        self._h = H()
+        logging.getLogger("eorb.loop").addHandler(self._h)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("eorb.loop").removeHandler(self._h)
+        return False
+
+
+def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, tag):
+    """run_slam.main with configs/<config> (only DS.Paths.root differs) on
+    `seq`, with --eval and no --device: the card. Each `cls.method` call is
+    recorded (state, IMU initialized); the splat counters are zeroed before
+    the run and read after it. Then `extra` more frames through
+    ``step(slam, seq, i)``: half under the blocking-read counter, half under
+    the profiler."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.ops import hopper_splat
+    from eorb_slam_tpu_torch.slam.system import OK
+
+    settings = _settings_with_root(config, root, work)
+    rec, slams = [], []
+    fn, run_seq = getattr(cls, method), run_slam.run_sequence
+
+    def recording(self, *a, **kw):
+        res = fn(self, *a, **kw)
+        rec.append((res["state"], bool(getattr(self, "imu_initialized", False)),
+                    bool(res.get("new_map")), self.map_merges))
+        return res
+
+    def keep(st, s, **kw):
+        slam, out = run_seq(st, s, **kw)
+        slams.append((slam, s))
+        return slam, out
+
+    setattr(cls, method, recording)
+    run_slam.run_sequence = keep
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    try:
+        with _LoopLog() as loop_log:
+            (out,) = run_slam.main([settings, "--sequence", seq, "--eval",
+                                    "--max-frames", str(frames),
+                                    "--out", os.path.join(work, f"results_{tag}")])
+            torch.cuda.synchronize()
+    finally:
+        setattr(cls, method, fn)
+        run_slam.run_sequence = run_seq
+    launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    slam, sq = slams[0]
+    sim3 = run_slam.evaluate(sq, out["trajectory_file"], monocular=True)
+    reads, per_frame = [], []
+    for k, i in enumerate(range(frames, frames + extra)):
+        if k < extra // 2:
+            with _Syncs() as sy:
+                step(slam, sq, i)
+                sy.mark()
+            reads.append(sy.steps[0])
+        else:
+            _, per = _profile(lambda: step(slam, sq, i))
+            per_frame.append((sum(c for c, _ in per.values()),
+                              sum(us for _, us in per.values()) / 1e3))
+    states = [s for s, *_ in rec]
+    not_ok = [i for i, s in enumerate(states) if s != OK]
+    new_maps = [i for i, (_, _, nm, _) in enumerate(rec) if nm]
+    merged = [i for i in range(1, len(rec)) if rec[i][3] > rec[i - 1][3]]
+    first_ok = states.index(OK) if OK in states else len(states)
+    n_ok = sum(s == OK for s in states[first_ok:])
+    imu_at = [i for i, (_, ini, _, _) in enumerate(rec) if ini]
+    dt = float(np.median(np.diff(sq.image_ts)))
+    ev = out.get("eval", {})
+    path = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+    n = len(rec)
+    r = dict(
+        frames=n, wall_s=out["wall_s"], fps=n / out["wall_s"], rt=n * dt / out["wall_s"],
+        ms=out["avg_track_ms"], first_ok=first_ok, n_ok=n_ok, n_after=n - first_ok,
+        imu_at=imu_at[0] if imu_at else None, ate=ev.get("ate_rmse"),
+        ate_scale=ev.get("ate_scale"), ate_sim3=sim3.get("ate_rmse"),
+        sim3_scale=sim3.get("ate_scale"), path=path, reads=float(np.mean(reads)),
+        launches_frame=float(np.mean([c for c, _ in per_frame])),
+        device_ms=float(np.mean([t for _, t in per_frame])), splat=launches,
+        loop_lines=loop_log.lines, device=out["device"], stats=out["stats"])
+    _log(f"run_slam {tag} {slam.img_w}x{slam.img_h}, N={slam.map.N}, K={slam.map.K}, "
+         f"M={slam.map.M}, on {out['device']}: {seq}, {n} frames in {out['wall_s']:.3f} s "
+         f"wall = {r['fps']:.3f} frames/s (real-time x {r['rt']:.4f}), {r['ms']:.2f} ms per "
+         f"frame; initialised at frame {first_ok}, then {n_ok}/{n - first_ok} tracked"
+         + (f"; IMU initialised at frame {r['imu_at']}, scale applied "
+            f"{slam.scale_applied:.4f}" if hasattr(slam, "imu_initialized") else "")
+         + f"; frames not OK {not_ok}, new maps at {new_maps}, merges at {merged}; loops "
+         f"{slam.loops_closed}, {len(loop_log.lines)} eorb.loop lines; splat launches "
+         f"{launches[0]} forward + {launches[1]} VJP")
+    _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
+         f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
+         f"launches and {r['device_ms']:.2f} ms of device time (each: "
+         f"{[(c, round(t, 2)) for c, t in per_frame]})")
+    _log(f"run_slam {tag} accuracy: ATE --eval {r['ate']} m (scale {r['ate_scale']}) over "
+         f"{ev.get('ate_n')} poses; Sim3 {r['ate_sim3']} m, fitted scale {r['sim3_scale']}; "
+         f"path {path:.4f} m; stats {out['stats']}")
+    if out["device"] != "cuda" or slam.map.N != 512 or (slam.img_w, slam.img_h) != (752, 480):
+        raise RuntimeError(f"{tag}: not the full width on the card")
+    if n_ok < APP_TRACK_MIN * max(n - first_ok, 1) or first_ok >= n:
+        raise RuntimeError(f"{tag}: only {n_ok}/{n - first_ok} frames tracked after init")
+    if launches != (0, 0):
+        raise RuntimeError(f"{tag}: the splat kernels ran on this path: {launches}")
+    if not (np.isfinite(r["ate"] or np.inf) and np.isfinite(r["ate_sim3"] or np.inf)):
+        raise RuntimeError(f"{tag}: evaluate gave {ev} / {sim3}")
+    return slam, r
+
+
+def run_generate_depth(work: str):
+    """One EuRoC corridor_st_01 at the synth_euroc_stereo width for the three
+    depth modes: cam0, cam1 at bf / fx = 0.11 m to the right, 16-bit depth0,
+    IMU, ground truth; box renderer on the card."""
+    from eorb_slam_tpu_torch.io import config, synth_dataset as sd
+
+    root = os.path.join(work, "euroc_depth")
+    st = config.load_settings(os.path.join(REPO, "configs", "synth_euroc_stereo.yaml"))
+    Wd, Hd, fx, fps = st.cam.width, st.cam.height, st.cam.fx, st.cam.fps
+    baseline = st.cam.bf / st.cam.fx
+    if abs(baseline - DEPTH_BASELINE) > 1e-3:
+        raise RuntimeError(f"synth_euroc_stereo.yaml baseline {baseline}")
+    t0 = time.perf_counter()
+    sd.write_euroc(root, "corridor_st_01", sd.make_scene("corridor", Wd, Hd, fx, n_dots=10),
+                   sd.make_trajectory("corridor", 10.0), duration=DEPTH_GEN_FRAMES / fps,
+                   fps=fps, verbose=False, stereo_baseline=baseline, write_depth=True,
+                   renderer=sd.make_box_renderer("corridor", Wd, Hd, fx))
+    _log(f"generate: corridor_st_01 {Wd}x{Hd}, {DEPTH_GEN_FRAMES} frames with cam1 "
+         f"(baseline {baseline:.4f} m) and depth0 in {time.perf_counter() - t0:.2f} s")
+    return root
+
+
+def _frame_args(slam, seq, i, right=False, depth=False):
+    from eorb_slam_tpu_torch._host import to_device
+
+    args = [to_device((seq.image(i) * 255.0).astype(np.uint8), slam.device)]
+    if right:
+        args.append(to_device((seq.image_right(i) * 255.0).astype(np.float32), slam.device))
+    if depth:
+        args.append(to_device(seq.depth(i).astype(np.float32), slam.device))
+    return args + [float(seq.image_ts[i])]
+
+
+def run_app_stereo(work: str, root: str):
+    """STEREO through run_slam.main with configs/synth_euroc_stereo.yaml."""
+    from eorb_slam_tpu_torch.slam import rgbd_stereo
+
+    slam, r = _run_app_image(
+        work, "synth_euroc_stereo.yaml", root, "corridor_st_01", rgbd_stereo.StereoSlam,
+        "process_stereo", DEPTH_FRAMES, DEPTH_EXTRA,
+        lambda s, q, i: s.process_stereo(*_frame_args(s, q, i, right=True)), "STEREO")
+    _check_metric(slam, r, "STEREO")
+    return r
+
+
+def run_app_rgbd(work: str, root: str):
+    """RGBD through run_slam.main with configs/synth_euroc_rgbd.yaml."""
+    from eorb_slam_tpu_torch.slam import rgbd_stereo
+
+    slam, r = _run_app_image(
+        work, "synth_euroc_rgbd.yaml", root, "corridor_st_01", rgbd_stereo.RgbdSlam,
+        "process_rgbd", DEPTH_FRAMES, DEPTH_EXTRA,
+        lambda s, q, i: s.process_rgbd(*_frame_args(s, q, i, depth=True)), "RGBD")
+    _check_metric(slam, r, "RGBD")
+    return r
+
+
+def run_app_imu_stereo(work: str, root: str):
+    """IMU_STEREO through run_slam.main with configs/synth_euroc_imu_stereo.yaml:
+    the IMU must initialize; after it, frames run the left-only inertial step
+    and the right image is extracted at keyframes only."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.slam import rgbd_stereo
+
+    def step(s, q, i):
+        img_l, img_r, t = _frame_args(s, q, i, right=True)
+        s.process_stereo_imu(img_l, img_r, t, run_slam._imu_chunk(q, float(q.image_ts[i - 1]), t))
+
+    slam, r = _run_app_image(
+        work, "synth_euroc_imu_stereo.yaml", root, "corridor_st_01",
+        rgbd_stereo.StereoInertialSlam, "process_stereo_imu", IMU_STEREO_FRAMES,
+        DEPTH_EXTRA, step, "IMU_STEREO")
+    if not slam.imu_initialized:
+        raise RuntimeError("IMU_STEREO: the IMU did not initialize")
+    _check_metric(slam, r, "IMU_STEREO")
+    return r
+
+
+def _check_metric(slam, r, tag):
+    """A depth mode is metric: --eval keeps the scale at 1, and the Sim3 fit
+    finds a scale near 1."""
+    if r["ate_scale"] != 1.0 or not 0.8 < (r["sim3_scale"] or 0.0) < 1.25:
+        raise RuntimeError(f"{tag}: eval scale {r['ate_scale']}, Sim3 scale {r['sim3_scale']}")
+
+
+def run_app_loop(work: str):
+    """MONOCULAR with place recognition through run_slam.main with
+    configs/synth_euroc_room_large.yaml (752x480, 512 features, K=96,
+    M=8192, a 4,096-word vocabulary trained on 6 of the sequence's frames):
+    a generated room_01 of LOOP_TURNS turns of the 10 s room loop, so the
+    path revisits its start. Prints the loop closer's gate decisions."""
+    from eorb_slam_tpu_torch.io import config, synth_dataset as sd
+    from eorb_slam_tpu_torch.slam import loop_closing, system
+
+    root = os.path.join(work, "euroc_loop")
+    st = config.load_settings(os.path.join(REPO, "configs", "synth_euroc_room_large.yaml"))
+    Wl, Hl, fx, fps = st.cam.width, st.cam.height, st.cam.fx, st.cam.fps
+    n = int(round(LOOP_TURNS * LOOP_ROOM_S * fps))
+    t0 = time.perf_counter()
+    sd.write_euroc(root, "room_01", sd.make_scene("room", Wl, Hl, fx, n_dots=10),
+                   sd.make_trajectory("room", LOOP_ROOM_S), duration=(n + DEPTH_EXTRA) / fps,
+                   fps=fps, verbose=False, renderer=sd.make_box_renderer("room", Wl, Hl, fx))
+    _log(f"generate: room_01 {Wl}x{Hl}, {n + DEPTH_EXTRA} frames ({LOOP_TURNS} turns of "
+         f"{LOOP_ROOM_S} s) in {time.perf_counter() - t0:.2f} s")
+    passes = []
+    detect = loop_closing.LoopCloser.detect_and_correct
+
+    def counted(self, m, q, **kw):
+        m, info = detect(self, m, q, **kw)
+        passes.append(info)
+        return m, info
+
+    loop_closing.LoopCloser.detect_and_correct = counted
+    try:
+        slam, r = _run_app_image(
+            work, "synth_euroc_room_large.yaml", root, "room_01", system.MonoSlam,
+            "process_image", n, DEPTH_EXTRA,
+            lambda s, q, i: s.process_image(*_frame_args(s, q, i)), "MONOCULAR+loop")
+    finally:
+        loop_closing.LoopCloser.detect_and_correct = detect
+    lc = slam.loop_closer
+    for line in r["loop_lines"]:
+        _log(f"  eorb.loop: {line}")
+    cands = [(i.query, i.matched, i.n_inliers) for i in passes if i.matched >= 0]
+    _log(f"run_slam MONOCULAR+loop: vocabulary {lc.words.V} words (K1 {lc.words.K1}, K2 "
+         f"{lc.words.K2}); {lc._kf_count} keyframes entered the database, "
+         f"{int(lc.db.valid.sum())} are in it now, {slam.n_kf} active; "
+         f"{len(passes)} detection passes, {len(cands)} with a candidate (query, candidate, "
+         f"Sim3 inliers: {cands}); {len(r['loop_lines'])} gate decisions logged; loops "
+         f"closed {slam.loops_closed}, maps merged {slam.map_merges}")
+    if not lc.hier or (slam.map.K, slam.map.M) != (96, 8192):
+        raise RuntimeError("not the synth_euroc_room_large vocabulary and capacities")
+    if not passes or int(lc.db.valid.sum()) == 0:
+        raise RuntimeError("place recognition never ran")
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1789,6 +2309,8 @@ def main() -> int:
     res = run_event_slam()
     check_pipelined_small()
     check_vi_small()
+    check_depth_small()
+    check_loop_small()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         gen = run_generate(work)
@@ -1796,6 +2318,11 @@ def main() -> int:
         app_ei = run_app_event_imu(work, gen["root"])
         run_app_monocular(work)
         run_app_imu_monocular(work)
+        depth_root = run_generate_depth(work)
+        run_app_stereo(work, depth_root)
+        run_app_rgbd(work, depth_root)
+        run_app_imu_stereo(work, depth_root)
+        run_app_loop(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

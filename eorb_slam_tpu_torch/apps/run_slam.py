@@ -9,12 +9,16 @@ timing-stats header.
 
 Ported so far: EVENT_ONLY through the discrete tracker
 (``Event.contTracking: 0``), MONOCULAR with ORB features
-(``Features.mode: 0``), IMU_MONOCULAR (slam/vi_system.MonoInertialSlam) and
-EVENT_IMU (slam/event_inertial.EventInertialSlam). Every other sensor
-configuration raises NotImplementedError naming the ROADMAP row that owns
-it. The system runs on
-the card unless ``--device`` says otherwise; without a card it raises
-rather than carrying on on the CPU.
+(``Features.mode: 0``), IMU_MONOCULAR (slam/vi_system.MonoInertialSlam),
+EVENT_IMU (slam/event_inertial.EventInertialSlam), and STEREO, RGBD and
+IMU_STEREO (slam/rgbd_stereo.py). The image modes close loops and merge
+maps when the settings configure a vocabulary (``make_vocab``: a DBoW2
+text file, or one trained on the sequence's own frames). What is not
+ported yet raises NotImplementedError naming the ROADMAP.md Queue 1 row
+that owns it: EVENT_MONO and EVENT_IMU_MONO (row 12), mixed features (row
+13), the continuous event tracker (row 14). The system runs on the card
+unless ``--device`` says otherwise; without a card it raises rather than
+carrying on on the CPU.
 
 Usage:
     python -m eorb_slam_tpu_torch.apps.run_slam <settings.yaml> [--out DIR]
@@ -31,6 +35,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from eorb_slam_tpu_torch._host import resolve_device, to_device
 from eorb_slam_tpu_torch.io import config as cfg_mod
@@ -39,25 +44,40 @@ from eorb_slam_tpu_torch.io.config import SensorConfig
 
 # sensor configurations that are not ported yet -> the ROADMAP row (Queue 1)
 _UNPORTED = {
-    SensorConfig.STEREO: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
-    SensorConfig.RGBD: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
-    SensorConfig.IMU_STEREO: "row 10 (stereo and depth: slam/rgbd_stereo.py)",
     SensorConfig.EVENT_MONO: "row 12 (event + image: slam/ev_image_system.py)",
     SensorConfig.EVENT_IMU_MONO: "row 12 (EvImageInertialSlam over "
                                  "slam/ev_image_system.py)",
 }
 
 
-def make_vocab(st: cfg_mod.Settings, seq=None):
-    """The place-recognition vocabulary (reference loads ORBvoc.txt in
-    System::System). None when the settings configure none; a configured
-    vocabulary raises until ``retrieval/bow.py`` is ported."""
-    if st.vocab.path or st.vocab.train_words > 0:
-        raise NotImplementedError(
-            "a place-recognition vocabulary is configured (Vocabulary.path / "
-            "Vocabulary.trainWords), but retrieval/bow.py and loop closing "
-            "are not ported yet: ROADMAP.md Queue 1 row 11")
-    return None
+def make_vocab(st: cfg_mod.Settings, seq=None, device=None):
+    """Load or train the place-recognition vocabulary (the reference loads
+    ORBvoc.txt in System::System) on ``device`` (None: the card). Returns a
+    bow.HierVocab, or None when the settings configure no vocabulary. A
+    configured vocabulary that cannot be set up raises: a run that was
+    meant to close loops never goes on without them."""
+    from eorb_slam_tpu_torch.retrieval import bow
+
+    device = resolve_device(device)
+    if st.vocab.path:
+        return bow.load_vocab_text_hier(st.vocab.path, device=device)
+    if st.vocab.train_words <= 0:
+        return None
+    if seq is None or seq.n_frames == 0:
+        raise ValueError("Vocabulary.trainWords is set, but there are no frames "
+                         "to train the vocabulary on")
+    from eorb_slam_tpu_torch.ops import frontend
+
+    descs = []
+    idxs = np.linspace(0, seq.n_frames - 1, min(st.vocab.train_frames, seq.n_frames),
+                       dtype=int)
+    for i in idxs:
+        img = (seq.image(int(i)) * 255.0).astype(np.uint8)
+        f = frontend.extract(to_device(img, device), max_kp=512)
+        descs.append(f.desc_pm1[f.valid])
+    k1 = max(8, int(np.sqrt(st.vocab.train_words)))
+    k2 = max(8, st.vocab.train_words // k1)
+    return bow.train_hier_vocab(torch.cat(descs), K1=k1, K2=k2, iters=4)
 
 
 def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
@@ -72,9 +92,6 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         raise NotImplementedError(
             f"sensor configuration {s.name} is not ported yet: ROADMAP.md "
             f"Queue 1 {_UNPORTED[s]}")
-    if loop_words is not None:
-        raise NotImplementedError(
-            "loop closing is not ported yet: ROADMAP.md Queue 1 row 11")
     cam = st.cam.params_array()
     kw = dict(
         img_w=st.cam.width or 240, img_h=st.cam.height or 180,
@@ -84,6 +101,8 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         max_frames_between_kf=st.slam.max_frames_between_kf,
         device=device,
     )
+    if loop_words is not None:
+        kw["loop_words"] = loop_words
     calib = pre_mod.make_calib(
         Tbc=st.imu.Tbc, gyro_noise=st.imu.noise_gyro, acc_noise=st.imu.noise_acc,
         gyro_walk=st.imu.walk_gyro, acc_walk=st.imu.walk_acc, freq=st.imu.freq,
@@ -106,10 +125,23 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         # pipelined: the per-frame decision read overlaps the next frame's
         # work (host decisions trail one frame), as in the reference app
         return MonoSlam(cam, pipelined=True, **kw)
+    baseline = st.cam.bf / max(st.cam.fx, 1e-9)
+    if s is SensorConfig.STEREO:
+        from eorb_slam_tpu_torch.slam.rgbd_stereo import StereoSlam
+
+        return StereoSlam(cam, baseline=baseline, **kw)
+    if s is SensorConfig.RGBD:
+        from eorb_slam_tpu_torch.slam.rgbd_stereo import RgbdSlam
+
+        return RgbdSlam(cam, **kw)
     if s is SensorConfig.IMU_MONOCULAR:
         from eorb_slam_tpu_torch.slam.vi_system import MonoInertialSlam
 
         return MonoInertialSlam(cam, calib, **kw)
+    if s is SensorConfig.IMU_STEREO:
+        from eorb_slam_tpu_torch.slam.rgbd_stereo import StereoInertialSlam
+
+        return StereoInertialSlam(cam, calib, baseline=baseline, **kw)
     if s is SensorConfig.EVENT_ONLY:
         if st.event.continuous:
             raise NotImplementedError(
@@ -153,7 +185,7 @@ def run_sequence(
     device=None,
 ):
     """One sequence through the pipeline; returns (slam, result dict)."""
-    loop_words = make_vocab(st, seq) if st.sensor.is_image() else None
+    loop_words = make_vocab(st, seq, device) if st.sensor.is_image() else None
     slam = build_system(st, loop_words=loop_words, device=device)
     s = st.sensor
     main_timer = trajectory.SmartTimer("tracking")
@@ -194,11 +226,24 @@ def run_sequence(
             # on the device.
             img = (seq.image(i) * 255.0).astype(np.uint8)
             main_timer.tic()
+            dev = slam.device
             if s is SensorConfig.IMU_MONOCULAR:
-                slam.process_image_imu(to_device(img, slam.device), t,
+                slam.process_image_imu(to_device(img, dev), t,
                                        _imu_chunk(seq, t_prev, t))
+            elif s is SensorConfig.STEREO:
+                # the right image goes as float [0,255], unquantized, as the
+                # reference app passes it
+                img_r = (seq.image_right(i) * 255.0).astype(np.float32)
+                slam.process_stereo(to_device(img, dev), to_device(img_r, dev), t)
+            elif s is SensorConfig.IMU_STEREO:
+                img_r = (seq.image_right(i) * 255.0).astype(np.float32)
+                slam.process_stereo_imu(to_device(img, dev), to_device(img_r, dev),
+                                        t, _imu_chunk(seq, t_prev, t))
+            elif s is SensorConfig.RGBD:
+                slam.process_rgbd(to_device(img, dev),
+                                  to_device(seq.depth(i).astype(np.float32), dev), t)
             else:
-                slam.process_image(to_device(img, slam.device), t)
+                slam.process_image(to_device(img, dev), t)
             main_timer.toc()
             last_t = t
             if pace:

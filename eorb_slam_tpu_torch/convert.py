@@ -3,7 +3,9 @@
 The system has no learned weights; what has to match between the JAX
 package and this one is state: the L1 builder's, the L2 map's and the
 inertial state (calibration, preintegrations, the marginal prior, and a
-MonoInertialSlam's per-keyframe chain). These functions take that state as
+MonoInertialSlam's per-keyframe chain), a depth system's baseline, and
+place recognition's (the vocabulary, the keyframe databases and a
+LoopCloser's chains and counters). These functions take that state as
 numpy arrays (e.g. ``np.asarray`` of the JAX fields), so the port can
 continue a run from the same mid-run state, and give it back the same way.
 """
@@ -16,6 +18,7 @@ import torch
 from eorb_slam_tpu_torch.event.builder import EventWindowBuilder
 from eorb_slam_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
 from eorb_slam_tpu_torch.optim.marginalize import PoseImuPrior
+from eorb_slam_tpu_torch.retrieval import bow
 from eorb_slam_tpu_torch.slam.map_state import MapState, empty_map
 
 
@@ -147,3 +150,65 @@ def vi_state_to_numpy(slam) -> dict:
     out["pre_since_kf"] = pre_to_numpy(slam.pre_since_kf)
     out["pre_last_frame"] = pre_to_numpy(slam.pre_last_frame)
     return out
+
+
+def depth_state_from_numpy(slam, state: dict) -> None:
+    """Load a depth system's settings: ``baseline`` (meters; StereoSlam,
+    StereoInertialSlam) and ``max_depth`` (RgbdSlam), where given."""
+    for k in ("baseline", "max_depth"):
+        if k in state:
+            setattr(slam, k, float(state[k]))
+
+
+def vocab_from_numpy(voc, device=None):
+    """A vocabulary: a flat (V,256) +-1 codebook -> int8 tensor, or a
+    2-level vocabulary (dict or NamedTuple with ``words1``, ``words2``,
+    ``weights``, e.g. the JAX package's HierVocab) -> the port's HierVocab."""
+    if isinstance(voc, dict) or hasattr(voc, "_asdict"):
+        v = _fields(voc)
+        return bow.HierVocab(
+            words1=torch.from_numpy(np.array(v["words1"], np.int8)).to(device),
+            words2=torch.from_numpy(np.array(v["words2"], np.int8)).to(device),
+            weights=_f32(v["weights"], device))
+    return torch.from_numpy(np.array(voc, np.int8)).to(device)
+
+
+def database_from_numpy(db, device=None):
+    """A keyframe database (dict or NamedTuple of arrays): the dense one
+    (``bow``, ``has_word``, ``valid``) or the sparse one (``ids``, ``w``,
+    ``valid``) -> the port's, by its fields."""
+    d = _fields(db)
+    valid = torch.from_numpy(np.array(d["valid"], bool)).to(device)
+    if "ids" in d:
+        return bow.SparseKeyFrameDatabase(
+            ids=torch.from_numpy(np.array(d["ids"], np.int32)).to(device),
+            w=_f32(d["w"], device), valid=valid)
+    return bow.KeyFrameDatabase(
+        bow=_f32(d["bow"], device),
+        has_word=torch.from_numpy(np.array(d["has_word"], bool)).to(device),
+        valid=valid)
+
+
+def database_to_numpy(db) -> dict:
+    return {k: v.cpu().numpy() for k, v in db._asdict().items()}
+
+
+
+def loop_closer_state_from_numpy(lc, state: dict) -> None:
+    """Load a LoopCloser's state into ``lc`` (on its device): ``db`` (a
+    database, see ``database_from_numpy``), ``chains`` ([(set of slots,
+    length)]: the consistency groups), ``kf_count``, ``last_loop_kfc`` and
+    ``added_at`` ({slot: keyframe count at insertion})."""
+    lc.db = database_from_numpy(state["db"], lc.device)
+    lc._chains = [(set(int(x) for x in g), int(c)) for g, c in state["chains"]]
+    lc._kf_count = int(state["kf_count"])
+    lc._last_loop_kfc = int(state["last_loop_kfc"])
+    lc._added_at = {int(k): int(v) for k, v in state["added_at"].items()}
+
+
+def loop_closer_state_to_numpy(lc) -> dict:
+    """A LoopCloser's state (the keys of ``loop_closer_state_from_numpy``)."""
+    return {"db": database_to_numpy(lc.db),
+            "chains": [(set(g), c) for g, c in lc._chains],
+            "kf_count": lc._kf_count, "last_loop_kfc": lc._last_loop_kfc,
+            "added_at": dict(lc._added_at)}

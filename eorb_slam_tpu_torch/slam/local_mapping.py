@@ -5,10 +5,10 @@ PyTorch port of ``eorb_slam_tpu/slam/local_mapping.py`` (reference
 LocalMapping::ProcessNewKeyFrame -> MapPointCulling -> CreateNewMapPoints
 -> SearchInNeighbors -> local BA): ``create_new_landmarks``,
 ``fuse_duplicates``, ``keyframe_mapping_step``,
-``update_landmark_descriptors`` and ``local_ba``. The depth and slot-aligned
-landmark makers (``create_depth_landmarks``,
-``create_new_landmarks_aligned``) belong to the stereo/RGB-D and continuous
-trackers and are not ported yet.
+``update_landmark_descriptors``, ``local_ba`` and the stereo / RGB-D
+``create_depth_landmarks``. The slot-aligned landmark maker
+(``create_new_landmarks_aligned``) belongs to the continuous tracker and is
+not ported yet (ROADMAP.md Queue 1 row 14).
 """
 
 from __future__ import annotations
@@ -74,6 +74,32 @@ def create_new_landmarks(
         m, pts, m.kf_desc_pm1[kf_a], ok, kf_a,
         torch.arange(m.N, dtype=torch.int32, device=pts.device), kf_b, idx_b,
     )
+    return m, (lm_ids >= 0).sum(dtype=torch.int32)
+
+
+def create_depth_landmarks(
+    m: ms.MapState,
+    cam_params: torch.Tensor,
+    slot,                  # keyframe slot
+    depth: torch.Tensor,   # (N,) metric depth per feature (<=0 = unknown)
+):
+    """Create landmarks directly from per-feature depth (stereo / RGB-D;
+    the stereo branch of Tracking::CreateNewKeyFrame / StereoInitialization):
+    features with a valid depth and no landmark are unprojected at that
+    depth and inserted. Both founding observation rows point at
+    (slot, feat), as in the reference: the duplicated row (a 2x-weighted
+    residual in BA) keeps a one-view landmark clear of the
+    min-two-observations culling rule.
+
+    Returns (MapState, n_new () int32)."""
+    T = m.kf_T[slot]
+    rays = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[slot])  # (N,3)
+    pts_w = lie.se3_apply(lie.se3_inv(T), rays * depth[:, None])
+    ok = (m.kf_feat_valid[slot] & (m.kf_feat_lm[slot] < 0) & (depth > 0)
+          & torch.isfinite(depth) & torch.isfinite(pts_w).all(dim=-1))
+    feat_ids = torch.arange(m.N, dtype=torch.int32, device=depth.device)
+    m, lm_ids = ms.alloc_landmarks(
+        m, pts_w, m.kf_desc_pm1[slot], ok, slot, feat_ids, slot, feat_ids)
     return m, (lm_ids >= 0).sum(dtype=torch.int32)
 
 

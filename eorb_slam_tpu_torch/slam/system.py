@@ -16,11 +16,16 @@ taken as tracked, its (2,) flags go to the host in the background, and the
 next frame resolves them; a frame that did not track rolls the speculation
 back and is replayed synchronously.
 
+With ``loop_words`` (a vocabulary) place recognition runs inline at every
+keyframe: the loop closer's BoW database, loop detection and correction
+(slam/loop_closing.py), the BoW keyframe-database relocalization, and the
+cross-map merge of a stored Atlas map (``_try_map_merge``). Frames with
+metric depth (``FrameInput.depth``: stereo, RGB-D) found landmarks from it
+at every keyframe (slam/rgbd_stereo.py).
+
 States: NOT_INITIALIZED -> OK -> (RECENTLY_LOST -> LOST handling).
 
-Not ported yet (each raises NotImplementedError): loop closing
-(``loop_words``) and with it the BoW relocalization and map merging, and
-``MixedMonoSlam``.
+Not ported yet: ``MixedMonoSlam`` (ROADMAP.md Queue 1 row 13).
 """
 
 from __future__ import annotations
@@ -33,10 +38,12 @@ import torch
 
 from eorb_slam_tpu_torch._host import HostCopy, resolve_device
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
-from eorb_slam_tpu_torch.geometry import lie, twoview
+from eorb_slam_tpu_torch.geometry import lie, sim3_solver, twoview
 from eorb_slam_tpu_torch.ops import frontend, matching
 from eorb_slam_tpu_torch.slam import atlas as atlas_mod
-from eorb_slam_tpu_torch.slam import local_mapping, map_state, relocalization, tracking
+from eorb_slam_tpu_torch.slam import local_mapping, loop_closing, map_state
+from eorb_slam_tpu_torch.slam import relocalization, tracking
+from eorb_slam_tpu_torch.utils.logging import every_n, get_logger
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -54,6 +61,9 @@ class FrameInput:
     angle: torch.Tensor       # (N,)
     desc_pm1: torch.Tensor    # (N,256) int8
     valid: torch.Tensor       # (N,)
+    # per-feature metric depth (stereo match / RGB-D lookup); <=0 or
+    # non-finite = unknown. None for monocular frames (Frame::mvDepth)
+    depth: Optional[torch.Tensor] = None
 
 
 class MonoSlam:
@@ -76,11 +86,10 @@ class MonoSlam:
         max_frames_between_kf: int = 10,
         seed: int = 0,
         loop_words=None,
+        loop_min_gap: int = 8,
         pipelined: bool = False,
         device=None,
     ):
-        if loop_words is not None:
-            raise NotImplementedError("loop closing is not ported yet")
         self.device = resolve_device(device)
         self.cam = torch.as_tensor(cam_params, dtype=torch.float32).to(self.device)
         self.img_w, self.img_h = img_w, img_h
@@ -134,8 +143,22 @@ class MonoSlam:
         self.min_kf_store = 10
         self._traj_frozen: list = []
         self._last_kf_ts: Optional[float] = None  # host cache, no device read
-        # map welds (loop closures, Atlas merges); both stay 0 until loop
-        # closing is ported, and the speculation reads them
+        # inline place recognition (the reference's LoopClosing thread),
+        # gated by a minimum number of active keyframes; loop welds and
+        # Atlas merges are counted (the speculation reads both)
+        self.loop_closer = None
+        self.loop_min_gap = loop_min_gap
+        if loop_words is not None:
+            self.loop_closer = loop_closing.LoopCloser(
+                self.cam, loop_words, Kmax=K, sparse_words_per_kf=N,
+                img_w=img_w, img_h=img_h,
+                # small sensors carry fewer trackable features per frame:
+                # the projection-verify quorum scales with N, floor 20
+                proj_verify_min=max(20, min(40, N // 12)), device=self.device,
+            )
+        # BoW databases of stored (lost) maps, keyed by atlas index: the
+        # retrieval side of cross-map merging
+        self._stored_dbs: dict = {}
         self.loops_closed = 0
         self.map_merges = 0
         # the mapping step's stats and the next culling pass's redundancy
@@ -227,6 +250,8 @@ class MonoSlam:
         self.kf_culled += 1
         self.stats["kf_culled"] = self.kf_culled
         self.stats["kf"] = self.n_kf
+        if self.loop_closer is not None:
+            self.loop_closer.remove_keyframe(best_slot)
         return best_slot
 
     def _on_cull_keyframe(self, slot: int) -> None:
@@ -445,6 +470,9 @@ class MonoSlam:
         self._last_kf_ts = f.ts
         self._log_pose(f.ts, self.T_last)
         self.stats["kf"] = 2
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(self.map, 0)
+            self.loop_closer.add_keyframe(self.map, 1)
         self.stats["lm"] = int(self.map.lm_valid.sum())
         return {"state": self.state, "n": n, "n_pts": self.stats["lm"]}
 
@@ -547,7 +575,12 @@ class MonoSlam:
         if self.n_kf < self.min_kf_store:
             self.atlas.reset_active()
         else:
+            old_active = self.atlas.active
             self.atlas.create_new_map()
+            if self.loop_closer is not None:
+                # stash the lost map's BoW index for cross-map merging
+                self._stored_dbs[old_active] = self.loop_closer.db
+                self.loop_closer.db = self.loop_closer.fresh_db()
         self.state = NOT_INITIALIZED
         self.n_kf = 0
         self.lost_frames = 0
@@ -558,9 +591,14 @@ class MonoSlam:
         return {"state": self.state, "n_inliers": n_inl, "new_map": True}
 
     def _relocalize(self, f: FrameInput):
-        """Relocalization by global landmark matching + PnP RANSAC (the
-        reference's vocabulary-less fallback; the BoW keyframe-database
-        route waits for loop closing)."""
+        """Relocalization: BoW keyframe-database candidates + PnP RANSAC
+        per candidate when a vocabulary is loaded (KeyFrameDatabase::
+        DetectRelocalizationCandidates), else global landmark matching +
+        PnP RANSAC (the vocabulary-less fallback)."""
+        if self.loop_closer is not None and len(self._kf_order) >= 2:
+            T, n = self._relocalize_kfdb(f)
+            if T is not None:
+                return T, n
         m = self.map
         if int(m.lm_valid.sum()) < 30:
             return None, 0
@@ -581,6 +619,38 @@ class MonoSlam:
         if not bool(res.ok):
             return None, int(res.n_inliers)
         return res.Tcw, int(res.n_inliers)
+
+    def _relocalize_kfdb(self, f: FrameInput):
+        """Query the loop closer's BoW database with the lost frame, then
+        PnP against each candidate keyframe's landmarks (best first)."""
+        m = self.map
+        lc = self.loop_closer
+        bq = lc.frame_query(f.desc_pm1, f.valid)
+        scores, idx = lc.query_db(bq, torch.zeros(m.K, dtype=torch.bool,
+                                                  device=self.device), top_k=3)
+        packed = torch.cat([scores, idx.to(scores.dtype)]).cpu().numpy()
+        scores, idx = packed[:3], packed[3:].astype(np.int64)
+        min_inl = max(self.min_track_inliers, 12)
+        for rank in range(len(idx)):
+            if not np.isfinite(scores[rank]) or scores[rank] <= 0:
+                continue
+            cand = int(idx[rank])
+            vc = m.kf_feat_valid[cand] & (m.kf_feat_lm[cand] >= 0)
+            j, _ = matching.match_nnratio(
+                f.desc_pm1, f.valid, m.kf_desc_pm1[cand], vc,
+                max_dist=matching.TH_LOW, nn_ratio=0.75, mutual=True,
+            )
+            matched = f.valid & (j >= 0)
+            if int(matched.sum()) < min_inl:
+                continue
+            lm = m.kf_feat_lm[cand][torch.clamp(j, min=0).long()]
+            pts = m.lm_pos[torch.clamp(lm, min=0).long()]
+            res = relocalization.pnp_ransac(
+                self.cam, pts, f.xy_ud, matched, self.generator, min_inliers=min_inl,
+            )
+            if bool(res.ok):
+                return res.Tcw, int(res.n_inliers)
+        return None, 0
 
     # --------------------------------------------------------- trajectory
 
@@ -630,6 +700,11 @@ class MonoSlam:
             "opt_kf": int(st[4]), "fixed_kf": int(st[5]),
             "edges": int(st[6]), "cost0": float(st[2]), "cost": float(st[3]),
         }
+        log = get_logger("eorb.mapping")
+        if log.isEnabledFor(20) and every_n("lba", 5):
+            log.info("LBA kf=%d opt=%d fixed=%d edges=%d cost %.1f->%.1f lm=%d",
+                     self.n_kf, int(st[4]), int(st[5]), int(st[6]),
+                     float(st[2]), float(st[3]), int(st[0]))
         self._cull_keyframes()
 
     def _insert_keyframe(self, f: FrameInput, res: tracking.TrackResult,
@@ -657,6 +732,13 @@ class MonoSlam:
             self._ba_window(), do_fuse=self.fuse_enabled,
             refresh_desc=self.desc_refresh,
         )
+        # stereo / RGB-D: features with metric depth and no landmark yet
+        # found depth landmarks, then the window is adjusted again
+        if f.depth is not None:
+            self.map, _ = local_mapping.create_depth_landmarks(
+                self.map, self.cam, slot, f.depth)
+            self.map, _, _ = local_mapping.local_ba(self.map, self.cam,
+                                                    self._ba_window())
         self.T_last = T_new
         self.stats["kf"] = self.n_kf
         # mapping steps that ran duplicate fusion / the descriptor refresh
@@ -670,6 +752,94 @@ class MonoSlam:
         frac, total = map_state.keyframe_redundancy(self.map)
         self._pending_redundancy = HostCopy(
             torch.cat([frac, total.to(torch.float32)]))
+        if self.loop_closer is None:
+            return
+        # place recognition + loop correction on every new keyframe (the
+        # reference's LoopClosing::Run), on a drained, culled map
+        self._drain_mapping()
+        self.loop_closer.add_keyframe(self.map, slot)
+        if len(self._kf_order) >= self.loop_min_gap:
+            self.map, info = self.loop_closer.detect_and_correct(
+                self.map, slot, order=self._kf_order)
+            if info.detected:
+                self.loops_closed += 1
+                self.T_last = self.map.kf_T[slot]
+                self.velocity = self._eye4()
+                self.stats["loops"] = self.loops_closed
+        if self._stored_dbs and self.n_kf >= 4:
+            self._try_map_merge(slot)
+
+    def _try_map_merge(self, q: int):
+        """Cross-map common-region detection + Sim3 weld (LoopClosing::
+        MergeLocal): query the stored maps' BoW indexes with the new KF; on
+        a hit, Sim3-RANSAC the two KFs' landmark pairs, verify by
+        projection, and merge the stored map into the active one."""
+        m = self.map
+        lc = self.loop_closer
+        bq = lc.frame_query(m.kf_desc_pm1[q], m.kf_feat_valid[q])
+        no_kf = torch.zeros(m.K, dtype=torch.bool, device=self.device)
+        for idx in list(self._stored_dbs):
+            scores, cand_idx = lc.query_db(bq, no_kf, top_k=1, db=self._stored_dbs[idx])
+            score, cand = (float(x) for x in
+                           torch.cat([scores, cand_idx.to(scores.dtype)]).cpu())
+            if not np.isfinite(score) or score <= 0:
+                continue
+            cand = int(cand)
+            sto = self.atlas.maps[idx]
+            vq = m.kf_feat_valid[q] & (m.kf_feat_lm[q] >= 0)
+            vc = sto.kf_feat_valid[cand] & (sto.kf_feat_lm[cand] >= 0)
+            j, _ = matching.match_nnratio(m.kf_desc_pm1[q], vq,
+                                          sto.kf_desc_pm1[cand], vc, nn_ratio=0.75)
+            valid = vq & (j >= 0)
+            if int(valid.sum()) < 15:
+                continue
+            lm_q = torch.clamp(m.kf_feat_lm[q], min=0).long()
+            lm_c = torch.clamp(sto.kf_feat_lm[cand][torch.clamp(j, min=0).long()],
+                               min=0).long()
+            p1 = lie.se3_apply(m.kf_T[q], m.lm_pos[lm_q])
+            p2 = lie.se3_apply(sto.kf_T[cand], sto.lm_pos[lm_c])
+            res = sim3_solver.sim3_ransac(
+                p1, p2, valid, self.generator,
+                px_threshold=torch.full((p1.shape[0],), 9.21, device=self.device),
+                cam_params1=self.cam, cam_params2=self.cam,
+            )
+            if int(res.n_inliers) < 20:
+                continue
+            # projection verification through the measured Sim3 (the same
+            # second gate as in-map loops)
+            n_proj = int(loop_closing._projection_verify(
+                self.cam, sto.kf_T[cand], m.kf_T[q],
+                sto.kf_feat_lm[cand], sto.kf_feat_valid[cand], sto.kf_desc_pm1[cand],
+                sto.lm_pos, sto.lm_desc_pm1,
+                m.kf_xy[q], m.kf_desc_pm1[q], m.kf_feat_valid[q],
+                res.R, res.t, res.s, float(self.img_w), float(self.img_h),
+            ))
+            if n_proj < lc.proj_verify_min:
+                continue
+            # res maps query cam -> candidate cam; stored world -> active
+            # world is Twq o S^-1 o T_cand
+            Rq, tq = m.kf_T[q][:3, :3], m.kf_T[q][:3, 3]
+            one = torch.ones((), dtype=torch.float32, device=self.device)
+            Tc = sto.kf_T[cand]
+            S_total = lie.sim3_mul(Rq.T, -Rq.T @ tq, one, *lie.sim3_mul(
+                *lie.sim3_inv(res.R, res.t, res.s), Tc[:3, :3], Tc[:3, 3], one))
+            self.map = self.atlas.merge(idx, *S_total)
+            # merged KFs landed in arbitrary free slots: rebuild the
+            # temporal order from timestamps
+            kv = self.map.kf_valid.cpu().numpy()
+            ts_all = self.map.kf_ts.cpu().numpy()
+            slots = np.flatnonzero(kv)
+            self._kf_order = [int(s) for s in slots[np.argsort(ts_all[slots])]]
+            self._kf_seq_next += len(self._kf_order)
+            self.last_kf_slot = self._kf_order[-1] if self._kf_order else -1
+            self.stats["kf"] = self.n_kf
+            # atlas indices shifted after the deletion; re-key the stashes
+            del self._stored_dbs[idx]
+            self._stored_dbs = {(i - 1 if i > idx else i): d
+                                for i, d in self._stored_dbs.items()}
+            self.map_merges += 1
+            self.stats["map_merges"] = self.map_merges
+            return
 
     # ------------------------------------------------------------- output
     #

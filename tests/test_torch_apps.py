@@ -209,7 +209,6 @@ def test_run_sequence_monocular_320_matches_jax(data, both, tmp_path):
 
 
 @pytest.mark.parametrize("sensor,row", [
-    ("stereo", "row 10"), ("rgbd", "row 10"), ("imu_stereo", "row 10"),
     ("event_mono", "row 12"), ("event_imu_mono", "row 12")])
 def test_unported_sensor_configs_name_their_roadmap_row(sensor, row):
     st = tcfg.Settings(sensor=tcfg.sensor_from_string(sensor))
@@ -224,12 +223,7 @@ def test_unported_branches_raise():
     st = tcfg.Settings(features=tcfg.FeatureConfig(mode=2))
     with pytest.raises(NotImplementedError, match="row 13"):   # mixed features
         trun.build_system(st, device="cpu")
-    with pytest.raises(NotImplementedError, match="row 11"):
-        trun.build_system(tcfg.Settings(), loop_words=np.zeros((4, 256)), device="cpu")
-    for vocab in (tcfg.VocabConfig(path="ORBvoc.txt"), tcfg.VocabConfig(train_words=64)):
-        with pytest.raises(NotImplementedError, match="row 11"):
-            trun.make_vocab(tcfg.Settings(vocab=vocab))
-    assert trun.make_vocab(tcfg.Settings()) is None
+    assert trun.make_vocab(tcfg.Settings(), device="cpu") is None
     with pytest.raises(ValueError):
         trun.build_system(tcfg.Settings(sensor=tcfg.SensorConfig.IDLE), device="cpu")
 

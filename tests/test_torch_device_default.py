@@ -15,6 +15,8 @@ from eorb_slam_tpu_torch.io import config as tcfg, synth_dataset as tsd
 from eorb_slam_tpu_torch.slam import atlas as tatlas
 from eorb_slam_tpu_torch.slam import event_inertial as tei
 from eorb_slam_tpu_torch.slam import event_system as tes
+from eorb_slam_tpu_torch.slam import loop_closing as tlc
+from eorb_slam_tpu_torch.slam import rgbd_stereo as trs
 from eorb_slam_tpu_torch.slam import system as tsys
 from eorb_slam_tpu_torch.slam import vi_system as tvs
 
@@ -51,6 +53,12 @@ ENTRY_POINTS = {
     "EventInertialSlam": lambda **kw: tei.EventInertialSlam(
         CAM, tpre.make_calib(), max_kp=32, **SMALL, **kw),
     "Atlas": lambda **kw: tatlas.Atlas(N=32, **SMALL, **kw),
+    "StereoSlam": lambda **kw: trs.StereoSlam(CAM, baseline=0.11, N=32, **SMALL, **kw),
+    "RgbdSlam": lambda **kw: trs.RgbdSlam(CAM, N=32, **SMALL, **kw),
+    "StereoInertialSlam": lambda **kw: trs.StereoInertialSlam(
+        CAM, tpre.make_calib(), baseline=0.11, N=32, **SMALL, **kw),
+    "LoopCloser": lambda **kw: tlc.LoopCloser(
+        CAM, np.ones((8, 256), np.int8), Kmax=4, **kw),
 }
 
 

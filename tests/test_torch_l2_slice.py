@@ -222,5 +222,6 @@ def test_monoslam_recovery_matches_jax(jax_draws):
 
 def test_unported_modes_raise():
     assert tsys.MonoSlam(CAM, pipelined=True, device="cpu").pipelined
-    with pytest.raises(NotImplementedError):
-        tsys.MonoSlam(CAM, loop_words=np.zeros((4, 256), np.int8), device="cpu")
+    # loop closing is ported: a vocabulary builds the loop closer
+    slam = tsys.MonoSlam(CAM, loop_words=np.ones((4, 256), np.int8), device="cpu")
+    assert slam.loop_closer.device.type == "cpu" and not slam.loop_closer.hier

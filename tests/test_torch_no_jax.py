@@ -35,7 +35,9 @@ def test_port_imports_without_jax():
                  "evals.kitti_odom", "slam.covisibility", "geometry.camera",
                  "apps.run_slam", "imu.preintegration", "optim.inertial",
                  "optim.marginalize", "optim.vi_ba", "slam.vi_system",
-                 "slam.event_inertial"):
+                 "slam.event_inertial", "ops.stereo_match", "slam.rgbd_stereo",
+                 "geometry.sim3_solver", "optim.pose_graph", "retrieval.bow",
+                 "slam.loop_closing", "utils.logging"):
         assert f"eorb_slam_tpu_torch.{name}" in mods, name
     code = "\n".join([
         "import sys, importlib",

@@ -8,6 +8,10 @@ reference) or in the PyTorch port, run through each package's
     python tools/vi_init_check.py --out DIR --package port --device cuda --seed 1 ...
     # EVENT_IMU with the configs/synth_ev_imu.yaml settings on 0.5 s of shakes
     python tools/vi_init_check.py --out DIR --package jax --event-imu
+    # IMU_STEREO with the configs/synth_euroc_imu_stereo.yaml settings (the
+    # sequence gets cam1 at 0.11 m = bf / fx, and depth0)
+    python tools/vi_init_check.py --out DIR --package jax --stereo --kind corridor \
+        --frames 120
 
 Prints every inertial-init attempt (frame, GN iterations, scale, chi2 per
 residual dof against the 3.0 gate), the first initialized frame, the
@@ -49,14 +53,16 @@ def _generate(a) -> str:
                              fps=24.0, sim_hz=150.0, contrast=0.25, verbose=False,
                              device="cpu")
         return _settings("synth_ev_imu.yaml", a.out, os.path.join(a.out, "s.yaml"), seq)
-    seq = f"{a.kind}_01"
+    seq = f"{a.kind}_st_01" if a.stereo else f"{a.kind}_01"
     if not os.path.exists(os.path.join(a.out, seq)):
         W, H, fx, fps = 752, 480, 458.0, 20.0
         sd.write_euroc(a.out, seq, sd.make_scene(a.kind, W, H, fx, n_dots=10),
                        sd.make_trajectory(a.kind, a.loop), duration=a.frames / fps,
-                       fps=fps, verbose=False,
+                       fps=fps, verbose=False, stereo_baseline=0.11 if a.stereo else None,
+                       write_depth=a.stereo,
                        renderer=sd.make_box_renderer(a.kind, W, H, fx, device="cpu"))
-    return _settings("synth_euroc_vi.yaml", a.out, os.path.join(a.out, "s.yaml"), seq)
+    config = "synth_euroc_imu_stereo.yaml" if a.stereo else "synth_euroc_vi.yaml"
+    return _settings(config, a.out, os.path.join(a.out, "s.yaml"), seq)
 
 
 def main(argv=None):
@@ -65,6 +71,7 @@ def main(argv=None):
     p.add_argument("--out", required=True)
     p.add_argument("--package", choices=["jax", "port"], required=True)
     p.add_argument("--event-imu", action="store_true")
+    p.add_argument("--stereo", action="store_true", help="IMU_STEREO")
     p.add_argument("--kind", default="room", choices=["room", "corridor"])
     p.add_argument("--loop", type=float, default=10.0, help="room loop period, s")
     p.add_argument("--frames", type=int, default=84, help="frames generated")
@@ -77,12 +84,12 @@ def main(argv=None):
     if a.package == "jax":
         from eorb_slam_tpu.apps import run_slam
         from eorb_slam_tpu.optim import inertial
-        from eorb_slam_tpu.slam import vi_system
+        from eorb_slam_tpu.slam import rgbd_stereo, vi_system
         extra = []
     else:
         from eorb_slam_tpu_torch.apps import run_slam
         from eorb_slam_tpu_torch.optim import inertial
-        from eorb_slam_tpu_torch.slam import vi_system
+        from eorb_slam_tpu_torch.slam import rgbd_stereo, vi_system
         extra = ["--device", a.device]
         build = run_slam.build_system
 
@@ -94,10 +101,13 @@ def main(argv=None):
         run_slam.build_system = seeded
 
     # one entry per frame / MCI (process_image_imu calls
-    # process_features_imu until the IMU initializes: count the outer call)
+    # process_features_imu until the IMU initializes, process_stereo_imu
+    # either of them: count the outer call)
     frames, depth = [], [0]
-    for name in ("process_image_imu", "process_features_imu"):
-        fn = getattr(vi_system.MonoInertialSlam, name)
+    for cls, name in ((vi_system.MonoInertialSlam, "process_image_imu"),
+                      (vi_system.MonoInertialSlam, "process_features_imu"),
+                      (rgbd_stereo.StereoInertialSlam, "process_stereo_imu")):
+        fn = getattr(cls, name)
 
         def counted(self, *args, _fn=fn, **kw):
             if not depth[0]:
@@ -108,7 +118,7 @@ def main(argv=None):
             finally:
                 depth[0] -= 1
 
-        setattr(vi_system.MonoInertialSlam, name, counted)
+        setattr(cls, name, counted)
     solve = inertial.inertial_init
 
     def logged(Twb, pre, edge_valid, **kw):
