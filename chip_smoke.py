@@ -133,6 +133,10 @@ DEPTH_POS_TOL = 1e-3       # depth landmarks, m, at up to 60 m (f32)
 SIM3_TOL = 1e-4            # sim3_ransac R, t, s, max abs, cuda vs cpu
 POSE_GRAPH_TOL_F64 = 1e-9  # optimize_pose_graph, float64, max abs
 BOW_TOL = 1e-6             # L1 scores, cuda vs cpu (another summation order)
+# a welded loop's kf_T and lm_pos, cuda vs cpu, max abs: f32 pose graph (15
+# GN iterations) and a 10-iteration f32 BA after it (the CPU test holds JAX
+# and the port to 1e-4 on the same map)
+LOOP_CORRECT_TOL = 1e-4
 APP_TRACK_MIN = 0.8        # tracked share after init, the image modes
 # MONOCULAR with place recognition at configs/synth_euroc_room_large.yaml:
 # LOOP_TURNS turns of the room loop, so the path revisits its start
@@ -204,12 +208,17 @@ def _device_ms(fn, reps=100, trials=5) -> float:
 def _profile(fn):
     """Run ``fn`` under torch.profiler. Returns (fn's result, {device
     activity name: (count, total device microseconds)}): kernels, memsets
-    and copies as the card saw them (empty if ``fn`` launched nothing)."""
+    and copies as the card saw them (empty if ``fn`` launched nothing).
+    CUDA activity alone records the device events that a trace with the
+    CPU's ops beside them records (7,706-7,707 of 7,707 launches in
+    tools/profile_cost.py on an H100 host) in about half the
+    post-processing time (2 s against 4-5 s); with the CPU's on, one such
+    run lost 167 of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     per = {}
@@ -1864,13 +1873,136 @@ def _dot_scene(seed, n):
     return render
 
 
+def _circle_map():
+    """tests/test_loop_closing.py's closed circle of 10 keyframes on the
+    CPU (752x480, fx 458): nine on a circle of radius 4 looking inward with
+    a drift of (0.02, 0, 0.01 m; 0.004, 0, -0.004 rad) per step, and a tenth
+    that revisits the first's view through drifted duplicate landmarks.
+    Returns (map, cam, descriptors)."""
+    from eorb_slam_tpu_torch.geometry import camera, lie
+    from eorb_slam_tpu_torch.slam import map_state
+
+    rng = np.random.default_rng(7)
+    K, N, M = 10, 96, 300
+    cam = camera.make_pinhole(458.0, 457.0, 376.0, 240.0)
+    T_gt = []
+    for k in range(K - 1):
+        a = 2 * np.pi * k / (K - 1)
+        c = np.array([4.0 * np.cos(a), 4.0 * np.sin(a), 0.0])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0, 0, 1.0], z)
+        x /= np.linalg.norm(x)
+        Rwc = np.stack([x, np.cross(z, x), z], 1)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3], T[:3, 3] = Rwc.T, -Rwc.T @ c
+        T_gt.append(T)
+    T_gt = np.stack(T_gt + T_gt[:1])
+    pts = np.concatenate([rng.uniform(-1.5, 1.5, (M, 2)), rng.uniform(-1.5, 1.5, (M, 1))],
+                         1).astype(np.float32)
+    descs = (rng.integers(0, 2, (M, 256)) * 2 - 1).astype(np.int8)
+    T_est, err = T_gt.copy(), np.eye(4, dtype=np.float32)
+    step = lie.se3_exp(torch.tensor([0.02, 0.0, 0.01, 0.004, 0.0, -0.004])).numpy()
+    for k in range(1, K):
+        err = err @ step
+        T_est[k] = T_gt[k] @ err
+    m = map_state.empty_map(K=16, M=512, N=N, P=12, device="cpu")
+    lm_pos, lm_valid = m.lm_pos.clone(), m.lm_valid.clone()
+    lm_pos[:M], lm_valid[:M] = torch.from_numpy(pts), True
+    vis0 = (np.arange(N) - N // 2) % M
+    pc = pts[vis0] @ T_gt[K - 1][:3, :3].T + T_gt[K - 1][:3, 3]
+    Twc = np.linalg.inv(T_est[K - 1])
+    dup = M + np.arange(N)
+    lm_pos[dup] = torch.from_numpy((pc @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32))
+    lm_valid[dup] = True
+    first = m.lm_first_kf.clone()
+    first[dup] = K - 1
+    m = m._replace(lm_pos=lm_pos, lm_valid=lm_valid, lm_first_kf=first)
+    for k in range(K):
+        vis = (np.arange(N) + (k % (K - 1)) * M // (K - 1) - N // 2) % M
+        lm_ids = dup if k == K - 1 else vis
+        pc = pts[vis] @ T_gt[k][:3, :3].T + T_gt[k][:3, 3]
+        uv = camera.pinhole_project_linear(cam, torch.from_numpy(pc))
+        m = map_state.insert_keyframe(
+            m, k, torch.from_numpy(T_est[k]), float(k), uv, torch.zeros(N, dtype=torch.int32),
+            torch.zeros(N), torch.from_numpy(descs[vis]), torch.ones(N, dtype=torch.bool),
+            torch.from_numpy(lm_ids.astype(np.int32)))
+    return m, cam, descs
+
+
+def check_loop_closure_small():
+    """A loop closed on the card and on the CPU from one map (the circle of
+    tests/test_loop_closing.py and tests/test_torch_loop_closing.py):
+    LoopCloser.detect_and_correct four times with the reference's
+    consistency gate of 3, the Sim3 minimal sets from one numpy generator
+    on both devices. Gates: the chain rejects the first two queries, the
+    third welds (verify, projection check, pose graph, landmark correction,
+    fusion across the weld, the 10-iteration BA), the fourth is in the
+    cooldown, on both devices; the welded map's integer tables equal and
+    kf_T / lm_pos within LOOP_CORRECT_TOL."""
+    from eorb_slam_tpu_torch.geometry import sim3_solver
+    from eorb_slam_tpu_torch.retrieval import bow
+    from eorb_slam_tpu_torch.slam import loop_closing, map_state
+
+    t0 = time.perf_counter()
+    m_cpu, cam, descs = _circle_map()
+    words = bow.train_vocab(torch.from_numpy(descs), 32, iters=3)
+    draw = sim3_solver._draw_minimal_sets
+    out = {}
+    try:
+        for d in ("cuda", "cpu"):
+            rng = np.random.default_rng(3)
+
+            def fixed_sets(generator, probs, n_hyp, _rng=rng):
+                p = probs.double().cpu().numpy()
+                p = p / p.sum() if p.sum() > 0 else None
+                return torch.from_numpy(_rng.choice(len(probs), (n_hyp, 3), p=p))
+
+            sim3_solver._draw_minimal_sets = fixed_sets
+            m = map_state.MapState(*(x.to(d) for x in m_cpu))
+            lc = loop_closing.LoopCloser(cam, words, Kmax=16, min_inliers=15,
+                                         consistency_required=3, sparse_words_per_kf=96,
+                                         device=d)
+            lc.min_candidate_gap = 5
+            for k in range(9):
+                lc.add_keyframe(m, k)
+            calls = []
+            for call in range(4):
+                m2, info = lc.detect_and_correct(m, 9, run_gba=call < 3)
+                calls.append((info, m2 if info.detected else None))
+            out[d] = (calls, lc.last_fuse_count)
+    finally:
+        sim3_solver._draw_minimal_sets = draw
+    got = {d: [i.detected for i, _ in out[d][0]] for d in out}
+    info = {d: [(i.matched, i.n_inliers, round(i.scale, 5)) for i, _ in out[d][0]] for d in out}
+    welded = {d: next((m for _, m in out[d][0] if m is not None), None) for d in out}
+    if got["cuda"] != [False, False, True, False] or got["cpu"] != got["cuda"] \
+            or welded["cuda"] is None:
+        raise RuntimeError(f"loop closure: detected {got}, (candidate, inliers, scale) {info}")
+    for k in ("kf_feat_lm", "obs_valid", "lm_valid"):
+        _ids_equal(getattr(welded["cuda"], k), getattr(welded["cpu"], k), f"welded {k}")
+    errs = {k: float((getattr(welded["cuda"], k).cpu() - getattr(welded["cpu"], k)).abs().max())
+            for k in ("kf_T", "lm_pos")}
+    moved = float((welded["cpu"].kf_T - m_cpu.kf_T).abs().max())
+    _log(f"loop closure cuda vs cpu (circle of 10 keyframes, 752x480): detected "
+         f"{got['cuda']} on both; (candidate, Sim3 inliers, scale) cuda {info['cuda']}, cpu "
+         f"{info['cpu']}; fused across the weld cuda {out['cuda'][1]} cpu {out['cpu'][1]}; "
+         f"the weld moved kf_T by {moved:.4f}; welded kf_T max abs {errs['kf_T']:.2e}, lm_pos "
+         f"{errs['lm_pos']:.2e} (tol {LOOP_CORRECT_TOL}); integer tables equal; "
+         f"{time.perf_counter() - t0:.2f} s")
+    if max(errs.values()) > LOOP_CORRECT_TOL or info["cuda"] != info["cpu"] \
+            or out["cuda"][1] != out["cpu"][1] or moved < 1e-3:
+        raise RuntimeError(f"loop closure: cuda vs cpu {errs}, {info}, fused "
+                           f"{out['cuda'][1]} / {out['cpu'][1]}, moved {moved}")
+
+
 def check_loop_small():
     """Place recognition and loop closing on the card against the CPU:
     sim3_ransac with fixed minimal sets, optimize_pose_graph in float64 (the
     sim3 and 4-DoF charts), BoW quantization, scores and top-k (flat and
-    2-level); then tests/test_loop_closing.py's merge-after-loss scene
-    through MonoSlam(loop_words=...) on the card: the stored map is found
-    by its BoW index and welded in (map_merges >= 1)."""
+    2-level), a loop closed on one map (check_loop_closure_small); then
+    tests/test_loop_closing.py's merge-after-loss scene through
+    MonoSlam(loop_words=...) on the card: the stored map is found by its
+    BoW index and welded in (map_merges >= 1)."""
     from eorb_slam_tpu_torch.geometry import lie, sim3_solver
     from eorb_slam_tpu_torch.ops import frontend
     from eorb_slam_tpu_torch.optim import pose_graph
@@ -1974,6 +2106,7 @@ def check_loop_small():
     if bow_err > BOW_TOL or int(dc[1][0]) != 0:
         raise RuntimeError(f"BoW scores differ by {bow_err}, or the revisit ranks {dc[1]}")
     t_mods = time.perf_counter() - t0
+    check_loop_closure_small()
     # the merge-after-loss scene on the card
     render = _dot_scene(8, 300)
     cam = np.asarray([200.0, 200.0, 120.0, 90.0, 0, 0, 0, 0, 0], np.float32)
@@ -2193,18 +2326,45 @@ def run_app_imu_stereo(work: str, root: str):
     the IMU must initialize; after it, frames run the left-only inertial step
     and the right image is extracted at keyframes only."""
     from eorb_slam_tpu_torch.apps import run_slam
-    from eorb_slam_tpu_torch.slam import rgbd_stereo
+    from eorb_slam_tpu_torch.slam import local_mapping, rgbd_stereo
 
     def step(s, q, i):
         img_l, img_r, t = _frame_args(s, q, i, right=True)
         s.process_stereo_imu(img_l, img_r, t, run_slam._imu_chunk(q, float(q.image_ts[i - 1]), t))
 
-    slam, r = _run_app_image(
-        work, "synth_euroc_imu_stereo.yaml", root, "corridor_st_01",
-        rgbd_stereo.StereoInertialSlam, "process_stereo_imu", IMU_STEREO_FRAMES,
-        DEPTH_EXTRA, step, "IMU_STEREO")
+    # keyframes whose right image was extracted and matched in the keyframe
+    # step (the deferral), and the landmarks their stereo depth founded
+    deferred, insert = [], rgbd_stereo.StereoInertialSlam._insert_keyframe
+    create = local_mapping.create_depth_landmarks
+
+    def counted(self, f, *a, **kw):
+        if f.depth is None and self._pending_right is not None:
+            deferred.append(None)
+        return insert(self, f, *a, **kw)
+
+    def founding(*a, **kw):
+        m, n_new = create(*a, **kw)
+        if deferred and deferred[-1] is None:
+            deferred[-1] = n_new          # read after the run
+        return m, n_new
+
+    rgbd_stereo.StereoInertialSlam._insert_keyframe = counted
+    local_mapping.create_depth_landmarks = founding
+    try:
+        slam, r = _run_app_image(
+            work, "synth_euroc_imu_stereo.yaml", root, "corridor_st_01",
+            rgbd_stereo.StereoInertialSlam, "process_stereo_imu", IMU_STEREO_FRAMES,
+            DEPTH_EXTRA, step, "IMU_STEREO")
+    finally:
+        rgbd_stereo.StereoInertialSlam._insert_keyframe = insert
+        local_mapping.create_depth_landmarks = create
+    deferred = [-1 if n is None else int(n) for n in deferred]
+    _log(f"run_slam IMU_STEREO: {len(deferred)} keyframes with the right image extracted and "
+         f"matched in the keyframe step (the deferral), founding {deferred} depth landmarks")
     if not slam.imu_initialized:
         raise RuntimeError("IMU_STEREO: the IMU did not initialize")
+    if not deferred or min(deferred) <= 0:
+        raise RuntimeError(f"IMU_STEREO: deferred stereo keyframes {deferred}")
     _check_metric(slam, r, "IMU_STEREO")
     return r
 
@@ -2265,6 +2425,8 @@ def run_app_loop(work: str):
         raise RuntimeError("not the synth_euroc_room_large vocabulary and capacities")
     if not passes or int(lc.db.valid.sum()) == 0:
         raise RuntimeError("place recognition never ran")
+    if not cands or not r["loop_lines"]:
+        raise RuntimeError(f"no detection pass of {len(passes)} yielded a loop candidate")
     return r
 
 

@@ -153,11 +153,9 @@ def vi_state_to_numpy(slam) -> dict:
 
 
 def depth_state_from_numpy(slam, state: dict) -> None:
-    """Load a depth system's settings: ``baseline`` (meters; StereoSlam,
-    StereoInertialSlam) and ``max_depth`` (RgbdSlam), where given."""
-    for k in ("baseline", "max_depth"):
-        if k in state:
-            setattr(slam, k, float(state[k]))
+    """Load a stereo system's ``baseline`` (meters; StereoSlam,
+    StereoInertialSlam)."""
+    slam.baseline = float(state["baseline"])
 
 
 def vocab_from_numpy(voc, device=None):
@@ -191,7 +189,6 @@ def database_from_numpy(db, device=None):
 
 def database_to_numpy(db) -> dict:
     return {k: v.cpu().numpy() for k, v in db._asdict().items()}
-
 
 
 def loop_closer_state_from_numpy(lc, state: dict) -> None:

@@ -13,7 +13,11 @@ metric init, tracking, depth landmarks, BA, IMU preintegration and the
 inertial init at a fixed scale, the TUM writer and the evaluator. IMU_STEREO
 is compared through the inertial init; the port alone runs on through the
 inertial frames to the next keyframe, where the right image is extracted
-and matched only then (the deferral).
+and matched only then (the deferral). The deferral itself is then held
+against JAX's on one state: the depth each side's keyframe step computes
+from the pending right image, and the landmarks that depth founds on JAX's
+map (the same matched set, depth within 1e-5 relative, tables equal,
+positions within 1e-5 from the same depth).
 
 Tolerances: the same state and keyframe decision after every frame, the
 same keyframe count and IMU-initialized flag, poses within 2e-3 m until the
@@ -27,16 +31,22 @@ along their rays, and once a keyframe pose is free (the third keyframe)
 the poses follow by 3e-3 to 3e-2 m.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from eorb_slam_tpu.apps import run_slam as jrun
-from eorb_slam_tpu.slam import rgbd_stereo as jrs
+from eorb_slam_tpu.geometry import camera as jcam
+from eorb_slam_tpu.ops import frontend as jfe
+from eorb_slam_tpu.slam import local_mapping as jlm, map_state as jms
+from eorb_slam_tpu.slam import rgbd_stereo as jrs, system as jsys, vi_system as jvi
+from eorb_slam_tpu_torch import convert
 from eorb_slam_tpu_torch.apps import run_slam as trun
 from eorb_slam_tpu_torch.io import config as tcfg
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
-from eorb_slam_tpu_torch.slam import rgbd_stereo as trs
+from eorb_slam_tpu_torch.slam import local_mapping as tlm
+from eorb_slam_tpu_torch.slam import rgbd_stereo as trs, system as tsys, vi_system as tvi
 from tests.test_torch_apps import both  # noqa: F401 (fixture)
 from tests.test_torch_l2_slice import jax_draws  # noqa: F401 (fixture)
 
@@ -101,6 +111,7 @@ def _main_both(monkeypatch, both, settings, tmp_path, cls_name, method, max_fram
         def keep(st, seq, _fn=seq_fn, _side=side, **kw):
             slam, out = _fn(st, seq, **kw)
             slams[_side] = slam
+            slams["seq"] = seq
             return slam, out
 
         monkeypatch.setattr(run, "run_sequence", keep)
@@ -119,7 +130,7 @@ def _main_both(monkeypatch, both, settings, tmp_path, cls_name, method, max_fram
     if port_only:
         assert all(r["state"] == 1 for r, *_ in both["t"][max_frames:])
         assert et["ate_scale"] == 1.0 and np.isfinite(et["ate_rmse"])
-        return slams["j"], slams["t"], ot
+        return slams["j"], slams["t"], ot, slams["seq"]
     assert ot["stats"]["kf"] == oj["stats"]["kf"] and ot["tracked_poses"] == oj["tracked_poses"]
     assert et["ate_scale"] == ej["ate_scale"] == 1.0            # metric
     assert et["ate_n"] == ej["ate_n"]
@@ -158,15 +169,73 @@ def test_main_imu_stereo_matches_jax(data, both, tmp_path, monkeypatch):
 
         monkeypatch.setattr(mod.StereoInertialSlam, "_insert_keyframe", counted)
     n = int(SECONDS * FPS)
-    jslam, tslam, out = _main_both(monkeypatch, both, data["imu_stereo"], tmp_path,
-                                   "StereoInertialSlam", "process_stereo_imu", n - 4,
-                                   port_only=4)
+    jslam, tslam, out, seq = _main_both(monkeypatch, both, data["imu_stereo"], tmp_path,
+                                        "StereoInertialSlam", "process_stereo_imu", n - 4,
+                                        port_only=4)
     assert tslam.imu_initialized and jslam.imu_initialized
     assert calls["j"] == 0 and calls["t"] >= 1      # deferred stereo depth ran
     assert 0.8 < tslam.scale_applied < 1.25
     # the same inertial init attempts (their scale estimates)
     assert len(tslam._init_scale_hist) == len(jslam._init_scale_hist) >= 1
     assert tslam._init_scale_hist == pytest.approx(jslam._init_scale_hist, rel=1e-3)
+    _deferred_keyframe_matches_jax(monkeypatch, jslam, tslam, seq, n - 4)
+
+
+def _deferred_keyframe_matches_jax(monkeypatch, jslam, tslam, seq, i):
+    """IMU_STEREO's deferral against JAX on one state: frame ``i``'s LEFT
+    features (JAX's extraction, given to both) reach each side's
+    ``StereoInertialSlam._insert_keyframe`` with no depth and frame i's
+    right image pending, as ``process_stereo_imu`` leaves them once the IMU
+    is initialized. Each side extracts the right image and matches it there;
+    the depth it hands on must agree (the same matched set, 1e-5 relative),
+    and the landmarks that depth founds on JAX's map after the compared run
+    must agree: tables equal, positions within 1e-5 from JAX's depth (as
+    test_create_depth_landmarks_matches_jax holds them) and within 1e-5
+    relative from the port's own. The rest of the
+    keyframe step (mapping, BA, VI-BA) is held by the runs above and left
+    out here: it would compile JAX's inertial keyframe path for one frame."""
+    img_l = (seq.image(i) * 255.0).astype(np.float32)
+    img_r = (seq.image_right(i) * 255.0).astype(np.float32)
+    ts = float(seq.image_ts[i])
+    fe = jfe.extract(jnp.asarray(img_l), max_kp=jslam.map.N)
+    fj = jsys.FrameInput(ts, jcam.undistort_points(jslam.cam, fe.xy), fe.octave,
+                         fe.angle, fe.desc_pm1, fe.valid)
+    ft = tsys.FrameInput(ts, *(torch.from_numpy(np.array(x)) for x in (
+        fj.xy_ud, fj.octave, fj.angle, fj.desc_pm1, fj.valid)))
+    got = {}
+    for side, slam, cls, f, r in (
+            ("j", jslam, jvi.MonoInertialSlam, fj, jnp.asarray(img_r)),
+            ("t", tslam, tvi.MonoInertialSlam, ft, torch.from_numpy(img_r))):
+        monkeypatch.setattr(cls, "_insert_keyframe",
+                            lambda self, f, res, n_inl=None, _s=side: got.__setitem__(_s, f))
+        slam._pending_right = (r, None)
+        slam._insert_keyframe(f, None)
+        slam._pending_right = None
+    dj, dt = np.asarray(got["j"].depth), got["t"].depth.numpy()
+    ok = np.isfinite(dj) & (dj > 0)
+    np.testing.assert_array_equal(np.isfinite(dt) & (dt > 0), ok)
+    assert ok.sum() >= 30
+    np.testing.assert_allclose(dt[ok], dj[ok], rtol=1e-5)
+    # the landmarks that depth founds, on one map (JAX's) at a free slot
+    jm = jslam.map
+    slot = int(np.flatnonzero(~np.asarray(jm.kf_valid))[0])
+    N = fj.xy_ud.shape[0]
+    jm = jms.insert_keyframe(jm, jnp.asarray(slot), jslam.T_last, ts, fj.xy_ud, fj.octave,
+                             fj.angle, fj.desc_pm1, fj.valid, jnp.full((N,), -1, jnp.int32))
+    tm = convert.map_state_from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()})
+    jm2, nj = jlm.create_depth_landmarks(jm, jslam.cam, jnp.asarray(slot), jnp.asarray(dj))
+    b = {k: np.asarray(v) for k, v in jm2._asdict().items()}
+    # from JAX's depth: positions within 1e-5; from the port's own depth:
+    # within the depth's 1e-5 relative (a founding point moves along its ray)
+    for d, tol in ((dj, dict(atol=1e-5)), (dt, dict(rtol=1e-5, atol=1e-6))):
+        tm2, nt = tlm.create_depth_landmarks(tm, tslam.cam, slot, torch.from_numpy(d))
+        assert int(nt) == int(nj) >= 30
+        a = convert.map_state_to_numpy(tm2)
+        for k in a:
+            if k == "lm_pos":
+                np.testing.assert_allclose(a[k], b[k], err_msg=k, **tol)
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_make_vocab_fails_loudly(tmp_path):

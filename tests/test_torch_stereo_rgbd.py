@@ -34,9 +34,6 @@ from tests.test_torch_l2_slice import jax_draws  # noqa: F401 (fixture)
 FX, BASELINE = 458.0, 0.11
 
 
-
-
-
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One intra-op thread while this file runs: the suite's workers share

@@ -12,12 +12,19 @@ reference) or in the PyTorch port, run through each package's
     # sequence gets cam1 at 0.11 m = bf / fx, and depth0)
     python tools/vi_init_check.py --out DIR --package jax --stereo --kind corridor \
         --frames 120
+    # MONOCULAR with place recognition, configs/synth_euroc_room_large.yaml,
+    # on two turns of the room loop (chip_smoke.run_app_loop's sequence)
+    python tools/vi_init_check.py --out DIR --package jax --loops --kind room \
+        --loop 10 --frames 402 --max-frames 400
 
 Prints every inertial-init attempt (frame, GN iterations, scale, chi2 per
 residual dof against the 3.0 gate), the first initialized frame, the
-tracked share and the ATE with the scale fixed at 1 and Sim3-aligned. The
-sequence is generated on the CPU once per DIR. ``--seed`` reseeds the
-port's RANSAC generator (the JAX package keeps its PRNGKey(0)).
+tracked share and the ATE with the scale fixed at 1 and Sim3-aligned. With
+``--loops``: the frames not tracked, where a new map starts and where the
+maps merge, every detection pass that found a candidate and the loop
+closer's gate decisions (the ``eorb.loop`` log lines). The sequence is
+generated on the CPU once per DIR. ``--seed`` reseeds the port's RANSAC
+generator (the JAX package keeps its PRNGKey(0)).
 """
 
 from __future__ import annotations
@@ -61,7 +68,8 @@ def _generate(a) -> str:
                        fps=fps, verbose=False, stereo_baseline=0.11 if a.stereo else None,
                        write_depth=a.stereo,
                        renderer=sd.make_box_renderer(a.kind, W, H, fx, device="cpu"))
-    config = "synth_euroc_imu_stereo.yaml" if a.stereo else "synth_euroc_vi.yaml"
+    config = ("synth_euroc_imu_stereo.yaml" if a.stereo else
+              "synth_euroc_room_large.yaml" if a.loops else "synth_euroc_vi.yaml")
     return _settings(config, a.out, os.path.join(a.out, "s.yaml"), seq)
 
 
@@ -72,6 +80,8 @@ def main(argv=None):
     p.add_argument("--package", choices=["jax", "port"], required=True)
     p.add_argument("--event-imu", action="store_true")
     p.add_argument("--stereo", action="store_true", help="IMU_STEREO")
+    p.add_argument("--loops", action="store_true",
+                   help="MONOCULAR with place recognition (room_large)")
     p.add_argument("--kind", default="room", choices=["room", "corridor"])
     p.add_argument("--loop", type=float, default=10.0, help="room loop period, s")
     p.add_argument("--frames", type=int, default=84, help="frames generated")
@@ -84,12 +94,12 @@ def main(argv=None):
     if a.package == "jax":
         from eorb_slam_tpu.apps import run_slam
         from eorb_slam_tpu.optim import inertial
-        from eorb_slam_tpu.slam import rgbd_stereo, vi_system
+        from eorb_slam_tpu.slam import loop_closing, rgbd_stereo, system, vi_system
         extra = []
     else:
         from eorb_slam_tpu_torch.apps import run_slam
         from eorb_slam_tpu_torch.optim import inertial
-        from eorb_slam_tpu_torch.slam import rgbd_stereo, vi_system
+        from eorb_slam_tpu_torch.slam import loop_closing, rgbd_stereo, system, vi_system
         extra = ["--device", a.device]
         build = run_slam.build_system
 
@@ -131,10 +141,23 @@ def main(argv=None):
         return res
 
     inertial.inertial_init = logged
+    if a.loops:
+        mono = _watch_loops(system.MonoSlam, loop_closing.LoopCloser)
     args = [settings, "--eval", "--out", os.path.join(a.out, a.package)] + extra
     if a.max_frames:
         args += ["--max-frames", str(a.max_frames)]
     (out,) = run_slam.main(args)
+    if a.loops:
+        rec, passes = mono
+        lost = [i for i, (s, *_) in enumerate(rec) if s != system.OK]
+        new_map = [i for i, (_, nm, _) in enumerate(rec) if nm]
+        merged = [i for i in range(1, len(rec)) if rec[i][2] > rec[i - 1][2]]
+        cands = [(i, q, c, n) for i, q, c, n in passes if c >= 0]
+        print(f"RESULT {a.package} loops: {len(rec)} frames, not tracked {lost}; new map at "
+              f"{new_map}, merged at {merged}; {len(passes)} detection passes, with a "
+              f"candidate (frame, query, candidate, Sim3 inliers): {cands}; stats "
+              f"{out['stats']}")
+        return
     st, ev = out["stats"], out.get("eval", {})
     init = frames.index(True) - 1 if True in frames else None
     mci = "mci" in st
@@ -144,6 +167,34 @@ def main(argv=None):
           f"{'MCIs' if mci else 'frames'} tracked ({st.get('l2_lost', st.get('lost'))} lost); "
           f"ATE with the scale fixed at 1 {ev.get('ate_rmse')} m over "
           f"{ev.get('ape_piecewise', {}).get('traj_len')} m of path")
+
+
+def _watch_loops(mono_cls, closer_cls):
+    """Record each MonoSlam frame (state, new map, merges so far) and each
+    detection pass (frame, query, candidate, inliers); echo the eorb.loop
+    gate decisions with the frame they came on."""
+    import logging
+
+    rec, passes = [], []
+    process, detect = mono_cls.process_image, closer_cls.detect_and_correct
+
+    def recording(self, *args, **kw):
+        res = process(self, *args, **kw)
+        rec.append((res["state"], bool(res.get("new_map")), self.map_merges))
+        return res
+
+    def counted(self, m, q, **kw):
+        m, info = detect(self, m, q, **kw)
+        passes.append((len(rec), info.query, info.matched, info.n_inliers))
+        return m, info
+
+    class Echo(logging.Handler):
+        def emit(self, r):
+            print(f"eorb.loop at frame {len(rec)}: {r.getMessage()}", flush=True)
+
+    mono_cls.process_image, closer_cls.detect_and_correct = recording, counted
+    logging.getLogger("eorb.loop").addHandler(Echo())
+    return rec, passes
 
 
 if __name__ == "__main__":
