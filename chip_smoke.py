@@ -27,7 +27,16 @@ MonoSlam(loop_words=...) on the card, STEREO, RGBD and IMU_STEREO through
 run_slam.main with their configs/synth_euroc_*.yaml settings on one
 generated corridor with a right camera and depth, and MONOCULAR with a
 trained vocabulary at configs/synth_euroc_room_large.yaml on a generated
-room loop of two turns, with the loop closer's gate decisions.
+room loop of two turns, with the loop closer's gate decisions. Then event +
+image and the continuous tracker: the forward kernel at _chunk_image's
+shape (12,000 slots); EVENT_MONO's fixed-shape steps (the joint pose step
+and write-back, the loop propagation, the known-pose init triangulation,
+the joint local BA in float64), build_mci on one 65,536-event window and
+the per-chunk step() on the card against the CPU; EventSlamContinuous on
+the card against the CPU; and EVENT_MONO, EVENT_IMU_MONO and EVENT_ONLY
+with Event.contTracking: 1 through run_slam.main with the
+configs/synth_ev_*.yaml settings on the generated EV-ETHZ sequence, the
+splat launches of each gated exactly.
 
     python3 chip_smoke.py
 
@@ -150,6 +159,32 @@ VI_TOL_SCALE = 1e-4        # inertial_init, relative
 VI_TOL_GRAV = 1e-4         # inertial_init, gravity direction angle (rad)
 VI_TOL_POSE = 1e-4         # pose_inertial_optimization, Tcw max abs
 VI_TOL_BA, VI_TOL_BA_F64 = 1e-3, 1e-9   # vi_bundle_adjust cost, relative
+# the image-clock event modes and the continuous tracker, card against the
+# CPU: the numpy event world of tests/test_event_slam.py (its camera and
+# builder settings, 5 ascent iterations over a 16,384-slot window), the
+# EvImageSlam of tests/test_torch_ev_image.py and the continuous tracker of
+# tests/test_torch_event_continuous.py
+EVW_CAM = (150.0, 150.0, 120.0, 90.0)
+EVW_CFG = dict(img_w=W, img_h=H, l1_chunk_size=1500, l1_num_loop=3, min_chunk=400,
+               max_chunk=4000, min_ev_gen_rate=0.01, cm_iters=5, max_window_events=16384,
+               overlap=0.2)
+EVI_KW = dict(img_w=W, img_h=H, max_kp=256, ev_max_kp=256, synch_window_s=0.2, K=12,
+              M=1024, min_init_matches=30, min_track_inliers=8)
+EVI_FRAMES, EVI_FPS, EVI_RATE = 18, 12.0, 100_000
+CONT_KW = dict(n_tracks=256, min_init_matches=25, min_track_inliers=8, min_init_disp_px=3.0,
+               kf_disp_px=6.0, K=12, M=1024)
+CONT_EVENTS, CONT_PACKET = 64000, 8000
+EV_STEP_TOL = 1e-4         # joint pose step / write-back, Tcw max abs, f32 GN
+EV_PROP_TOL = 1e-5         # the loop propagation, max abs (no solve)
+CONT_POSE_TOL = 2e-3       # continuous tracker, Tcw max abs per window
+# forward and VJP splat launches of one build_mci: 4 candidates, the
+# ascent's 1 + 2 per step, and one VJP per step
+MCI_FWD, MCI_VJP = 4 + 1 + 2 * CM_ITERS, CM_ITERS
+# EVENT_MONO / EVENT_IMU_MONO: the image tracker's generator seeds the app
+# runs with (the first is the app's own), and in how many of them the event
+# map must be born with a joint frame after it
+EV_SEEDS, EV_SEEDS_MIN = (0, 1, 2), 2
+CHUNK_N = 12000            # BuilderConfig.max_chunk: _chunk_image's padded width
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2430,6 +2465,575 @@ def run_app_loop(work: str):
     return r
 
 
+# ------------------------------- event + image, and the continuous tracker
+
+
+def check_kernel_chunk():
+    """The forward kernel as ``_chunk_image`` calls it: identity form, one
+    chunk of 6,000 in-image events padded to CHUNK_N slots with weight-0
+    rows (the valid mask as the weight), sigma 1."""
+    from eorb_slam_tpu_torch.event import builder as eb
+    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    ev = synth_stream(0.002, RATE, seed=21)[:6000]
+    pad, valid, _ = eb._pad_events(ev, CHUNK_N)
+    xy = torch.tensor(pad[:, 1:3], device="cuda").contiguous()
+    w = torch.tensor(valid, device="cuda").to(torch.float32)
+    cfg = (H, W, SIGMA, TRUNC)
+    ref = _splat_gauss_separable(xy, w, *cfg)
+    got = hs.splat(xy, w, *cfg)
+    torch.cuda.synchronize()
+    err = _held(got, ref, FWD_TOL, f"_chunk_image shape N={CHUNK_N}")
+    act = int(valid.sum())
+    row = dict(n=CHUNK_N, err=err, ref=float(ref.abs().max()), active=act,
+               ms=_time_ms(lambda: hs.splat(xy, w, *cfg)),
+               dev_ms=_device_ms(lambda: hs.splat(xy, w, *cfg)),
+               plain_ms=_time_ms(lambda: _splat_gauss_separable(xy, w, *cfg)),
+               bound=_bound(CHUNK_N, act, False, False))
+    _log(f"splat at _chunk_image's shape: N={CHUNK_N} ({act} valid), identity form: max abs "
+         f"{err:.3e} (max|ref| {row['ref']:.3f}, tol {FWD_TOL}x) | ms by events / device "
+         f"only / plain / bound (12N + 4HW bytes): {row['ms']:.4f} / {row['dev_ms']:.5f} / "
+         f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
+    return row
+
+
+class _EvWorld:
+    """The EventWorld of tests/test_event_slam.py in numpy: a cloud of 3D
+    points, a camera moving and yawing, events sampled from the points'
+    projections with pixel noise and random polarity."""
+
+    def __init__(self, n_points=260, seed=5):
+        rng = np.random.default_rng(seed)
+        self.pts = np.concatenate([rng.uniform(-2.2, 2.2, (n_points, 1)),
+                                   rng.uniform(-1.6, 1.6, (n_points, 1)),
+                                   rng.uniform(2.5, 6.0, (n_points, 1))], 1).astype(np.float32)
+        self.rng = rng
+
+    def pose(self, t):
+        pos = np.asarray([0.5 * t, 0.12 * np.sin(1.5 * t), 0.1 * t])
+        c, s = np.cos(0.08 * np.sin(0.8 * t)), np.sin(0.08 * np.sin(0.8 * t))
+        R = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)   # yaw about y
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R.T
+        T[:3, 3] = -R.T @ pos
+        return T
+
+    def _project(self, T, p):
+        fx, fy, cx, cy = EVW_CAM
+        pc = p @ T[:3, :3].T + T[:3, 3]
+        return pc, np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], 1)
+
+    def events(self, t0, t1, n, noise_px=0.25):
+        ts = np.sort(self.rng.uniform(t0, t1, n))
+        idx = self.rng.integers(0, len(self.pts), n)
+        n_bins = max(int((t1 - t0) * 1000), 1)
+        bins = np.clip(((ts - t0) / (t1 - t0) * n_bins).astype(int), 0, n_bins - 1)
+        ev = np.zeros((n, 4))
+        ev[:, 0] = ts
+        for b in np.unique(bins):
+            sl = bins == b
+            _, uv = self._project(self.pose(t0 + (b + 0.5) * (t1 - t0) / n_bins),
+                                  self.pts[idx[sl]])
+            ev[sl, 1:3] = uv
+        ev[:, 1:3] += self.rng.normal(0, noise_px, (n, 2))
+        ev[:, 3] = self.rng.choice([-1.0, 1.0], n)
+        inb = (ev[:, 1] >= 0) & (ev[:, 1] < W) & (ev[:, 2] >= 0) & (ev[:, 2] < H)
+        return ev[inb]
+
+    def frame(self, t, device):
+        """The APS frame in [0,255] on ``device``: blobs at the projections."""
+        from eorb_slam_tpu_torch.event import tensorize
+
+        pc, uv = self._project(self.pose(t), self.pts)
+        ok = (pc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) \
+            & (uv[:, 1] < H)
+        img = tensorize.splat_gauss(torch.tensor(uv, dtype=torch.float32, device=device),
+                                    torch.tensor(ok, device=device),
+                                    torch.ones(len(uv), device=device), H, W, sigma=1.2)
+        return tensorize.normalize_to_image(img) * 255.0
+
+
+def _maps_to(state, device, dtype=None):
+    """A map from numpy onto ``device``; float fields in ``dtype`` if given."""
+    from eorb_slam_tpu_torch import convert
+
+    m = convert.map_state_from_numpy(state, device)
+    if dtype is None:
+        return m
+    return m._replace(**{k: v.to(dtype) for k, v in m._asdict().items()
+                         if v.dtype == torch.float32})
+
+
+def _max_abs(a, b):
+    return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+
+
+def check_ev_image_small():
+    """EVENT_MONO's fixed-shape steps on the card against the CPU, from one
+    state: EvImageSlam runs on the card over the event world's frames until
+    its event map is born by the joint init; its maps and last frames go to
+    numpy, and each step runs on both devices from there. Then build_mci on
+    one 65,536-event window, and the per-chunk step() over a few chunks."""
+    from eorb_slam_tpu_torch import convert
+    from eorb_slam_tpu_torch.event import builder as eb
+    from eorb_slam_tpu_torch.slam import ev_image_system as evi
+
+    t_phase = time.perf_counter()
+    world = _EvWorld(seed=5)
+    cam_np = np.asarray([*EVW_CAM, 0, 0, 0, 0, 0], np.float32)
+    tri_calls = []
+    tri = evi._init_triangulate_known_poses
+
+    def rec_tri(*a):
+        r = tri(*a)
+        tri_calls.append(([x.cpu().numpy() for x in a], int(r[-1])))
+        return r
+
+    evi._init_triangulate_known_poses = rec_tri
+    try:
+        slam = evi.EvImageSlam(cam_np, eb.BuilderConfig(**EVW_CFG), device="cuda", **EVI_KW)
+        ev = world.events(0.0, EVI_FRAMES / EVI_FPS, int(EVI_RATE * EVI_FRAMES / EVI_FPS))
+        last = 0.0
+        for t in np.arange(EVI_FRAMES) / EVI_FPS:
+            slam.track_ev_mono(ev[(ev[:, 0] > last) & (ev[:, 0] <= t)],
+                               world.frame(float(t), "cuda"), float(t))
+            last = t
+    finally:
+        evi._init_triangulate_known_poses = tri
+    torch.cuda.synchronize()
+    st = slam.stats
+    _log(f"EvImageSlam on the card, {EVI_FRAMES} frames of the event world: image KFs "
+         f"{st['im']['kf']}, event KFs {st['ev']['kf']}, joint inits {st['joint_inits']}, "
+         f"joint frames {st['joint_frames']}, joint BAs {st['joint_bas']}")
+    if slam.joint_inits < 1 or slam.ev.n_kf < 2 or slam.im.last_track is None \
+            or slam.ev.last_track is None:
+        raise RuntimeError(f"no joint state to compare from: {st}")
+
+    im_np = convert.map_state_to_numpy(slam.im.map)
+    ev_np = convert.map_state_to_numpy(slam.ev.map)
+    tr_i, f_i, tr_e, f_e = (slam.im.last_track, slam.im.last_frame, slam.ev.last_track,
+                            slam.ev.last_frame)
+    frame_np = [x.cpu().numpy() for x in (tr_i.feat_lm, f_i.xy_ud, f_i.octave,
+                                           tr_e.feat_lm, f_e.xy_ud, f_e.octave)]
+    Tcw0 = tr_i.Tcw.cpu().numpy()
+    T_last = (slam.im.T_last.cpu().numpy(), slam.ev.T_last.cpu().numpy())
+    ref_slot = slam.im._kf_ref()
+    free = (slam.im._ba_window().cpu().numpy(), slam.ev._ba_window().cpu().numpy())
+    c, s_ = np.cos(0.1), np.sin(0.1)
+    bridge = (np.asarray([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32),
+              np.asarray([0.05, -0.02, 0.1], np.float32), 1.3)
+    G = np.eye(4, dtype=np.float32)
+    G[:3, :3] = np.asarray([[np.cos(0.3), 0, np.sin(0.3)], [0, 1, 0],
+                            [-np.sin(0.3), 0, np.cos(0.3)]], np.float32)
+    G[:3, 3] = [0.5, -0.2, 0.1]
+    (tri_args, _) = max(tri_calls, key=lambda c: c[1])
+    res = {}
+    for d in ("cuda", "cpu"):
+        cam = torch.tensor(cam_np, device=d)
+        im, ev_m = _maps_to(im_np, d), _maps_to(ev_np, d)
+        fr = [torch.from_numpy(x).to(d) for x in frame_np]
+        Tj, flags = evi._joint_pose_step(cam, im.lm_pos, ev_m.lm_pos, *fr, *bridge,
+                                         torch.from_numpy(Tcw0).to(d))
+        wb = evi._joint_writeback(Tj, *(torch.from_numpy(x).to(d) for x in T_last), *bridge,
+                                  im.kf_T[ref_slot])
+        prop = evi._propagate_loop_to_event(ev_m, im.kf_ts, im.kf_valid, im.kf_T,
+                                            im.kf_T @ torch.from_numpy(G).to(d), *bridge)
+        tr = evi._init_triangulate_known_poses(*(torch.from_numpy(x).to(d) for x in tri_args))
+        im64, ev64 = _maps_to(im_np, d, torch.float64), _maps_to(ev_np, d, torch.float64)
+        ba = evi._joint_local_ba_step(im64, ev64, cam, np.eye(3), np.zeros(3), 1.0,
+                                      *(torch.from_numpy(x).to(d) for x in free))
+        res[d] = (Tj, flags, wb, prop, tr, ba)
+    (Tg, fg, wbg, pg, trg, bag), (Tc, fc, wbc, pc, trc, bac) = res["cuda"], res["cpu"]
+    e_pose = _max_abs(Tg, Tc)
+    e_wb = max(_max_abs(a, b) for a, b in zip(wbg, wbc))
+    e_prop = max(_max_abs(pg.kf_T, pc.kf_T), _max_abs(pg.lm_pos, pc.lm_pos))
+    okc = trc[3].cpu().numpy()
+    pts_c = trc[2].cpu().numpy()[okc]
+    e_tri = float((np.abs(trg[2].cpu().numpy()[okc] - pts_c).max(1)
+                   / np.maximum(np.linalg.norm(pts_c, axis=1), 1e-9)).max()) if okc.any() else 0.0
+    kv = [m.kf_valid.cpu().numpy() for m in (bac[0], bac[1])]
+    e_ba = max(_max_abs(bag[0].kf_T[kv[0]], bac[0].kf_T[kv[0]]),
+               _max_abs(bag[1].kf_T[kv[1]], bac[1].kf_T[kv[1]]))
+    e_cost = float(np.abs(bag[2].cpu().numpy() - bac[2].numpy()).max()
+                   / max(float(bac[2].abs().max()), 1e-30))
+    _log(f"EVENT_MONO steps cuda vs cpu: joint pose flags {fg.cpu().numpy().tolist()} / "
+         f"{fc.numpy().tolist()}, Tcw max abs {e_pose:.2e}; write-back {e_wb:.2e} (tol "
+         f"{EV_STEP_TOL}); loop propagation {e_prop:.2e} (tol {EV_PROP_TOL}); init "
+         f"triangulation {int(trg[4])} / {int(trc[4])} points, match and flags equal: "
+         f"{bool(torch.equal(trg[0].cpu(), trc[0]) and torch.equal(trg[3].cpu(), trc[3]))}, "
+         f"positions {e_tri:.2e} of their distance; joint local BA float64 cost "
+         f"{bac[2].numpy().tolist()}, rel {e_cost:.2e}, kf_T {e_ba:.2e}")
+    if not torch.equal(fg.cpu(), fc) or e_pose > EV_STEP_TOL or e_wb > EV_STEP_TOL:
+        raise RuntimeError(f"joint pose step: flags {fg} / {fc}, {e_pose}, {e_wb}")
+    if e_prop > EV_PROP_TOL:
+        raise RuntimeError(f"loop propagation {e_prop}")
+    if not (torch.equal(trg[0].cpu(), trc[0]) and torch.equal(trg[3].cpu(), trc[3])) \
+            or e_tri > 1e-3:
+        raise RuntimeError(f"init triangulation: {int(trg[4])} / {int(trc[4])}, {e_tri}")
+    if e_cost > L2_COST_TOL_F64 or e_ba > POSE_GRAPH_TOL_F64:
+        raise RuntimeError(f"joint local BA float64: cost {e_cost}, kf_T {e_ba}")
+
+    # build_mci on one 65,536-event window, with the pose prior in. The two
+    # devices' ascents end at parameters that differ by their float32
+    # summation orders, so their MCIs differ smoothly; what the kernels must
+    # match is their plain versions on the card's own inputs: each of the
+    # four candidate splats is recomputed on the CPU from what the card gave
+    # it, and the card's MCI against the plain version of its winner.
+    from eorb_slam_tpu_torch.event import tensorize
+
+    win = synth_stream(0.03, RATE, seed=23)
+    scores, mcis, kinds, se2, calls = {}, {}, {}, {}, []
+    make = eb._make_candidates
+    splats = (tensorize.splat_gauss, tensorize.splat_gauss_se2)
+
+    def rec_make(*a, **kw):
+        out = make(*a, **kw)
+        scores[a[0].device.type] = out[2].cpu().numpy()
+        return out
+
+    def recorder(fn):
+        def rec(*a, **kw):
+            out = fn(*a, **kw)
+            if not mcis:         # the card's build_mci, the first of the two
+                calls.append((fn, a, kw, out))
+            return out
+        return rec
+
+    eb._make_candidates = rec_make
+    tensorize.splat_gauss, tensorize.splat_gauss_se2 = (recorder(f) for f in splats)
+    try:
+        for d in ("cuda", "cpu"):
+            b = eb.EventWindowBuilder(eb.BuilderConfig(**SLICE_CFG), torch.tensor(
+                [*CAM, 0, 0, 0, 0, 0]), device=d)
+            cap = b.cfg.max_window_events
+            b.set_pose_prior(*(torch.from_numpy(im_np["kf_T"][k]).to(d) for k in (0, 1)),
+                             torch.tensor(2.0, device=d))
+            pi = b.build_mci(win)
+            mcis[d], kinds[d], se2[d] = pi.img, pi.best_kind, pi.se2_params.cpu().numpy()
+            if b.stats["ev_truncated"] != len(win) - cap:
+                raise RuntimeError(f"build_mci kept {b.stats} of {len(win)} events")
+    finally:
+        eb._make_candidates = make
+        tensorize.splat_gauss, tensorize.splat_gauss_se2 = splats
+    # the candidates in _make_candidates' order: hist, (the ascent), se2,
+    # dpose, klt2d
+    cand = [calls[0]] + calls[-3:]
+    raw_err, raw_cpu = [], []
+    for k, (fn, a, kw, out) in enumerate(cand):
+        ref = fn(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in a), **kw)
+        raw_cpu.append(ref)
+        raw_err.append(_held(out.cpu(), ref, FWD_TOL, f"build_mci candidate {eb.KINDS[k]}"))
+    best = eb.KINDS.index(kinds["cuda"])
+    mci_err = _held(mcis["cuda"].cpu(), tensorize.normalize_to_image(raw_cpu[best]),
+                    FWD_TOL, "build_mci MCI against the plain version of its winner")
+    fin = np.isfinite(scores["cpu"])
+    rel = np.abs(scores["cuda"][fin] - scores["cpu"][fin]) / np.abs(scores["cpu"][fin])
+    dev_diff = float((mcis["cuda"].cpu() - mcis["cpu"]).abs().max())
+    _log(f"build_mci cuda vs cpu, {len(win)} events into {cap} slots, {CM_ITERS} ascent "
+         f"steps: best {kinds['cuda']} / {kinds['cpu']}, scores {scores['cuda'].tolist()} max "
+         f"rel {rel.max():.2e}; the four candidate splats against their plain versions on "
+         f"the card's inputs, max abs {[f'{e:.2e}' for e in raw_err]}, the MCI {mci_err:.2e} "
+         f"(tol {FWD_TOL}x max); not gated: SE2 params {se2['cuda'].tolist()} / "
+         f"{se2['cpu'].tolist()}, the two devices' MCIs {dev_diff:.2e} apart")
+    if kinds["cuda"] != kinds["cpu"] or not np.array_equal(np.isfinite(scores["cuda"]), fin) \
+            or rel.max() > 1e-5:
+        raise RuntimeError(f"build_mci: {kinds}, scores {scores}")
+
+    # step() over a few chunks: chunk images and the adapted chunk sizes (5
+    # ascent steps: the window's build_mci is held above)
+    stream = synth_stream(0.012, RATE, seed=25)
+    out = {}
+    for d in ("cuda", "cpu"):
+        b = eb.EventWindowBuilder(eb.BuilderConfig(**dict(SLICE_CFG, l1_chunk_size=4000,
+                                                          cm_iters=5)),
+                                  torch.tensor([*CAM, 0, 0, 0, 0, 0]), device=d)
+        b.feed(stream)
+        seq = []
+        while (pi := b.step()) is not None:
+            seq.append((pi.reconst_stat, pi.best_kind, b.chunk_size, pi.img.cpu().numpy()))
+        out[d] = (seq, dict(b.stats))
+    (sg, stg), (sc, stc) = out["cuda"], out["cpu"]
+    e_chunk = [float(np.abs(a[3] - b[3]).max()) for a, b in zip(sg, sc) if a[0] == 0]
+    _log(f"step() cuda vs cpu: {len(sg)} / {len(sc)} images, stats {stg} / {stc}, chunk "
+         f"sizes {[x[2] for x in sg]} / {[x[2] for x in sc]}, kinds "
+         f"{[x[1] for x in sg]}, chunk images max abs {max(e_chunk):.2e}; phase "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    if [x[:3] for x in sg] != [x[:3] for x in sc] or stg != stc or not e_chunk \
+            or max(e_chunk) > FWD_TOL or not any(x[0] for x in sg):
+        raise RuntimeError(f"step(): {[x[:3] for x in sg]} / {[x[:3] for x in sc]}")
+
+
+def _fixed_twoview(seed):
+    """Two-view RANSAC inputs that do not depend on the device: minimal sets
+    from one numpy generator, and the minimal-set fits computed on the CPU
+    (float32 eigensolves differ across LAPACK builds; ROADMAP Queue 3).
+    Returns a function that installs them and gives back an undo."""
+    from eorb_slam_tpu_torch.geometry import twoview
+
+    saved = {k: getattr(twoview, k) for k in ("_sample_minimal_sets", "_fit_E_batch",
+                                              "_fit_H_batch")}
+    rng = np.random.default_rng(seed)
+
+    def sample(generator, valid, iters, k):
+        idx = np.flatnonzero(valid.cpu().numpy())
+        if len(idx) < k:
+            idx = np.arange(valid.shape[0])
+        sets = np.stack([rng.choice(idx, k, replace=False) for _ in range(iters)])
+        return torch.from_numpy(sets).to(valid.device)
+
+    def on_cpu(fn):
+        return lambda x1, x2: fn(x1.cpu(), x2.cpu()).to(x1.device)
+
+    twoview._sample_minimal_sets = sample
+    twoview._fit_E_batch = on_cpu(saved["_fit_E_batch"])
+    twoview._fit_H_batch = on_cpu(saved["_fit_H_batch"])
+    return lambda: [setattr(twoview, k, v) for k, v in saved.items()]
+
+
+def check_continuous_small():
+    """The continuous tracker (EventSlamContinuous) on the card against the
+    CPU on tests/test_torch_event_continuous.py's stream, on which the
+    reference initializes: the same states and keyframe decisions per
+    window, poses within CONT_POSE_TOL; and its splat launches on the card,
+    one per chunk past the gen-rate gate and 4 + 1 + 2 x cm_iters forward +
+    cm_iters VJP per window."""
+    from eorb_slam_tpu_torch.event import builder as eb
+    from eorb_slam_tpu_torch.ops import hopper_splat
+    from eorb_slam_tpu_torch.slam import event_continuous as ec
+
+    t_phase = time.perf_counter()
+    cfg = dict(EVW_CFG)
+    stream = _EvWorld(seed=5).events(0.0, 2.4, 160000)[:CONT_EVENTS]
+    cam = np.asarray([*EVW_CAM, 0, 0, 0, 0, 0], np.float32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        undo = _fixed_twoview(seed=7)
+        try:
+            slam = ec.EventSlamContinuous(cam, eb.BuilderConfig(**cfg), device=d, **CONT_KW)
+            hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+            log = []
+            t0 = time.perf_counter()
+            for k in range(0, len(stream), CONT_PACKET):
+                res = slam.track_events(stream[k:k + CONT_PACKET])
+                log.append(([(r["state"], r.get("kf"), r["mci_kind"]) for r in res],
+                            slam.l2.n_kf, slam.l2.T_last.cpu().numpy()))
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        out[d] = (log, dict(slam.stats), wall,
+                  (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches))
+    (lg, sg, wg, lnch), (lc, sc, wc, _) = out["cuda"], out["cpu"]
+    e_pose = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(lg, lc))
+    # this stream's builder runs cfg["cm_iters"] ascent steps per window
+    per_fwd, per_vjp = 4 + 1 + 2 * cfg["cm_iters"], cfg["cm_iters"]
+    want = (sg["chunks"] - sg["idle"] + per_fwd * sg["windows"], per_vjp * sg["windows"])
+    _log(f"continuous tracker cuda vs cpu, {len(stream)} events: per window "
+         f"{[x for a in lg for x in a[0]]}; KFs {sg['l2_kf']} / {sc['l2_kf']}, landmarks "
+         f"{sg['l2_lm']} / {sc['l2_lm']}, poses max abs {e_pose:.2e} (tol {CONT_POSE_TOL}); "
+         f"{wg:.2f} s on the card, {wc:.2f} s on the CPU; card splat launches {lnch[0]} + "
+         f"{lnch[1]} for {sg['chunks']} chunks ({sg['idle']} idle) and {sg['windows']} "
+         f"windows; phase {time.perf_counter() - t_phase:.1f} s")
+    if [(a[0], a[1]) for a in lg] != [(a[0], a[1]) for a in lc] or e_pose > CONT_POSE_TOL:
+        raise RuntimeError(f"continuous tracker: cuda {[(a[0], a[1]) for a in lg]} cpu "
+                           f"{[(a[0], a[1]) for a in lc]}, poses {e_pose}")
+    keys = ("chunks", "windows", "idle", "l2_kf", "l2_tiny", "l2_full", "l2_topped")
+    if any(sg[k] != sc[k] for k in keys) or sg["l2_kf"] < 3:
+        raise RuntimeError(f"continuous tracker stats: {sg} / {sc}")
+    if lnch != want:
+        raise RuntimeError(f"continuous tracker: {lnch} splat launches, expected {want}")
+
+
+def _run_app_event_image(work, root, config, tag):
+    """run_slam.main with configs/<config> (only DS.Paths.root differs) on
+    the generated shakes_01, no --device (the card), --eval, with the
+    blocking reads counted per image and the last image under the profiler.
+    Gates: cuda; the image map with >= 2 keyframes and the tracked share
+    after its init; the Sim3 ATE; no fusion error, and the fused file
+    written when fusion found a chain; the splat launches MCI_FWD + MCI_VJP
+    per synch MCI. The event map's birth (the joint init) needs >= 20
+    matches triangulated with the image tracker's poses, which depend on the
+    image map's two-view RANSAC draws: the app is run again with the image
+    tracker's generator at each of EV_SEEDS, and the event map must be born
+    with a joint frame after it in >= EV_SEEDS_MIN of them."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.ops import hopper_splat
+    from eorb_slam_tpu_torch.slam import ev_image_system as evi
+    from eorb_slam_tpu_torch.slam.system import OK
+
+    settings = _settings_with_root(config, root, work)
+    rec, slams, prof = [], [], []
+    track, run_seq = evi.EvImageSlam.track_ev_mono, run_slam.run_sequence
+    n_images = int(GEN_S * GEN_FPS)
+
+    def keep(st, s, **kw):
+        slam, out = run_seq(st, s, **kw)
+        slams.append((slam, s))
+        return slam, out
+
+    with _Syncs() as sy:
+        def recording(self, *a, **kw):
+            if len(rec) == n_images - 1:       # the last image, under the profiler
+                res, per = _profile(lambda: track(self, *a, **kw))
+                prof.append(per)
+            else:
+                res = track(self, *a, **kw)
+            sy.mark()
+            rec.append((self.im.state, self.ev.state, (res["event"] or {}).get("n")))
+            return res
+
+        evi.EvImageSlam.track_ev_mono = recording
+        run_slam.run_sequence = keep
+        hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+        try:
+            (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
+                                    "--out", os.path.join(work, f"results_{tag}")])
+            torch.cuda.synchronize()
+        finally:
+            evi.EvImageSlam.track_ev_mono = track
+            run_slam.run_sequence = run_seq
+    launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    slam, seq = slams[0]
+    windows = slam.builder.stats["windows"]
+    chains = slam.fused_trajectory().get("chains", 0)
+    per = prof[0] if prof else {}
+    prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3)
+    st = out["stats"]
+    ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
+    states = [a for a, _, _ in rec]
+    first_ok = states.index(OK) if OK in states else len(states)
+    after = states[first_ok:]
+    n_ok = sum(s_ == OK for s_ in after)
+    path = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+    ate_frac = ev.get("ate_rmse", float("inf")) / max(path, 1e-12)
+    reads = sy.steps[first_ok + 1:-1] or sy.steps
+    n = len(rec)
+    r = dict(frames=n, fps=n / out["wall_s"], wall_s=out["wall_s"], windows=windows,
+             launches=launches, reads=float(np.mean(reads)), launches_frame=prof[0],
+             device_ms=prof[1], ate_frac=ate_frac, first_ok=first_ok, n_ok=n_ok,
+             chains=chains, stats=st)
+    _log(f"run_slam {tag} on {out['device']}: {n} images in {out['wall_s']:.3f} s wall = "
+         f"{r['fps']:.3f} frames/s (real-time x {n / GEN_FPS / out['wall_s']:.4f}); image map "
+         f"initialised at image {first_ok}, then {n_ok}/{len(after)} tracked; event states "
+         f"{[b for _, b, _ in rec]}, joint-init matches {[c for _, _, c in rec]}; {windows} "
+         f"synch MCIs, splat launches {launches[0]} forward + {launches[1]} VJP; blocking "
+         f"reads per image after the init {r['reads']:.1f} (each: {reads}); the last image "
+         f"under torch.profiler: {prof[0]} device launches, {prof[1]:.2f} ms of device time")
+    _log(f"run_slam {tag} result: image KFs {st['im']['kf']}, event KFs {st['ev']['kf']}, "
+         f"joint inits {st['joint_inits']}, joint frames {st['joint_frames']}, joint BAs "
+         f"{st['joint_bas']}, gauge reseeds {st['gauge_reseeds']}; Sim3 ATE "
+         f"{ev.get('ate_rmse')} m over {ev.get('ate_n')} poses, path {path:.4f} m -> "
+         f"{100 * ate_frac:.2f}% of the path; fusion: {chains} chains, file "
+         f"{'written' if 'fused_trajectory_file' in out else 'not written'}, error "
+         f"{out.get('fusion_error')}")
+    if out["device"] != "cuda":
+        raise RuntimeError(f"{tag}: run_slam ran on {out['device']}")
+    if st["im"]["kf"] < 2 or not after or n_ok < APP_TRACK_MIN * len(after):
+        raise RuntimeError(f"{tag}: image map {st['im']}, {n_ok}/{len(after)} tracked")
+    if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ate_frac <= APP_ATE_MAX):
+        raise RuntimeError(f"{tag}: ATE {ev}")
+    if "fusion_error" in out or (chains > 0) != ("fused_trajectory_file" in out):
+        raise RuntimeError(f"{tag}: fusion {out.get('fusion_error')}, chains {chains}")
+    if launches != (MCI_FWD * windows, MCI_VJP * windows) or windows < 1:
+        raise RuntimeError(f"{tag}: {launches} splat launches for {windows} synch MCIs, "
+                           f"expected {MCI_FWD} + {MCI_VJP} each")
+
+    # the event map's birth across the image tracker's draws
+    born = {EV_SEEDS[0]: (st["ev"]["kf"], st["joint_inits"], st["joint_frames"],
+                          st["joint_bas"], "fused_trajectory_file" in out)}
+    build = run_slam.build_system
+    for seed in EV_SEEDS[1:]:
+        def seeded(*a, _seed=seed, **kw):
+            s = build(*a, **kw)
+            s.im.generator.manual_seed(_seed)
+            return s
+
+        run_slam.build_system = seeded
+        try:
+            (o,) = run_slam.main([settings, "--sequence", "shakes_01",
+                                  "--out", os.path.join(work, f"results_{tag}_{seed}")])
+        finally:
+            run_slam.build_system = build
+        so = o["stats"]
+        born[seed] = (so["ev"]["kf"], so["joint_inits"], so["joint_frames"], so["joint_bas"],
+                      "fused_trajectory_file" in o)
+    n_born = sum(kf >= 2 and jf >= 1 for kf, _, jf, _, _ in born.values())
+    _log(f"run_slam {tag} over the image tracker's seeds (event KFs, joint inits, joint "
+         f"frames, joint BAs, fused): {born}; the event map born with a joint frame in "
+         f"{n_born} of {len(EV_SEEDS)}")
+    if n_born < EV_SEEDS_MIN:
+        raise RuntimeError(f"{tag}: the event map was born in {n_born} of {len(EV_SEEDS)} "
+                           f"seeds: {born}")
+    r["born"] = born
+    return slam, r
+
+
+def run_app_event_mono(work: str, root: str):
+    t0 = time.perf_counter()
+    _, r = _run_app_event_image(work, root, "synth_ev_mono.yaml", "EVENT_MONO")
+    _log(f"run_app_event_mono: {time.perf_counter() - t0:.1f} s")
+    return r
+
+
+def run_app_event_imu_mono(work: str, root: str):
+    """As run_app_event_mono with configs/synth_ev_imu_mono.yaml: the IMU
+    rows go to the image tracker per image. The IMU init waits for 1.5 s of
+    keyframes, more than the sequence holds: its state is printed, not
+    gated."""
+    t0 = time.perf_counter()
+    slam, r = _run_app_event_image(work, root, "synth_ev_imu_mono.yaml", "EVENT_IMU_MONO")
+    _log(f"run_app_event_imu_mono: imu_initialized {slam.im.imu_initialized}, scale_applied "
+         f"{slam.im.scale_applied} (not gated: the init needs "
+         f"{slam.im.min_time_imu_init} s); {time.perf_counter() - t0:.1f} s")
+    return r
+
+
+def run_app_event_continuous(work: str, root: str):
+    """run_slam.main with configs/synth_ev_only.yaml and ``Event.contTracking:
+    1`` written into the copy, on the generated shakes_01, no --device, with
+    --eval (skipped when no trajectory was written). Gates: cuda, the run
+    reaches its end, every full image is a window and every tiny one a
+    chunk, and the splat launches: one per chunk past the gen-rate gate
+    plus MCI_FWD + MCI_VJP per window. Accuracy is printed, not gated (the
+    reference's tracker does not initialize on this data)."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.ops import hopper_splat
+
+    t0 = time.perf_counter()
+    settings = _settings_with_root("synth_ev_only.yaml", root, work)
+    with open(settings) as f:
+        text = f.read()
+    text, n_sub = re.subn(r"(?m)^Event\.contTracking:.*$", "Event.contTracking: 1", text)
+    if n_sub != 1:
+        raise RuntimeError(f"synth_ev_only.yaml: {n_sub} Event.contTracking lines")
+    with open(settings, "w") as f:
+        f.write(text)
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
+                            "--out", os.path.join(work, "results_cont")])
+    torch.cuda.synchronize()
+    launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    st, ev = out["stats"], out.get("eval", {})
+    want = (st["chunks"] - st["idle"] + MCI_FWD * st["windows"], MCI_VJP * st["windows"])
+    ate = (f"Sim3 ATE {ev.get('ate_rmse')} m over {ev.get('ate_n')} poses"
+           if ev.get("ate_n", 0) >= APP_MIN_ATE_N else "ATE not printed (fewer than "
+           f"{APP_MIN_ATE_N} poses)")
+    _log(f"run_slam EVENT_ONLY continuous on {out['device']}: {out['iterations']} event "
+         f"chunks, {st['chunks']} builder chunks ({st['idle']} idle), {st['windows']} windows "
+         f"in {out['wall_s']:.3f} s wall ({st['windows'] / out['wall_s']:.3f} windows/s, real-"
+         f"time x {GEN_S / out['wall_s']:.4f}); tiny {st['l2_tiny']}, full {st['l2_full']}; "
+         f"keyframes {st['l2_kf']}, tracked poses {out['tracked_poses']}, lost "
+         f"{st['l2_lost']}; {ate}; splat launches {launches[0]} + {launches[1]} (expected "
+         f"{want[0]} + {want[1]}); {time.perf_counter() - t0:.1f} s")
+    if out["device"] != "cuda" or out["iterations"] < 1:
+        raise RuntimeError(f"continuous: {out['device']}, {out['iterations']} chunks")
+    if st["l2_full"] != st["windows"] or st["l2_tiny"] != st["chunks"] - st["windows"]:
+        raise RuntimeError(f"continuous: stats {st}")
+    if launches != want:
+        raise RuntimeError(f"continuous: {launches} splat launches, expected {want}")
+    return dict(launches=launches, chunk_launches=st["chunks"] - st["idle"], stats=st)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2462,8 +3066,17 @@ def main() -> int:
         raise RuntimeError(f"the native I/O library did not build: {native.BUILD_ERROR}")
     _log(f"build: native I/O library -> {lib._name}")
 
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
     rows = check_kernel()
     gen_rows = check_kernel_generator()
+    chunk_row = check_kernel_chunk()
     time_ascent()
     check_slice_small()
     run_slice()
@@ -2473,11 +3086,17 @@ def main() -> int:
     check_vi_small()
     check_depth_small()
     check_loop_small()
+    timed("check_ev_image_small", check_ev_image_small)
+    timed("check_continuous_small", check_continuous_small)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         gen = run_generate(work)
         app = run_app_event_only(work, gen["root"])
         app_ei = run_app_event_imu(work, gen["root"])
+        app_em = timed("run_app_event_mono", run_app_event_mono, work, gen["root"])
+        app_eim = timed("run_app_event_imu_mono", run_app_event_imu_mono, work, gen["root"])
+        app_cont = timed("run_app_event_continuous", run_app_event_continuous, work,
+                         gen["root"])
         run_app_monocular(work)
         run_app_imu_monocular(work)
         depth_root = run_generate_depth(work)
@@ -2491,24 +3110,35 @@ def main() -> int:
     # times at the shape and form of 121 of a window's 129 kernel calls:
     # the SE2 form at 16,384 events; errors are the worst over every N.
     # `launches` counts the EventSlam phase, `launches_run_slam` the app's,
-    # `launches_event_imu` EVENT_IMU's through the app.
+    # `launches_event_imu` EVENT_IMU's, `launches_event_mono`,
+    # `launches_event_imu_mono` and `launches_continuous` the image-clock
+    # modes' and the continuous tracker's through the app. The last two rows
+    # time the same kernels at the new call sites' shapes, with the launches
+    # of that site: build_mci's ascent (every VJP of those paths, SE2 at
+    # 65,536) and _chunk_image (one identity forward per chunk, 12,000).
+    _log(f"new phases, wall s: {phase_s}")
     main_row = next(r for r in rows if r["n"] == MAIN_N)
+    big_row = next(r for r in rows if r["n"] == KERNEL_NS[-1])
     gen_row = gen_rows[0]
     common = dict(route="cuda", source="eorb_slam_tpu_torch/csrc/splat.cu",
                   replaces="eorb_slam_tpu/ops/pallas_splat.py:60", library_ms=None)
+    paths = lambda a: dict(launches_event_mono=app_em["launches"][a],
+                           launches_event_imu_mono=app_eim["launches"][a],
+                           launches_continuous=app_cont["launches"][a])
+    fwd_err = max(max(r["fwd_err"], r["fwd_se2_err"]) for r in rows)
+    vjp_err = max(max(r["vjp_xy_err"], r["vjp_w_err"], r["vjp_se2_err"]) for r in rows)
     _log(json.dumps({"kernels": [
         dict(common, name="splat_gauss", n=MAIN_N, form="se2",
              launches=res["launches"], launches_run_slam=app["launches"],
-             launches_event_imu=app_ei["launches"],
-             max_abs_err=max(max(r["fwd_err"], r["fwd_se2_err"]) for r in rows),
+             launches_event_imu=app_ei["launches"], **paths(0),
+             max_abs_err=fwd_err,
              ms=main_row["fwd_se2_ms"], device_ms=main_row["fwd_se2_dev_ms"],
              plain_ms=main_row["fwd_se2_plain_ms"],
              bound_ms=main_row["fwd_se2_bound"][0], bound_by=main_row["fwd_se2_bound"][1]),
         dict(common, name="splat_gauss_vjp", n=MAIN_N, form="se2",
              launches=res["vjp_launches"], launches_run_slam=app["vjp_launches"],
-             launches_event_imu=app_ei["vjp_launches"],
-             max_abs_err=max(max(r["vjp_xy_err"], r["vjp_w_err"], r["vjp_se2_err"])
-                             for r in rows),
+             launches_event_imu=app_ei["vjp_launches"], **paths(1),
+             max_abs_err=vjp_err,
              ms=main_row["vjp_se2_ms"], device_ms=main_row["vjp_se2_dev_ms"],
              plain_ms=main_row["vjp_se2_plain_ms"],
              bound_ms=main_row["vjp_se2_bound"][0], bound_by=main_row["vjp_se2_bound"][1]),
@@ -2518,6 +3148,20 @@ def main() -> int:
              max_abs_err=max(r["err"] for r in gen_rows),
              ms=gen_row["ms"], device_ms=gen_row["dev_ms"], plain_ms=gen_row["plain_ms"],
              bound_ms=gen_row["bound"][0], bound_by=gen_row["bound"][1]),
+        # build_mci's ascent: the VJP at the whole padded window
+        dict(common, name="splat_gauss_vjp (build_mci: SE2 form)", n=KERNEL_NS[-1],
+             form="se2", launches=app_em["launches"][1], **paths(1),
+             max_abs_err=big_row["vjp_se2_err"], ms=big_row["vjp_se2_ms"],
+             device_ms=big_row["vjp_se2_dev_ms"], plain_ms=big_row["vjp_se2_plain_ms"],
+             bound_ms=big_row["vjp_se2_bound"][0], bound_by=big_row["vjp_se2_bound"][1]),
+        # _chunk_image: one identity splat per chunk of the continuous tracker
+        dict(common, name="splat_gauss (_chunk_image: identity form)", n=CHUNK_N,
+             form="identity", launches=app_cont["chunk_launches"],
+             launches_event_mono=0, launches_event_imu_mono=0,
+             launches_continuous=app_cont["chunk_launches"],
+             max_abs_err=chunk_row["err"], ms=chunk_row["ms"],
+             device_ms=chunk_row["dev_ms"], plain_ms=chunk_row["plain_ms"],
+             bound_ms=chunk_row["bound"][0], bound_by=chunk_row["bound"][1]),
     ]}))
     _log(f"gpu: {gpu}")
     _log(json.dumps({"ok": True, "device": {

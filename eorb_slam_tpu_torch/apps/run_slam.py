@@ -7,18 +7,22 @@ event chunk: System::TrackEvent), dispatch on the sensor config to the right
 pipeline, time every iteration, and save TUM trajectories with the
 timing-stats header.
 
-Ported so far: EVENT_ONLY through the discrete tracker
-(``Event.contTracking: 0``), MONOCULAR with ORB features
-(``Features.mode: 0``), IMU_MONOCULAR (slam/vi_system.MonoInertialSlam),
-EVENT_IMU (slam/event_inertial.EventInertialSlam), and STEREO, RGBD and
-IMU_STEREO (slam/rgbd_stereo.py). The image modes close loops and merge
-maps when the settings configure a vocabulary (``make_vocab``: a DBoW2
-text file, or one trained on the sequence's own frames). What is not
-ported yet raises NotImplementedError naming the ROADMAP.md Queue 1 row
-that owns it: EVENT_MONO and EVENT_IMU_MONO (row 12), mixed features (row
-13), the continuous event tracker (row 14). The system runs on the card
-unless ``--device`` says otherwise; without a card it raises rather than
-carrying on on the CPU.
+Every sensor mode runs: EVENT_ONLY through the discrete tracker
+(slam/event_system.EventSlam) or, with ``Event.contTracking: 1`` (the
+loader's default), the continuous one (slam/event_continuous.py);
+MONOCULAR with ORB features (``Features.mode: 0``); IMU_MONOCULAR
+(slam/vi_system.MonoInertialSlam); EVENT_IMU
+(slam/event_inertial.EventInertialSlam); STEREO, RGBD and IMU_STEREO
+(slam/rgbd_stereo.py); and the image-clock event modes EVENT_MONO and
+EVENT_IMU_MONO (slam/ev_image_system.EvImageSlam and
+event_inertial.EvImageInertialSlam), which also write the fused event +
+image trajectory. The image modes close loops and merge maps when the
+settings configure a vocabulary (``make_vocab``: a DBoW2 text file, or one
+trained on the sequence's own frames). Mixed ORB + AKAZE features
+(``Features.mode`` other than 0) are not ported yet and raise
+NotImplementedError naming ROADMAP.md Queue 1 row 13. The system runs on
+the card unless ``--device`` says otherwise; without a card it raises
+rather than carrying on on the CPU.
 
 Usage:
     python -m eorb_slam_tpu_torch.apps.run_slam <settings.yaml> [--out DIR]
@@ -41,13 +45,6 @@ from eorb_slam_tpu_torch._host import resolve_device, to_device
 from eorb_slam_tpu_torch.io import config as cfg_mod
 from eorb_slam_tpu_torch.io import datasets, trajectory
 from eorb_slam_tpu_torch.io.config import SensorConfig
-
-# sensor configurations that are not ported yet -> the ROADMAP row (Queue 1)
-_UNPORTED = {
-    SensorConfig.EVENT_MONO: "row 12 (event + image: slam/ev_image_system.py)",
-    SensorConfig.EVENT_IMU_MONO: "row 12 (EvImageInertialSlam over "
-                                 "slam/ev_image_system.py)",
-}
 
 
 def make_vocab(st: cfg_mod.Settings, seq=None, device=None):
@@ -88,10 +85,6 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
 
     device = resolve_device(device)
     s = st.sensor
-    if s in _UNPORTED:
-        raise NotImplementedError(
-            f"sensor configuration {s.name} is not ported yet: ROADMAP.md "
-            f"Queue 1 {_UNPORTED[s]}")
     cam = st.cam.params_array()
     kw = dict(
         img_w=st.cam.width or 240, img_h=st.cam.height or 180,
@@ -144,10 +137,9 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         return StereoInertialSlam(cam, calib, baseline=baseline, **kw)
     if s is SensorConfig.EVENT_ONLY:
         if st.event.continuous:
-            raise NotImplementedError(
-                "the continuous event tracker (Event.contTracking: 1, "
-                "EventSlamContinuous) is not ported yet: ROADMAP.md Queue 1 "
-                "row 14")
+            from eorb_slam_tpu_torch.slam.event_continuous import EventSlamContinuous
+
+            return EventSlamContinuous(cam, ev_cfg, device=device)
         from eorb_slam_tpu_torch.slam.event_system import EventSlam
 
         return EventSlam(cam, ev_cfg, device=device)
@@ -155,6 +147,20 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         from eorb_slam_tpu_torch.slam.event_inertial import EventInertialSlam
 
         return EventInertialSlam(cam, calib, ev_cfg, device=device)
+    # the image tracker of the image-clock event modes carries the loop
+    # closer; a loop correction moves the event map with it
+    ev_im_kw = {} if loop_words is None else {"loop_words": loop_words}
+    if s is SensorConfig.EVENT_MONO:
+        from eorb_slam_tpu_torch.slam.ev_image_system import EvImageSlam
+
+        return EvImageSlam(cam, ev_cfg, img_w=st.cam.width, img_h=st.cam.height,
+                           max_kp=kw["N"], device=device, **ev_im_kw)
+    if s is SensorConfig.EVENT_IMU_MONO:
+        from eorb_slam_tpu_torch.slam.event_inertial import EvImageInertialSlam
+
+        return EvImageInertialSlam(cam, calib, cfg=ev_cfg, img_w=st.cam.width,
+                                   img_h=st.cam.height, max_kp=kw["N"], device=device,
+                                   **ev_im_kw)
     raise ValueError(f"unsupported sensor config: {s}")
 
 
@@ -242,6 +248,13 @@ def run_sequence(
             elif s is SensorConfig.RGBD:
                 slam.process_rgbd(to_device(img, dev),
                                   to_device(seq.depth(i).astype(np.float32), dev), t)
+            elif s in (SensorConfig.EVENT_MONO, SensorConfig.EVENT_IMU_MONO):
+                # the events in (last image, this image]
+                ev = (seq.events.next_chunk_until(t) if seq.events is not None
+                      else np.zeros((0, 4)))
+                imu = (_imu_chunk(seq, t_prev, t) if s is SensorConfig.EVENT_IMU_MONO
+                       else None)
+                slam.track_ev_mono(ev, img, t, imu=imu)
             else:
                 slam.process_image(to_device(img, dev), t)
             main_timer.toc()
@@ -271,6 +284,20 @@ def run_sequence(
         path = os.path.join(out_dir, f"{seq.name}_{s.name.lower()}.txt")
         trajectory.save_tum(path, ts, Twc, timers=(main_timer,))
         out["trajectory_file"] = path
+    # FuseEventORB on the way out (System::Shutdown). Fusion is
+    # post-processing of a finished run: as in the reference, a failure is
+    # reported in the result instead of discarding the run
+    if hasattr(slam, "fused_trajectory"):
+        try:
+            fused = slam.fused_trajectory()
+            if fused.get("chains", 0) > 0:
+                ts = np.asarray([x for x, _ in fused["fused"]])
+                Twc = np.stack([T for _, T in fused["fused"]])
+                path = os.path.join(out_dir, f"{seq.name}_fused.txt")
+                trajectory.save_tum(path, ts, Twc, timers=(main_timer,))
+                out["fused_trajectory_file"] = path
+        except Exception as e:
+            out["fusion_error"] = str(e)
     return slam, out
 
 

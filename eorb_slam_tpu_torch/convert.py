@@ -3,9 +3,11 @@
 The system has no learned weights; what has to match between the JAX
 package and this one is state: the L1 builder's, the L2 map's and the
 inertial state (calibration, preintegrations, the marginal prior, and a
-MonoInertialSlam's per-keyframe chain), a depth system's baseline, and
+MonoInertialSlam's per-keyframe chain), a depth system's baseline,
 place recognition's (the vocabulary, the keyframe databases and a
-LoopCloser's chains and counters). These functions take that state as
+LoopCloser's chains and counters), an EvImageSlam's (both maps, the Sim3
+gauge bridge, the stash of event frames before the joint init) and the
+continuous tracker's feature tracks. These functions take that state as
 numpy arrays (e.g. ``np.asarray`` of the JAX fields), so the port can
 continue a run from the same mid-run state, and give it back the same way.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from eorb_slam_tpu_torch.event.builder import EventWindowBuilder
+from eorb_slam_tpu_torch.event.feature_tracks import TrackStore
 from eorb_slam_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
 from eorb_slam_tpu_torch.optim.marginalize import PoseImuPrior
 from eorb_slam_tpu_torch.retrieval import bow
@@ -209,3 +212,45 @@ def loop_closer_state_to_numpy(lc) -> dict:
             "chains": [(set(g), c) for g, c in lc._chains],
             "kf_count": lc._kf_count, "last_loop_kfc": lc._last_loop_kfc,
             "added_at": dict(lc._added_at)}
+
+
+def tracks_from_numpy(tr, device=None) -> TrackStore:
+    """Feature tracks (dict or NamedTuple of arrays by ``TrackStore`` field,
+    e.g. the JAX package's) -> the port's TrackStore on ``device``."""
+    d = _fields(tr)
+    dtypes = dict(xy=np.float32, valid=bool, lm=np.int32, age=np.int32,
+                  birth_kf=np.int32, desc_pm1=np.int8, quality=np.float32)
+    return TrackStore(**{k: torch.from_numpy(np.array(d[k], dtype=dtypes[k])).to(device)
+                         for k in TrackStore._fields})
+
+
+def tracks_to_numpy(tr: TrackStore) -> dict:
+    return {k: v.cpu().numpy() for k, v in tr._asdict().items()}
+
+
+def ev_image_state_from_numpy(slam, state: dict) -> None:
+    """Load an EvImageSlam's joint state into ``slam`` (on its device):
+    ``im_map`` and ``ev_map`` (maps as ``map_state_from_numpy`` takes
+    them); optional ``gauge`` ((s, R_ie (3,3), t_ie (3,)) or None) with
+    ``gauge_locked``; optional ``stash`` ([(ts, frame, Tcw)] with the frame
+    any object with ``xy_ud``, ``octave``, ``angle``, ``desc_pm1`` and
+    ``valid``, e.g. the JAX package's FrameInput)."""
+    from eorb_slam_tpu_torch.slam.system import FrameInput
+
+    dev = slam.device
+    slam.im.map = map_state_from_numpy(state["im_map"], dev)
+    slam.ev.map = map_state_from_numpy(state["ev_map"], dev)
+    if "gauge" in state:
+        g = state["gauge"]
+        slam._last_gauge = None if g is None else (
+            float(g[0]), np.asarray(g[1], np.float64), np.asarray(g[2], np.float64))
+        slam._gauge_locked = bool(state.get("gauge_locked", False))
+    if "stash" in state:
+        dtypes = dict(xy_ud=np.float32, octave=np.int32, angle=np.float32,
+                      desc_pm1=np.int8, valid=bool)
+        stash = []
+        for ts, f, T in state["stash"]:
+            stash.append((float(ts), FrameInput(float(ts), *(
+                torch.from_numpy(np.array(getattr(f, k), dtype=dtypes[k])).to(dev)
+                for k in dtypes)), np.array(T, dtype=np.float32)))
+        slam._ev_stash = stash

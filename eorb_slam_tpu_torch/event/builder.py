@@ -10,12 +10,18 @@ the winner picked by patch-STD. All of it stays on the builder's device; the
 host keeps scalar control state (adaptive chunk size, cursor) and reads one
 small metadata vector a window late, through a non-blocking copy.
 
+Beside it, the per-chunk state machine of the continuous tracker
+(``step``: one identity splat per chunk in ``_chunk_image``, KLT
+continuity and the adaptive chunk size chunk by chunk, a tiny frame per
+chunk and an MCI per window through ``_finish_window``) and ``build_mci``,
+the four candidates over one padded window that the image-clock modes
+build at each image timestamp. Every splat of both goes through
+``tensorize.splat_gauss`` / ``splat_gauss_se2``: the splat kernels on the
+card.
+
 The host event buffer is the native C++ queue (``io/native``: O(1) consume
 and front re-injection, background file streaming) where the library
 builds, else a numpy array.
-
-Not ported yet: the per-chunk ``step()`` state machine with its
-``_chunk_image``, ``build_mci`` and ``_finish_window``.
 """
 
 from __future__ import annotations
@@ -53,9 +59,9 @@ class BuilderConfig:
     #                                    temporal-strided subset estimates the
     #                                    mean-over-events gradient; the final
     #                                    warp/splat always uses all events)
-    max_window_events: int = 65536     # static capacity of the L2 window
-    #                                    (build_mci's; step_window pads per
-    #                                    chunk and does not read it)
+    max_window_events: int = 65536     # static capacity of build_mci's
+    #                                    window (step_window pads per chunk
+    #                                    and does not read it)
     n_klt_pts: int = 128               # FAST corners tracked per chunk
     overlap: float = 0.5               # re-injection fraction per window
 
@@ -93,6 +99,13 @@ def _pad_events(ev: np.ndarray, cap: int, t0: Optional[float] = None):
     out[:n, 1:] = ev[:, 1:].astype(np.float32)
     valid[:n] = True
     return out, valid, n_drop
+
+
+def _chunk_image(ev: torch.Tensor, valid: torch.Tensor, H: int, W: int,
+                 sigma: float) -> torch.Tensor:
+    """One padded chunk's event image in [0,1]: the identity splat."""
+    img = tensorize.splat_gauss(ev[:, 1:3], valid, ev[:, 3], H, W, sigma=sigma)
+    return tensorize.normalize_to_image(img)
 
 
 def _make_candidates(
@@ -238,7 +251,10 @@ class EventWindowBuilder:
     when asked with ``device="cpu"``.
 
     Feed raw event arrays with :meth:`feed`; call :meth:`step_window`, which
-    returns a ``PoseImage`` whenever a full window is buffered, else None."""
+    returns a ``PoseImage`` whenever a full window is buffered, else None,
+    or :meth:`step`, which returns one per buffered chunk (a tiny frame, or
+    the window's MCI after ``l1_num_loop`` chunks). :meth:`build_mci`
+    builds the MCI of a given window and touches no buffer."""
 
     def __init__(self, cfg: BuilderConfig, cam_params=None, device=None):
         self.cfg = cfg
@@ -259,6 +275,14 @@ class EventWindowBuilder:
         self.last_med_disp = float("nan")
         # PoseDepthInfo analog: L2 posts (T0, T1, med_depth) back here
         self.pose_prior: Optional[tuple] = None
+        # per-chunk path (step): the window's chunks so far, the last chunk
+        # image with its corners, and the newest KLT correspondence set
+        # (prev_pts, cur_pts, ok, dt) for the measured-flow candidate
+        self.chunks_in_window: list = []
+        self.prev_img: Optional[torch.Tensor] = None
+        self.prev_pts: Optional[torch.Tensor] = None
+        self.prev_pts_valid: Optional[torch.Tensor] = None
+        self._klt_fit = None
         self._last_chunk_ts = 0.0
         # device KLT carry + metadata copied to the host a window late
         self._win_carry = None
@@ -364,6 +388,7 @@ class EventWindowBuilder:
         if rate < cfg.min_ev_gen_rate:
             self.stats["idle"] += 1
             self._win_carry = None
+            self._klt_fit = None
             return None
 
         # per-chunk padded tensor, power-of-two bucket
@@ -418,3 +443,130 @@ class EventWindowBuilder:
             best_kind=self._last_kind, se2_params=meta,
             score=self._last_score,
         )
+
+    # ------------------------------------------------- per-chunk pipeline
+
+    def step(self) -> Optional[PoseImage]:
+        """Consume one chunk: the gen-rate gate, its event image, KLT from
+        the previous chunk image (the median displacement resizes the next
+        chunk), FAST corners for the next pair. Returns a tiny frame
+        (reconst_stat 0) until ``l1_num_loop`` chunks make a window, then
+        that window's MCI; None when less than a chunk is buffered or the
+        chunk was idle. Reads the median displacement once per chunk."""
+        cfg = self.cfg
+        if self.pending_events() < self.chunk_size:
+            return None
+        chunk = self._consume(self.chunk_size)
+        self.stats["chunks"] += 1
+
+        # gen-rate gate
+        t_span = float(chunk[-1, 0] - chunk[0, 0])
+        rate = len(chunk) / max(t_span, 1e-9) / (cfg.img_w * cfg.img_h)
+        if rate < cfg.min_ev_gen_rate:
+            self.stats["idle"] += 1
+            self.chunks_in_window.clear()
+            self.prev_img = None
+            # stale correspondences must not seed the measured-flow MCI
+            # after an idle gap (their dt no longer matches)
+            self._klt_fit = None
+            return None
+
+        ev_pad, v_pad, _ = _pad_events(chunk, cfg.max_chunk)
+        img = _chunk_image(self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool),
+                           cfg.img_h, cfg.img_w, cfg.sigma)
+
+        # KLT continuity between consecutive chunk images: the median pixel
+        # displacement drives the adaptive chunk size
+        if self.prev_img is not None and self.prev_pts is not None:
+            res = klt.track(self.prev_img, img, self.prev_pts,
+                            self.prev_pts_valid, win=9, levels=2, iters=6,
+                            min_ncc=0.3)
+            med = float(klt.median_displacement(res, self.prev_pts))
+            self.last_med_disp = med
+            self._adapt_chunk_size(med)
+            self._klt_fit = (self.prev_pts, res.xy, self.prev_pts_valid & res.ok,
+                             float(chunk[-1, 0]) - self._last_chunk_ts)
+        self._last_chunk_ts = float(chunk[-1, 0])
+
+        # reference corners for the next pair
+        xy, _, vmask = fast.detect_grid(
+            img, threshold=0.08, min_threshold=0.03, cell=24,
+            per_cell=2, max_kp=cfg.n_klt_pts, border=6,
+        )
+        self.prev_img, self.prev_pts, self.prev_pts_valid = img, xy, vmask
+
+        self.chunks_in_window.append(chunk)
+        if len(self.chunks_in_window) < cfg.l1_num_loop:
+            # tiny frame: KLT continuity only (reconst_stat 0)
+            return PoseImage(
+                img=img, ts=float(chunk[-1, 0]), ts0=float(chunk[0, 0]),
+                reconst_stat=0, best_kind="hist",
+                se2_params=np.zeros(3, np.float32), score=0.0,
+            )
+        return self._finish_window()
+
+    def build_mci(self, window: np.ndarray) -> PoseImage:
+        """The four candidates and the winner over one event window, padded
+        to ``max_window_events`` (the ascent runs on all of it). Pure with
+        respect to the builder's buffers: the image-clock modes build their
+        synchronized MCI with it, and the per-chunk path its window's. The
+        DPose candidate extrapolates the pose prior at constant velocity on
+        the device; the KLT candidate uses the newest correspondence set
+        when its dt is positive. One packed host read: [best, scores]."""
+        cfg = self.cfg
+        t0, t1 = float(window[0, 0]), float(window[-1, 0])
+        ev_pad, v_pad, n_drop = _pad_events(window, cfg.max_window_events)
+        if n_drop:
+            # the padded window rebases to the first KEPT event
+            t0 = float(window[n_drop, 0])
+            self.stats["ev_truncated"] += n_drop
+
+        dev = self.device
+        if self.pose_prior is not None:
+            # L2 posts the poses of its last two tracked frames: warp this
+            # window with the constant-velocity extrapolation (T_cur,
+            # rel @ T_cur), as step_window does
+            T_prev, T_cur, depth = (self._to_dev(x) for x in self.pose_prior)
+            T0, T1 = T_cur, (T_cur @ lie.se3_inv(T_prev)) @ T_cur
+            have_dpose = True
+        else:
+            T0 = T1 = torch.eye(4, dtype=torch.float32, device=dev)
+            depth, have_dpose = self._to_dev(1.0), False
+
+        if self._klt_fit is not None and self._klt_fit[3] > 0:
+            # kdt <= 0 for the chunk pair straddling the overlap re-injection
+            # (timestamps step backward): no fit from it
+            kp, kc, kok, kdt = self._klt_fit
+            have_klt = True
+        else:
+            n = cfg.n_klt_pts
+            kp = kc = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+            kok = torch.zeros(n, dtype=torch.bool, device=dev)
+            kdt, have_klt = 1e-3, False
+
+        best_img, best, scores, se2 = _make_candidates(
+            self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool),
+            self._to_dev(np.float32(t1 - t0)), T0, T1, depth, have_dpose,
+            kp, kc, kok, self._to_dev(np.float32(kdt)),
+            torch.tensor(have_klt, device=dev),
+            self.cam, H=cfg.img_h, W=cfg.img_w, sigma=cfg.sigma,
+            cm_iters=cfg.cm_iters,
+        )
+        meta = torch.cat([best[None].to(torch.float32), scores]).cpu().numpy()
+        best_i = int(meta[0])
+        self.stats["windows"] += 1
+        return PoseImage(
+            img=best_img, ts=t1, ts0=t0, reconst_stat=1,
+            best_kind=KINDS[best_i], se2_params=se2, score=float(meta[1 + best_i]),
+        )
+
+    def _finish_window(self) -> PoseImage:
+        """The window's MCI, then the overlap tail back into the queue
+        (injectEventsBegin)."""
+        window = np.concatenate(self.chunks_in_window)
+        pi = self.build_mci(window)
+        n_keep = int(len(window) * self.cfg.overlap)
+        if n_keep > 0:
+            self._inject_front(window[-n_keep:])
+        self.chunks_in_window.clear()
+        return pi

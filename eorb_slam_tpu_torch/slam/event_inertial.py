@@ -9,8 +9,11 @@ initialization, dead-reckoning and VI local BA come from the one shared
 implementation. The L1 window runs through the builder (and the splat
 kernels on the card) exactly as in EVENT_ONLY.
 
-EVENT_IMU_MONO (``EvImageInertialSlam``) builds on ``ev_image_system``,
-which is not ported yet (ROADMAP.md Queue 1 row 12).
+EVENT_IMU_MONO (``EvImageInertialSlam``): the image clock and the synch
+event MCIs of ``ev_image_system.EvImageSlam``, with the inertial pipeline as
+the image tracker; each world transform the IMU init or a scale refinement
+applies to the image map is replayed on the event map, so the identity
+bridge of a joint init stays exact (ApplyScaleAndRotationEvSynch).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from eorb_slam_tpu_torch.event import builder as ev_builder
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.ops import frontend
+from eorb_slam_tpu_torch.slam import ev_image_system
 from eorb_slam_tpu_torch.slam import map_state as ms
 from eorb_slam_tpu_torch.slam import system as slam_system
 from eorb_slam_tpu_torch.slam.vi_system import ImuChunk, MonoInertialSlam
@@ -190,3 +194,65 @@ class EventInertialSlam:
         s.update(mci=self.n_mci, tracked=self.n_tracked,
                  **{f"l2_{k}": v for k, v in self.l2.stats.items()})
         return s
+
+
+class EvImageInertialSlam(ev_image_system.EvImageSlam):
+    """EVENT_IMU_MONO mode: the image clock, synch event MCIs and the IMU on
+    the image tracker (System::TrackEvMono routing the IMU to Tracking); the
+    event map follows the image map's rescales. Runs on ``device``: the
+    card when it is None."""
+
+    def __init__(self, cam_params, calib: pre_mod.ImuCalib, *,
+                 min_kf_imu_init: int = 6, min_time_imu_init: float = 1.5,
+                 **kw):
+        super().__init__(cam_params, **kw)
+        slam_kw = {k: v for k, v in kw.items()
+                   if k in ("K", "M", "P", "min_init_matches", "min_track_inliers",
+                            "local_window", "seed", "loop_words")}
+        # the inertial pipeline replaces the visual image tracker (built
+        # without the loop handoff's opt-in, as the reference's)
+        self.im = MonoInertialSlam(
+            cam_params, calib, img_w=self.im.img_w, img_h=self.im.img_h,
+            N=self.max_kp, min_kf_imu_init=min_kf_imu_init,
+            min_time_imu_init=min_time_imu_init, device=self.device, **slam_kw,
+        )
+        self._scale_seen = 1.0
+
+    def _track_image(self, img, ts: float, imu=None):
+        if imu is None:
+            imu = ImuChunk(gyro=np.zeros((0, 3), np.float32),
+                           acc=np.zeros((0, 3), np.float32),
+                           dts=np.zeros(0, np.float32))
+        feats = frontend.extract(self._frame_tensor(img), max_kp=self.max_kp)
+        xy_ud = cam_mod.undistort_points(self.cam, feats.xy)
+        f = slam_system.FrameInput(ts, xy_ud, feats.octave, feats.angle,
+                                   feats.desc_pm1, feats.valid)
+        res = self.im.process_features_imu(f, imu)
+        # replay the image map's world transforms on the event map under a
+        # locked (joint-init) gauge; without one the stored pairs mix
+        # scales and are dropped
+        for Ryw, s in self.im.pending_world_transforms:
+            if self._gauge_locked and self.ev.n_kf >= 2:
+                self._apply_world_transform_to_event(Ryw, s)
+        self.im.pending_world_transforms.clear()
+        if self.im.scale_applied != self._scale_seen:
+            self._gauge_pairs.clear()
+            self._scale_seen = self.im.scale_applied
+        return res
+
+    def _apply_world_transform_to_event(self, Ryw: np.ndarray, s: float):
+        """world' = s Ryw world on the event map: Rcw' = Rcw Ryw^T,
+        tcw' = s tcw, lm' = s Ryw lm (Map::ApplyScaledRotation), on the
+        trajectory too."""
+        m = self.ev.map
+        R = torch.as_tensor(np.asarray(Ryw, np.float32)).to(m.kf_T.device)
+        kf_T = m.kf_T.clone()
+        kf_T[:, :3, :3] = m.kf_T[:, :3, :3] @ R.T
+        kf_T[:, :3, 3] *= s
+        self.ev.map = m._replace(kf_T=kf_T, lm_pos=s * (m.lm_pos @ R.T))
+        Tl = self.ev.T_last.clone()
+        Tl[:3, :3] = self.ev.T_last[:3, :3] @ R.T
+        Tl[:3, 3] *= s
+        self.ev.T_last = Tl
+        self.ev.velocity = self.ev._eye4()
+        self.ev._rescale_trajectory(s, Ryw)

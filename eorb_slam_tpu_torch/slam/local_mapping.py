@@ -5,10 +5,9 @@ PyTorch port of ``eorb_slam_tpu/slam/local_mapping.py`` (reference
 LocalMapping::ProcessNewKeyFrame -> MapPointCulling -> CreateNewMapPoints
 -> SearchInNeighbors -> local BA): ``create_new_landmarks``,
 ``fuse_duplicates``, ``keyframe_mapping_step``,
-``update_landmark_descriptors``, ``local_ba`` and the stereo / RGB-D
-``create_depth_landmarks``. The slot-aligned landmark maker
-(``create_new_landmarks_aligned``) belongs to the continuous tracker and is
-not ported yet (ROADMAP.md Queue 1 row 14).
+``update_landmark_descriptors``, ``local_ba``, the stereo / RGB-D
+``create_depth_landmarks`` and the continuous tracker's slot-aligned
+``create_new_landmarks_aligned``.
 """
 
 from __future__ import annotations
@@ -75,6 +74,38 @@ def create_new_landmarks(
         torch.arange(m.N, dtype=torch.int32, device=pts.device), kf_b, idx_b,
     )
     return m, (lm_ids >= 0).sum(dtype=torch.int32)
+
+
+def create_new_landmarks_aligned(
+    m: ms.MapState,
+    cam_params: torch.Tensor,
+    kf_a,                      # new keyframe slot
+    kf_b,                      # older keyframe slot
+    slot_ok: torch.Tensor,     # (N,) bool: feature row is the SAME track
+    min_parallax_cos: float = 0.9998,
+):
+    """Triangulate landmarks between two keyframes whose feature arrays are
+    slot-ALIGNED (the continuous tracker's layout: one feature track = one
+    row, event/feature_tracks.py). The correspondence is the row index, no
+    descriptor matching (the track-driven CreateNewMapPoints of
+    EvLocalMapping). Returns (MapState, lm_ids (N,) int32, -1 = none)."""
+    Ta = m.kf_T[kf_a]
+    Tb = m.kf_T[kf_b]
+    ray_a = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[kf_a])
+    ray_b = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[kf_b])
+    ok_in = (slot_ok & m.kf_feat_valid[kf_a] & m.kf_feat_valid[kf_b]
+             & (m.kf_feat_lm[kf_a] < 0))
+    pts = triangulation.triangulate_dlt(Ta[None], Tb[None], ray_a, ray_b)
+    ok_tri, _ = triangulation.triangulation_checks(
+        Ta[None], Tb[None], ray_a, ray_b, pts,
+        min_parallax_cos=min_parallax_cos,
+        inv_sigma1=cam_params[0] * frontend.inv_sigma(m.kf_octave[kf_a]),
+        inv_sigma2=cam_params[0] * frontend.inv_sigma(m.kf_octave[kf_b]),
+    )
+    ok = ok_in & ok_tri & torch.isfinite(pts).all(dim=-1)
+    feat_ids = torch.arange(m.N, dtype=torch.int32, device=pts.device)
+    return ms.alloc_landmarks(m, pts, m.kf_desc_pm1[kf_a], ok, kf_a, feat_ids,
+                              kf_b, feat_ids)
 
 
 def create_depth_landmarks(

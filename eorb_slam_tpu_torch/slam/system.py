@@ -99,6 +99,10 @@ class MonoSlam:
         # keyframes are an ordered list of slots (temporal order); capacity
         # K is a window, not a run-length limit
         self._kf_order: list[int] = []
+        # per-slot keyframe sequence id (monotone over the run; -1 = free):
+        # slots are reused after culling, so slot indices do not order in
+        # time (the continuous tracker's track births compare these)
+        self.kf_seq = np.full(K, -1, np.int64)
         self._kf_seq_next = 0        # keyframes ever declared (monotone)
         self.last_kf_slot = -1
         self.kf_culled = 0
@@ -161,6 +165,14 @@ class MonoSlam:
         self._stored_dbs: dict = {}
         self.loops_closed = 0
         self.map_merges = 0
+        # handoff to a paired event tracker (EvImageSlam): on a loop
+        # correction the pre-correction keyframe poses, the LoopInfo and the
+        # slots' validity and timestamps at correction time are stashed for
+        # the event map to follow the weld. Only when a consumer opted in
+        # (loop_correction_consumer = True), so that a standalone MonoSlam
+        # holds no copy of the pre-correction poses.
+        self.last_loop_correction = None
+        self.loop_correction_consumer = False
         # the mapping step's stats and the next culling pass's redundancy
         # ranking travel to the host in the background (HostCopy) and are
         # read at the next keyframe
@@ -191,8 +203,15 @@ class MonoSlam:
         """Assigning n_kf = v declares slots 0..v-1 active in temporal order
         (the init paths, which always build into a fresh map)."""
         self._kf_order = list(range(v))
-        self._kf_seq_next += v
+        self._renumber_kf_seq()
         self.last_kf_slot = self._kf_order[-1] if self._kf_order else -1
+
+    def _renumber_kf_seq(self) -> None:
+        """Fresh sequence ids for the active slots, in temporal order."""
+        self.kf_seq[:] = -1
+        for s in self._kf_order:
+            self.kf_seq[s] = self._kf_seq_next
+            self._kf_seq_next += 1
 
     def _kf_ref(self) -> int:
         return self._kf_order[-1] if self._kf_order else 0
@@ -247,6 +266,7 @@ class MonoSlam:
         self.map = map_state.remove_keyframe(self.map, best_slot)
         self._pending_redundancy = None   # ranking is stale once a KF left
         order.remove(best_slot)
+        self.kf_seq[best_slot] = -1
         self.kf_culled += 1
         self.stats["kf_culled"] = self.kf_culled
         self.stats["kf"] = self.n_kf
@@ -720,6 +740,7 @@ class MonoSlam:
         fuse_nb += [slot] * (3 - len(fuse_nb))
 
         self._kf_order.append(slot)
+        self.kf_seq[slot] = self._kf_seq_next
         self._kf_seq_next += 1
         self.last_kf_slot = slot
         self.frames_since_kf = 0
@@ -759,6 +780,7 @@ class MonoSlam:
         self._drain_mapping()
         self.loop_closer.add_keyframe(self.map, slot)
         if len(self._kf_order) >= self.loop_min_gap:
+            T_before = self.map.kf_T
             self.map, info = self.loop_closer.detect_and_correct(
                 self.map, slot, order=self._kf_order)
             if info.detected:
@@ -766,6 +788,13 @@ class MonoSlam:
                 self.T_last = self.map.kf_T[slot]
                 self.velocity = self._eye4()
                 self.stats["loops"] = self.loops_closed
+                if self.loop_correction_consumer:
+                    # validity and timestamps go WITH the poses: a map merge
+                    # in the same insertion can validate slots whose
+                    # T_before rows are stale, and the consumer anchors only
+                    # on slots valid at correction time
+                    self.last_loop_correction = (
+                        T_before, info, self.map.kf_valid, self.map.kf_ts)
         if self._stored_dbs and self.n_kf >= 4:
             self._try_map_merge(slot)
 
@@ -830,7 +859,7 @@ class MonoSlam:
             ts_all = self.map.kf_ts.cpu().numpy()
             slots = np.flatnonzero(kv)
             self._kf_order = [int(s) for s in slots[np.argsort(ts_all[slots])]]
-            self._kf_seq_next += len(self._kf_order)
+            self._renumber_kf_seq()
             self.last_kf_slot = self._kf_order[-1] if self._kf_order else -1
             self.stats["kf"] = self.n_kf
             # atlas indices shifted after the deletion; re-key the stashes

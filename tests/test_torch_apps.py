@@ -18,6 +18,9 @@ another summation order); the two ATEs within 10% of each other (or both
 under 1e-3 of the path, where 10% of a tiny number is noise).
 """
 
+import glob
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +36,8 @@ from eorb_slam_tpu_torch.io import config as tcfg, datasets as tds
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
 from eorb_slam_tpu_torch.slam import relocalization as trl, system as tsys
 from tests.test_torch_l2_slice import jax_draws  # noqa: F401 (fixture)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -211,21 +216,60 @@ def test_run_sequence_monocular_320_matches_jax(data, both, tmp_path):
 @pytest.mark.parametrize("sensor,row", [
     ("event_mono", "row 12"), ("event_imu_mono", "row 12")])
 def test_unported_sensor_configs_name_their_roadmap_row(sensor, row):
+    """The modes of ROADMAP.md Queue 1 ``row`` are ported now: their sensor
+    configurations build the image-clock event systems instead of raising
+    a NotImplementedError that names the row."""
+    from eorb_slam_tpu_torch.slam import ev_image_system as tev, event_inertial as tei
+
     st = tcfg.Settings(sensor=tcfg.sensor_from_string(sensor))
-    with pytest.raises(NotImplementedError, match=row):
-        trun.build_system(st, device="cpu")
+    slam = trun.build_system(st, device="cpu")
+    cls = tei.EvImageInertialSlam if sensor == "event_imu_mono" else tev.EvImageSlam
+    assert type(slam) is cls and slam.device.type == "cpu"
+    assert slam.im.loop_closer is None and hasattr(slam, "fused_trajectory")
 
 
 def test_unported_branches_raise():
+    from eorb_slam_tpu_torch.slam import event_continuous as tec
+
+    # the continuous tracker (row 14) is ported: contTracking (default 1) builds it
     st = tcfg.Settings(sensor=tcfg.SensorConfig.EVENT_ONLY)
-    with pytest.raises(NotImplementedError, match="row 14"):   # continuous
-        trun.build_system(st, device="cpu")
+    assert st.event.continuous
+    assert isinstance(trun.build_system(st, device="cpu"), tec.EventSlamContinuous)
     st = tcfg.Settings(features=tcfg.FeatureConfig(mode=2))
     with pytest.raises(NotImplementedError, match="row 13"):   # mixed features
         trun.build_system(st, device="cpu")
     assert trun.make_vocab(tcfg.Settings(), device="cpu") is None
     with pytest.raises(ValueError):
         trun.build_system(tcfg.Settings(sensor=tcfg.SensorConfig.IDLE), device="cpu")
+
+
+_CONFIG_SYSTEMS = {
+    "event_only": "EventSlamContinuous", "monocular": "MonoSlam",
+    "imu_monocular": "MonoInertialSlam", "event_imu": "EventInertialSlam",
+    "stereo": "StereoSlam", "rgbd": "RgbdSlam", "imu_stereo": "StereoInertialSlam",
+    "event_mono": "EvImageSlam", "event_imu_mono": "EvImageInertialSlam",
+}
+
+
+@pytest.mark.parametrize("name", sorted(
+    os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
+    + ["synth_ev_only.yaml+contTracking"])
+def test_build_system_builds_every_config(name, tmp_path):
+    """Every settings file of configs/ builds its system (no mode raises any
+    more), and synth_ev_only.yaml with ``Event.contTracking: 1`` builds the
+    continuous tracker."""
+    path = os.path.join(REPO, "configs", name.split("+")[0])
+    if name.endswith("+contTracking"):
+        text = open(path).read().replace("Event.contTracking: 0", "Event.contTracking: 1")
+        assert "Event.contTracking: 1" in text
+        path = str(tmp_path / "cont.yaml")
+        open(path, "w").write(text)
+    st = tcfg.load_settings(path)
+    slam = trun.build_system(st, device="cpu")
+    want = _CONFIG_SYSTEMS[st.sensor.name.lower()]
+    if st.sensor is tcfg.SensorConfig.EVENT_ONLY and not st.event.continuous:
+        want = "EventSlam"
+    assert type(slam).__name__ == want and slam.device.type == "cpu"
 
 
 def test_build_system_reads_the_settings():

@@ -13,6 +13,8 @@ from eorb_slam_tpu_torch.event import builder as tb
 from eorb_slam_tpu_torch.imu import preintegration as tpre
 from eorb_slam_tpu_torch.io import config as tcfg, synth_dataset as tsd
 from eorb_slam_tpu_torch.slam import atlas as tatlas
+from eorb_slam_tpu_torch.slam import ev_image_system as tev
+from eorb_slam_tpu_torch.slam import event_continuous as tec
 from eorb_slam_tpu_torch.slam import event_inertial as tei
 from eorb_slam_tpu_torch.slam import event_system as tes
 from eorb_slam_tpu_torch.slam import loop_closing as tlc
@@ -59,6 +61,14 @@ ENTRY_POINTS = {
         CAM, tpre.make_calib(), baseline=0.11, N=32, **SMALL, **kw),
     "LoopCloser": lambda **kw: tlc.LoopCloser(
         CAM, np.ones((8, 256), np.int8), Kmax=4, **kw),
+    "EvImageSlam": lambda **kw: tev.EvImageSlam(CAM, max_kp=32, ev_max_kp=32,
+                                                **SMALL, **kw),
+    "EvImageInertialSlam": lambda **kw: tei.EvImageInertialSlam(
+        CAM, tpre.make_calib(), max_kp=32, ev_max_kp=32, **SMALL, **kw),
+    "ContinuousEventTracker": lambda **kw: tec.ContinuousEventTracker(
+        CAM, n_tracks=32, **SMALL, **kw),
+    "EventSlamContinuous": lambda **kw: tec.EventSlamContinuous(CAM, n_tracks=32,
+                                                                **SMALL, **kw),
 }
 
 
@@ -82,8 +92,13 @@ def test_cpu_runs_when_asked(name):
         assert obj.l2.map.kf_T.device.type == "cpu"
     else:
         assert obj.device.type == "cpu"
-    if hasattr(getattr(obj, "l2", obj), "calib"):
-        vi = getattr(obj, "l2", obj)
+    if hasattr(obj, "ev"):      # the image-clock event modes: both maps
+        assert obj.builder.device.type == obj.im.device.type == obj.ev.device.type
+        assert obj.im.map.kf_T.device.type == obj.ev.map.kf_T.device.type == "cpu"
+    if hasattr(obj, "tracks"):
+        assert obj.tracks.xy.device.type == "cpu"
+    vi = getattr(obj, "l2", getattr(obj, "im", obj))
+    if hasattr(vi, "calib"):
         assert vi.calib.Tbc.device.type == vi.pre_kf.C.device.type == "cpu"
 
 

@@ -37,7 +37,9 @@ def test_port_imports_without_jax():
                  "optim.marginalize", "optim.vi_ba", "slam.vi_system",
                  "slam.event_inertial", "ops.stereo_match", "slam.rgbd_stereo",
                  "geometry.sim3_solver", "optim.pose_graph", "retrieval.bow",
-                 "slam.loop_closing", "utils.logging"):
+                 "slam.loop_closing", "utils.logging", "slam.fusion",
+                 "slam.ev_image_system", "slam.event_continuous",
+                 "event.feature_tracks"):
         assert f"eorb_slam_tpu_torch.{name}" in mods, name
     code = "\n".join([
         "import sys, importlib",

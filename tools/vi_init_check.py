@@ -16,15 +16,26 @@ reference) or in the PyTorch port, run through each package's
     # on two turns of the room loop (chip_smoke.run_app_loop's sequence)
     python tools/vi_init_check.py --out DIR --package jax --loops --kind room \
         --loop 10 --frames 402 --max-frames 400
+    # EVENT_MONO / EVENT_IMU_MONO with configs/synth_ev_mono.yaml /
+    # synth_ev_imu_mono.yaml, and EVENT_ONLY with synth_ev_only.yaml and
+    # Event.contTracking: 1, on 0.5 s of shakes (chip_smoke's sequence)
+    python tools/vi_init_check.py --out DIR --package jax --kind shakes \
+        --mode event_mono     # or event_imu_mono, continuous
 
 Prints every inertial-init attempt (frame, GN iterations, scale, chi2 per
 residual dof against the 3.0 gate), the first initialized frame, the
 tracked share and the ATE with the scale fixed at 1 and Sim3-aligned. With
 ``--loops``: the frames not tracked, where a new map starts and where the
 maps merge, every detection pass that found a candidate and the loop
-closer's gate decisions (the ``eorb.loop`` log lines). The sequence is
+closer's gate decisions (the ``eorb.loop`` log lines). With ``--kind
+shakes``: the images tracked, both maps' keyframes, the joint init, joint
+frames and joint BAs, the Sim3 ATE and whether the fused trajectory was
+written (``--mode continuous``: chunks, windows, keyframes and poses). The
+sequence is
 generated on the CPU once per DIR. ``--seed`` reseeds the port's RANSAC
-generator (the JAX package keeps its PRNGKey(0)).
+generator (the JAX package keeps its PRNGKey(0), except for the image
+tracker of ``--mode event_mono`` / ``event_imu_mono``, whose key becomes
+PRNGKey(seed)).
 """
 
 from __future__ import annotations
@@ -52,14 +63,21 @@ def _settings(config: str, root: str, path: str, seq: str) -> str:
 def _generate(a) -> str:
     from eorb_slam_tpu_torch.io import synth_dataset as sd
 
-    if a.event_imu:
+    if a.event_imu or a.kind == "shakes":
         seq = "shakes_01"
         if not os.path.exists(os.path.join(a.out, seq)):
             scene = sd.make_scene("shakes", 240, 180, 199.0, n_dots=6000, seed=0)
             sd.write_ev_ethz(a.out, seq, scene, sd.make_trajectory("shakes", 0.5), 0.5,
                              fps=24.0, sim_hz=150.0, contrast=0.25, verbose=False,
                              device="cpu")
-        return _settings("synth_ev_imu.yaml", a.out, os.path.join(a.out, "s.yaml"), seq)
+        config = {"event_mono": "synth_ev_mono.yaml", "event_imu_mono": "synth_ev_imu_mono.yaml",
+                  "continuous": "synth_ev_only.yaml"}.get(a.mode, "synth_ev_imu.yaml")
+        path = _settings(config, a.out, os.path.join(a.out, f"{a.mode or 's'}.yaml"), seq)
+        if a.mode == "continuous":
+            text = re.sub(r"(?m)^Event\.contTracking:.*$", "Event.contTracking: 1",
+                          open(path).read())
+            open(path, "w").write(text)
+        return path
     seq = f"{a.kind}_st_01" if a.stereo else f"{a.kind}_01"
     if not os.path.exists(os.path.join(a.out, seq)):
         W, H, fx, fps = 752, 480, 458.0, 20.0
@@ -82,7 +100,11 @@ def main(argv=None):
     p.add_argument("--stereo", action="store_true", help="IMU_STEREO")
     p.add_argument("--loops", action="store_true",
                    help="MONOCULAR with place recognition (room_large)")
-    p.add_argument("--kind", default="room", choices=["room", "corridor"])
+    p.add_argument("--kind", default="room", choices=["room", "corridor", "shakes"])
+    p.add_argument("--mode", default=None,
+                   choices=["event_mono", "event_imu_mono", "continuous"],
+                   help="with --kind shakes: the image-clock event modes, or the "
+                        "continuous event tracker")
     p.add_argument("--loop", type=float, default=10.0, help="room loop period, s")
     p.add_argument("--frames", type=int, default=84, help="frames generated")
     p.add_argument("--max-frames", type=int, default=None)
@@ -96,6 +118,17 @@ def main(argv=None):
         from eorb_slam_tpu.optim import inertial
         from eorb_slam_tpu.slam import loop_closing, rgbd_stereo, system, vi_system
         extra = []
+        if a.seed and a.kind == "shakes" and a.mode in ("event_mono", "event_imu_mono"):
+            import jax
+
+            build = run_slam.build_system
+
+            def keyed(*args, **kw):
+                slam = build(*args, **kw)
+                slam.im.key = jax.random.PRNGKey(a.seed)   # the image tracker's draws
+                return slam
+
+            run_slam.build_system = keyed
     else:
         from eorb_slam_tpu_torch.apps import run_slam
         from eorb_slam_tpu_torch.optim import inertial
@@ -105,7 +138,7 @@ def main(argv=None):
 
         def seeded(*args, **kw):
             slam = build(*args, **kw)
-            (getattr(slam, "l2", slam)).generator.manual_seed(a.seed)
+            getattr(slam, "l2", getattr(slam, "im", slam)).generator.manual_seed(a.seed)
             return slam
 
         run_slam.build_system = seeded
@@ -147,6 +180,29 @@ def main(argv=None):
     if a.max_frames:
         args += ["--max-frames", str(a.max_frames)]
     (out,) = run_slam.main(args)
+    if a.kind == "shakes" and a.mode:
+        st = out["stats"]
+        if a.mode == "continuous":
+            print(f"RESULT {a.package} continuous: {st['chunks']} chunks ({st['idle']} idle), "
+                  f"{st['windows']} windows, {st['l2_tiny']} tiny and {st['l2_full']} full "
+                  f"images, {st['l2_kf']} keyframes, {out['tracked_poses']} tracked poses")
+            return
+        from importlib import import_module
+
+        datasets = import_module(run_slam.__name__.rsplit(".", 2)[0] + ".io.datasets")
+        seq = datasets.load_sequence("ev_ethz", a.out, "shakes_01", ts_factor=1.0)
+        ev = (run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
+              if "trajectory_file" in out else {})
+        path = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+        print(f"RESULT {a.package} {a.mode}: {out['iterations']} images, "
+              f"{out['tracked_poses']} tracked poses; image / event keyframes "
+              f"{st['im']['kf']} / {st['ev']['kf']}; joint inits {st['joint_inits']}, "
+              f"joint frames {st['joint_frames']}, joint BAs {st['joint_bas']}; Sim3 ATE "
+              f"{ev.get('ate_rmse')} m over {path} m of path "
+              f"({100 * ev.get('ate_rmse', np.nan) / max(path, 1e-12):.1f}%); fused file "
+              f"{'written' if 'fused_trajectory_file' in out else 'not written'}, fusion "
+              f"error {out.get('fusion_error')}; event tracker frames {st['ev']['frames']}")
+        return
     if a.loops:
         rec, passes = mono
         lost = [i for i, (s, *_) in enumerate(rec) if s != system.OK]
