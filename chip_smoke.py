@@ -180,11 +180,16 @@ CONT_POSE_TOL = 2e-3       # continuous tracker, Tcw max abs per window
 # forward and VJP splat launches of one build_mci: 4 candidates, the
 # ascent's 1 + 2 per step, and one VJP per step
 MCI_FWD, MCI_VJP = 4 + 1 + 2 * CM_ITERS, CM_ITERS
-# EVENT_MONO / EVENT_IMU_MONO: the image tracker's generator seeds the app
-# runs with (the first is the app's own), and in how many of them the event
-# map must be born with a joint frame after it
-EV_SEEDS, EV_SEEDS_MIN = (0, 1, 2), 2
+# EVENT_MONO / EVENT_IMU_MONO: the image tracker's generator seed of the app
+# runs. The event map's birth follows the image map's one two-view RANSAC
+# draw: with JAX's draws replayed the port births it as the reference does,
+# and on the card seeds 0-9 birth it 9 / 10 times (EVENT_MONO; seed 0 does
+# not) and 10 / 10 (EVENT_IMU_MONO): `tools/vi_init_check.py --package both`
+# and `--seeds 0-9`, PERF.md section 6. Seed 1 is the first that births it
+# in both modes, so the gated run drives the joint steps and event tracking.
+EV_IMAGE_SEED = 1
 CHUNK_N = 12000            # BuilderConfig.max_chunk: _chunk_image's padded width
+CONT_PROFILED = 40         # continuous app: full images before the profiled window
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -249,13 +254,20 @@ def _profile(fn):
     tools/profile_cost.py on an H100 host) in about half the
     post-processing time (2 s against 4-5 s); with the CPU's on, one such
     run lost 167 of them."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
+    return out, _activity(prof)
+
+
+def _activity(prof):
+    """{device activity name: (count, total device microseconds)} of a
+    finished torch.profiler run."""
+    from torch.autograd import DeviceType
+
     per = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -263,7 +275,7 @@ def _profile(fn):
             if us is None:
                 us = e.self_cuda_time_total
             per[e.key] = (e.count, float(us))
-    return out, per
+    return per
 
 
 def _matching(per, *words):
@@ -1037,9 +1049,7 @@ def check_kernel_generator():
     (identity form, sigma 1.1): the shakes scene's 24,000 projected sub-dots
     with the 0/1 f32 weights the renderer really passes, and 6,000 dots with
     f32 amplitude weights. Returns one row per shape."""
-    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
     from eorb_slam_tpu_torch.io import synth_dataset as sd
-    from eorb_slam_tpu_torch.ops import hopper_splat as hs
 
     scene = sd.make_scene("shakes", W, H, CAM[0], n_dots=GEN_DOTS, seed=0)
     T = torch.tensor(sd.make_trajectory("shakes", GEN_S)(0.1), dtype=torch.float32,
@@ -1053,28 +1063,36 @@ def check_kernel_generator():
     amp = torch.tensor(scene.amp, device="cuda")
     shapes = [("renderer", uv, ok.to(torch.float32)),
               ("amplitudes", uv[::4].contiguous(), (amp * ok)[::4].contiguous())]
-    cfg = (H, W, GEN_SIGMA, TRUNC)
-    rows = []
-    for name, xy, w in shapes:
-        n = xy.shape[0]
-        ref = _splat_gauss_separable(xy, w, *cfg)
-        got = hs.splat(xy, w, *cfg)
-        torch.cuda.synchronize()
-        err = _held(got, ref, FWD_TOL, f"generator shape {name} N={n}")
-        act = int(((w != 0) & (xy[:, 0] > -3.5) & (xy[:, 0] < W + 3.5)
-                   & (xy[:, 1] > -3.5) & (xy[:, 1] < H + 3.5)).sum())
-        row = dict(name=name, n=n, err=err, ref=float(ref.abs().max()), active=act,
-                   ms=_time_ms(lambda: hs.splat(xy, w, *cfg)),
-                   dev_ms=_device_ms(lambda: hs.splat(xy, w, *cfg)),
-                   plain_ms=_time_ms(lambda: _splat_gauss_separable(xy, w, *cfg)),
-                   bound=_bound(n, act, False, False))
-        _log(f"splat at the generator's shape ({name}): N={n} ({act} in view), sigma "
-             f"{GEN_SIGMA}, identity form: max abs {err:.3e} (max|ref| {row['ref']:.3f}, "
-             f"tol {FWD_TOL}x) | ms by events / device only / plain / bound "
-             f"(12N + 4HW bytes): {row['ms']:.4f} / {row['dev_ms']:.5f} / "
-             f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
-        rows.append(row)
-    return rows
+    return [_identity_row(f"the generator's shape ({name})", xy, w, GEN_SIGMA)
+            for name, xy, w in shapes]
+
+
+def _identity_row(what, xy, w, sigma):
+    """The identity-form forward on the card at one call site's shape: held
+    against the plain version at FWD_TOL, timed by events, by graph replay
+    and plain, beside its bound. Active events: weight != 0, within the
+    taps' reach of the image."""
+    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    n, cfg = xy.shape[0], (H, W, sigma, TRUNC)
+    ref = _splat_gauss_separable(xy, w, *cfg)
+    got = hs.splat(xy, w, *cfg)
+    torch.cuda.synchronize()
+    err = _held(got, ref, FWD_TOL, f"splat at {what} N={n}")
+    r = TRUNC + 1.0
+    act = int(((w != 0) & (xy[:, 0] > -r) & (xy[:, 0] < W + r)
+               & (xy[:, 1] > -r) & (xy[:, 1] < H + r)).sum())
+    row = dict(n=n, err=err, ref=float(ref.abs().max()), active=act,
+               ms=_time_ms(lambda: hs.splat(xy, w, *cfg)),
+               dev_ms=_device_ms(lambda: hs.splat(xy, w, *cfg)),
+               plain_ms=_time_ms(lambda: _splat_gauss_separable(xy, w, *cfg)),
+               bound=_bound(n, act, False, False))
+    _log(f"splat at {what}: N={n} ({act} active), sigma {sigma}, identity form: max abs "
+         f"{err:.3e} (max|ref| {row['ref']:.3f}, tol {FWD_TOL}x) | ms by events / device "
+         f"only / plain / bound (12N + 4HW bytes): {row['ms']:.4f} / {row['dev_ms']:.5f} / "
+         f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
+    return row
 
 
 def _settings_with_root(config: str, root: str, out_dir: str) -> str:
@@ -2473,29 +2491,12 @@ def check_kernel_chunk():
     chunk of 6,000 in-image events padded to CHUNK_N slots with weight-0
     rows (the valid mask as the weight), sigma 1."""
     from eorb_slam_tpu_torch.event import builder as eb
-    from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable
-    from eorb_slam_tpu_torch.ops import hopper_splat as hs
 
     ev = synth_stream(0.002, RATE, seed=21)[:6000]
     pad, valid, _ = eb._pad_events(ev, CHUNK_N)
     xy = torch.tensor(pad[:, 1:3], device="cuda").contiguous()
     w = torch.tensor(valid, device="cuda").to(torch.float32)
-    cfg = (H, W, SIGMA, TRUNC)
-    ref = _splat_gauss_separable(xy, w, *cfg)
-    got = hs.splat(xy, w, *cfg)
-    torch.cuda.synchronize()
-    err = _held(got, ref, FWD_TOL, f"_chunk_image shape N={CHUNK_N}")
-    act = int(valid.sum())
-    row = dict(n=CHUNK_N, err=err, ref=float(ref.abs().max()), active=act,
-               ms=_time_ms(lambda: hs.splat(xy, w, *cfg)),
-               dev_ms=_device_ms(lambda: hs.splat(xy, w, *cfg)),
-               plain_ms=_time_ms(lambda: _splat_gauss_separable(xy, w, *cfg)),
-               bound=_bound(CHUNK_N, act, False, False))
-    _log(f"splat at _chunk_image's shape: N={CHUNK_N} ({act} valid), identity form: max abs "
-         f"{err:.3e} (max|ref| {row['ref']:.3f}, tol {FWD_TOL}x) | ms by events / device "
-         f"only / plain / bound (12N + 4HW bytes): {row['ms']:.4f} / {row['dev_ms']:.5f} / "
-         f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
-    return row
+    return _identity_row("_chunk_image's shape", xy, w, SIGMA)
 
 
 class _EvWorld:
@@ -2674,12 +2675,11 @@ def check_ev_image_small():
     if e_cost > L2_COST_TOL_F64 or e_ba > POSE_GRAPH_TOL_F64:
         raise RuntimeError(f"joint local BA float64: cost {e_cost}, kf_T {e_ba}")
 
-    # build_mci on one 65,536-event window, with the pose prior in. The two
-    # devices' ascents end at parameters that differ by their float32
-    # summation orders, so their MCIs differ smoothly; what the kernels must
-    # match is their plain versions on the card's own inputs: each of the
-    # four candidate splats is recomputed on the CPU from what the card gave
-    # it, and the card's MCI against the plain version of its winner.
+    # build_mci on one 65,536-event window, with the pose prior in: the same
+    # winner, scores within 1e-5 relative and the MCI within the forward
+    # tolerance of the CPU's; and each of the four candidate splats
+    # recomputed on the CPU from what the card gave it, and the card's MCI
+    # against the plain version of its winner.
     from eorb_slam_tpu_torch.event import tensorize
 
     win = synth_stream(0.03, RATE, seed=23)
@@ -2729,13 +2729,13 @@ def check_ev_image_small():
                     FWD_TOL, "build_mci MCI against the plain version of its winner")
     fin = np.isfinite(scores["cpu"])
     rel = np.abs(scores["cuda"][fin] - scores["cpu"][fin]) / np.abs(scores["cpu"][fin])
-    dev_diff = float((mcis["cuda"].cpu() - mcis["cpu"]).abs().max())
+    dev_err = _held(mcis["cuda"].cpu(), mcis["cpu"], FWD_TOL, "build_mci MCI cuda vs cpu")
     _log(f"build_mci cuda vs cpu, {len(win)} events into {cap} slots, {CM_ITERS} ascent "
          f"steps: best {kinds['cuda']} / {kinds['cpu']}, scores {scores['cuda'].tolist()} max "
-         f"rel {rel.max():.2e}; the four candidate splats against their plain versions on "
-         f"the card's inputs, max abs {[f'{e:.2e}' for e in raw_err]}, the MCI {mci_err:.2e} "
-         f"(tol {FWD_TOL}x max); not gated: SE2 params {se2['cuda'].tolist()} / "
-         f"{se2['cpu'].tolist()}, the two devices' MCIs {dev_diff:.2e} apart")
+         f"rel {rel.max():.2e}; the MCI cuda vs cpu max abs {dev_err:.2e} (tol {FWD_TOL}x "
+         f"max); the four candidate splats against their plain versions on the card's "
+         f"inputs, max abs {[f'{e:.2e}' for e in raw_err]}, the MCI {mci_err:.2e}; SE2 params "
+         f"{se2['cuda'].tolist()} / {se2['cpu'].tolist()}")
     if kinds["cuda"] != kinds["cpu"] or not np.array_equal(np.isfinite(scores["cuda"]), fin) \
             or rel.max() > 1e-5:
         raise RuntimeError(f"build_mci: {kinds}, scores {scores}")
@@ -2851,11 +2851,9 @@ def _run_app_event_image(work, root, config, tag):
     Gates: cuda; the image map with >= 2 keyframes and the tracked share
     after its init; the Sim3 ATE; no fusion error, and the fused file
     written when fusion found a chain; the splat launches MCI_FWD + MCI_VJP
-    per synch MCI. The event map's birth (the joint init) needs >= 20
-    matches triangulated with the image tracker's poses, which depend on the
-    image map's two-view RANSAC draws: the app is run again with the image
-    tracker's generator at each of EV_SEEDS, and the event map must be born
-    with a joint frame after it in >= EV_SEEDS_MIN of them."""
+    per synch MCI; the event map born (>= 2 keyframes) and a joint frame
+    after it. The image tracker's generator is seeded with EV_IMAGE_SEED
+    (see there)."""
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import ev_image_system as evi
@@ -2866,16 +2864,23 @@ def _run_app_event_image(work, root, config, tag):
     track, run_seq = evi.EvImageSlam.track_ev_mono, run_slam.run_sequence
     n_images = int(GEN_S * GEN_FPS)
 
+    build = run_slam.build_system
+
     def keep(st, s, **kw):
         slam, out = run_seq(st, s, **kw)
         slams.append((slam, s))
         return slam, out
 
+    def seeded(*a, **kw):
+        slam = build(*a, **kw)
+        slam.im.generator.manual_seed(EV_IMAGE_SEED)
+        return slam
+
     with _Syncs() as sy:
         def recording(self, *a, **kw):
             if len(rec) == n_images - 1:       # the last image, under the profiler
                 res, per = _profile(lambda: track(self, *a, **kw))
-                prof.append(per)
+                prof.append((per, self.ev.state))
             else:
                 res = track(self, *a, **kw)
             sy.mark()
@@ -2883,7 +2888,7 @@ def _run_app_event_image(work, root, config, tag):
             return res
 
         evi.EvImageSlam.track_ev_mono = recording
-        run_slam.run_sequence = keep
+        run_slam.run_sequence, run_slam.build_system = keep, seeded
         hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
         try:
             (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
@@ -2891,12 +2896,12 @@ def _run_app_event_image(work, root, config, tag):
             torch.cuda.synchronize()
         finally:
             evi.EvImageSlam.track_ev_mono = track
-            run_slam.run_sequence = run_seq
+            run_slam.run_sequence, run_slam.build_system = run_seq, build
     launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
     slam, seq = slams[0]
     windows = slam.builder.stats["windows"]
     chains = slam.fused_trajectory().get("chains", 0)
-    per = prof[0] if prof else {}
+    per, ev_state_prof = prof[0] if prof else ({}, None)
     prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3)
     st = out["stats"]
     ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
@@ -2912,13 +2917,15 @@ def _run_app_event_image(work, root, config, tag):
              launches=launches, reads=float(np.mean(reads)), launches_frame=prof[0],
              device_ms=prof[1], ate_frac=ate_frac, first_ok=first_ok, n_ok=n_ok,
              chains=chains, stats=st)
-    _log(f"run_slam {tag} on {out['device']}: {n} images in {out['wall_s']:.3f} s wall = "
+    _log(f"run_slam {tag} on {out['device']}, image tracker seed {EV_IMAGE_SEED}: {n} images "
+         f"in {out['wall_s']:.3f} s wall = "
          f"{r['fps']:.3f} frames/s (real-time x {n / GEN_FPS / out['wall_s']:.4f}); image map "
          f"initialised at image {first_ok}, then {n_ok}/{len(after)} tracked; event states "
          f"{[b for _, b, _ in rec]}, joint-init matches {[c for _, _, c in rec]}; {windows} "
          f"synch MCIs, splat launches {launches[0]} forward + {launches[1]} VJP; blocking "
          f"reads per image after the init {r['reads']:.1f} (each: {reads}); the last image "
-         f"under torch.profiler: {prof[0]} device launches, {prof[1]:.2f} ms of device time")
+         f"under torch.profiler (event state after it {ev_state_prof}): {prof[0]} device "
+         f"launches, {prof[1]:.2f} ms of device time")
     _log(f"run_slam {tag} result: image KFs {st['im']['kf']}, event KFs {st['ev']['kf']}, "
          f"joint inits {st['joint_inits']}, joint frames {st['joint_frames']}, joint BAs "
          f"{st['joint_bas']}, gauge reseeds {st['gauge_reseeds']}; Sim3 ATE "
@@ -2930,6 +2937,8 @@ def _run_app_event_image(work, root, config, tag):
         raise RuntimeError(f"{tag}: run_slam ran on {out['device']}")
     if st["im"]["kf"] < 2 or not after or n_ok < APP_TRACK_MIN * len(after):
         raise RuntimeError(f"{tag}: image map {st['im']}, {n_ok}/{len(after)} tracked")
+    if st["ev"]["kf"] < 2 or st["joint_frames"] < 1:
+        raise RuntimeError(f"{tag}: event map {st['ev']}, joint frames {st['joint_frames']}")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ate_frac <= APP_ATE_MAX):
         raise RuntimeError(f"{tag}: ATE {ev}")
     if "fusion_error" in out or (chains > 0) != ("fused_trajectory_file" in out):
@@ -2938,33 +2947,6 @@ def _run_app_event_image(work, root, config, tag):
         raise RuntimeError(f"{tag}: {launches} splat launches for {windows} synch MCIs, "
                            f"expected {MCI_FWD} + {MCI_VJP} each")
 
-    # the event map's birth across the image tracker's draws
-    born = {EV_SEEDS[0]: (st["ev"]["kf"], st["joint_inits"], st["joint_frames"],
-                          st["joint_bas"], "fused_trajectory_file" in out)}
-    build = run_slam.build_system
-    for seed in EV_SEEDS[1:]:
-        def seeded(*a, _seed=seed, **kw):
-            s = build(*a, **kw)
-            s.im.generator.manual_seed(_seed)
-            return s
-
-        run_slam.build_system = seeded
-        try:
-            (o,) = run_slam.main([settings, "--sequence", "shakes_01",
-                                  "--out", os.path.join(work, f"results_{tag}_{seed}")])
-        finally:
-            run_slam.build_system = build
-        so = o["stats"]
-        born[seed] = (so["ev"]["kf"], so["joint_inits"], so["joint_frames"], so["joint_bas"],
-                      "fused_trajectory_file" in o)
-    n_born = sum(kf >= 2 and jf >= 1 for kf, _, jf, _, _ in born.values())
-    _log(f"run_slam {tag} over the image tracker's seeds (event KFs, joint inits, joint "
-         f"frames, joint BAs, fused): {born}; the event map born with a joint frame in "
-         f"{n_born} of {len(EV_SEEDS)}")
-    if n_born < EV_SEEDS_MIN:
-        raise RuntimeError(f"{tag}: the event map was born in {n_born} of {len(EV_SEEDS)} "
-                           f"seeds: {born}")
-    r["born"] = born
     return slam, r
 
 
@@ -2995,9 +2977,13 @@ def run_app_event_continuous(work: str, root: str):
     reaches its end, every full image is a window and every tiny one a
     chunk, and the splat launches: one per chunk past the gen-rate gate
     plus MCI_FWD + MCI_VJP per window. Accuracy is printed, not gated (the
-    reference's tracker does not initialize on this data)."""
+    reference's tracker does not initialize on this data). Blocking reads
+    are counted per window (from one full image to the next), and the
+    window after CONT_PROFILED full images runs under the profiler."""
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.ops import hopper_splat
+    from eorb_slam_tpu_torch.slam import event_continuous as tec
+    from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     settings = _settings_with_root("synth_ev_only.yaml", root, work)
@@ -3008,12 +2994,36 @@ def run_app_event_continuous(work: str, root: str):
         raise RuntimeError(f"synth_ev_only.yaml: {n_sub} Event.contTracking lines")
     with open(settings, "w") as f:
         f.write(text)
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
-    (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
-                            "--out", os.path.join(work, "results_cont")])
-    torch.cuda.synchronize()
+    process = tec.ContinuousEventTracker.process_event_image
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with _Syncs() as sy:
+        def windowed(self, img, ts, full=True):
+            r = process(self, img, ts, full=full)
+            if full:
+                sy.mark()
+                if len(sy.steps) == CONT_PROFILED:
+                    torch.cuda.synchronize()
+                    prof.start()
+                elif len(sy.steps) == CONT_PROFILED + 1:
+                    torch.cuda.synchronize()
+                    prof.stop()
+            return r
+
+        tec.ContinuousEventTracker.process_event_image = windowed
+        hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+        try:
+            (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
+                                    "--out", os.path.join(work, "results_cont")])
+            torch.cuda.synchronize()
+        finally:
+            tec.ContinuousEventTracker.process_event_image = process
     launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
     st, ev = out["stats"], out.get("eval", {})
+    if st["windows"] <= CONT_PROFILED + 1:
+        raise RuntimeError(f"continuous: {st['windows']} windows, none profiled")
+    per = _activity(prof)
+    win_prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3)
+    reads = sy.steps[1:]
     want = (st["chunks"] - st["idle"] + MCI_FWD * st["windows"], MCI_VJP * st["windows"])
     ate = (f"Sim3 ATE {ev.get('ate_rmse')} m over {ev.get('ate_n')} poses"
            if ev.get("ate_n", 0) >= APP_MIN_ATE_N else "ATE not printed (fewer than "
@@ -3024,14 +3034,20 @@ def run_app_event_continuous(work: str, root: str):
          f"time x {GEN_S / out['wall_s']:.4f}); tiny {st['l2_tiny']}, full {st['l2_full']}; "
          f"keyframes {st['l2_kf']}, tracked poses {out['tracked_poses']}, lost "
          f"{st['l2_lost']}; {ate}; splat launches {launches[0]} + {launches[1]} (expected "
-         f"{want[0]} + {want[1]}); {time.perf_counter() - t0:.1f} s")
+         f"{want[0]} + {want[1]}); blocking reads per window {float(np.mean(reads)):.1f} "
+         f"(each: {reads}); window {CONT_PROFILED + 1} under torch.profiler: {win_prof[0]} "
+         f"device launches, {win_prof[1]:.2f} ms of device time; "
+         f"{time.perf_counter() - t0:.1f} s")
     if out["device"] != "cuda" or out["iterations"] < 1:
         raise RuntimeError(f"continuous: {out['device']}, {out['iterations']} chunks")
     if st["l2_full"] != st["windows"] or st["l2_tiny"] != st["chunks"] - st["windows"]:
         raise RuntimeError(f"continuous: stats {st}")
     if launches != want:
         raise RuntimeError(f"continuous: {launches} splat launches, expected {want}")
-    return dict(launches=launches, chunk_launches=st["chunks"] - st["idle"], stats=st)
+    if not win_prof[0]:
+        raise RuntimeError(f"continuous: the profiled window launched nothing: {per}")
+    return dict(launches=launches, windows=st["windows"], reads=float(np.mean(reads)),
+                launches_window=win_prof[0], device_ms_window=win_prof[1], stats=st)
 
 
 def main() -> int:
@@ -3115,13 +3131,19 @@ def main() -> int:
     # modes' and the continuous tracker's through the app. The last two rows
     # time the same kernels at the new call sites' shapes, with the launches
     # of that site: build_mci's ascent (every VJP of those paths, SE2 at
-    # 65,536) and _chunk_image (one identity forward per chunk, 12,000).
+    # 65,536) and _chunk_image (one identity forward per chunk, 12,000: the
+    # measured forward launches less MCI_FWD per measured window).
     _log(f"new phases, wall s: {phase_s}")
     main_row = next(r for r in rows if r["n"] == MAIN_N)
     big_row = next(r for r in rows if r["n"] == KERNEL_NS[-1])
     gen_row = gen_rows[0]
     common = dict(route="cuda", source="eorb_slam_tpu_torch/csrc/splat.cu",
                   replaces="eorb_slam_tpu/ops/pallas_splat.py:60", library_ms=None)
+    # the forward launches of a phase less build_mci's MCI_FWD per window
+    chunk_site = lambda r: r["launches"][0] - MCI_FWD * r["windows"]
+    _log(f"_chunk_image launches (forward less {MCI_FWD} per window): EVENT_MONO "
+         f"{chunk_site(app_em)}, EVENT_IMU_MONO {chunk_site(app_eim)}, continuous "
+         f"{chunk_site(app_cont)}")
     paths = lambda a: dict(launches_event_mono=app_em["launches"][a],
                            launches_event_imu_mono=app_eim["launches"][a],
                            launches_continuous=app_cont["launches"][a])
@@ -3156,9 +3178,10 @@ def main() -> int:
              bound_ms=big_row["vjp_se2_bound"][0], bound_by=big_row["vjp_se2_bound"][1]),
         # _chunk_image: one identity splat per chunk of the continuous tracker
         dict(common, name="splat_gauss (_chunk_image: identity form)", n=CHUNK_N,
-             form="identity", launches=app_cont["chunk_launches"],
-             launches_event_mono=0, launches_event_imu_mono=0,
-             launches_continuous=app_cont["chunk_launches"],
+             form="identity", launches=chunk_site(app_cont),
+             launches_event_mono=chunk_site(app_em),
+             launches_event_imu_mono=chunk_site(app_eim),
+             launches_continuous=chunk_site(app_cont),
              max_abs_err=chunk_row["err"], ms=chunk_row["ms"],
              device_ms=chunk_row["dev_ms"], plain_ms=chunk_row["plain_ms"],
              bound_ms=chunk_row["bound"][0], bound_by=chunk_row["bound"][1]),

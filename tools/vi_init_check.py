@@ -21,6 +21,14 @@ reference) or in the PyTorch port, run through each package's
     # Event.contTracking: 1, on 0.5 s of shakes (chip_smoke's sequence)
     python tools/vi_init_check.py --out DIR --package jax --kind shakes \
         --mode event_mono     # or event_imu_mono, continuous
+    # the same modes over several image-tracker seeds in one process (the
+    # event map's birth rate), and both packages on the same draws: JAX's
+    # run first, then the port's with JAX's RANSAC draws and two-view fits
+    # replayed in call order (the draw injection of tests/test_torch_l2_slice.py)
+    python tools/vi_init_check.py --out DIR --package port --device cuda --kind shakes \
+        --mode event_mono --seeds 0-9
+    python tools/vi_init_check.py --out DIR --package both --kind shakes \
+        --mode event_mono --seed 0
 
 Prints every inertial-init attempt (frame, GN iterations, scale, chi2 per
 residual dof against the 3.0 gate), the first initialized frame, the
@@ -30,12 +38,14 @@ maps merge, every detection pass that found a candidate and the loop
 closer's gate decisions (the ``eorb.loop`` log lines). With ``--kind
 shakes``: the images tracked, both maps' keyframes, the joint init, joint
 frames and joint BAs, the Sim3 ATE and whether the fused trajectory was
-written (``--mode continuous``: chunks, windows, keyframes and poses). The
+written (``--mode continuous``: chunks, windows, keyframes and poses), and
+per image both trackers' states and the joint init's triangulated matches
+(``--package both``: side by side, with the largest pose difference). The
 sequence is
 generated on the CPU once per DIR. ``--seed`` reseeds the port's RANSAC
 generator (the JAX package keeps its PRNGKey(0), except for the image
 tracker of ``--mode event_mono`` / ``event_imu_mono``, whose key becomes
-PRNGKey(seed)).
+PRNGKey(seed)); ``--seeds A-B`` runs the image-clock modes once per seed.
 """
 
 from __future__ import annotations
@@ -95,7 +105,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--out", required=True)
-    p.add_argument("--package", choices=["jax", "port"], required=True)
+    p.add_argument("--package", choices=["jax", "port", "both"], required=True)
     p.add_argument("--event-imu", action="store_true")
     p.add_argument("--stereo", action="store_true", help="IMU_STEREO")
     p.add_argument("--loops", action="store_true",
@@ -110,25 +120,18 @@ def main(argv=None):
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--device", default="cpu")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seeds", default=None, help="A-B: --mode event_mono / event_imu_mono "
+                                                 "once per seed in A..B")
     a = p.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
     settings = _generate(a)
+    if a.kind == "shakes" and a.mode in ("event_mono", "event_imu_mono"):
+        return _event_image(a, settings)
     if a.package == "jax":
         from eorb_slam_tpu.apps import run_slam
         from eorb_slam_tpu.optim import inertial
         from eorb_slam_tpu.slam import loop_closing, rgbd_stereo, system, vi_system
         extra = []
-        if a.seed and a.kind == "shakes" and a.mode in ("event_mono", "event_imu_mono"):
-            import jax
-
-            build = run_slam.build_system
-
-            def keyed(*args, **kw):
-                slam = build(*args, **kw)
-                slam.im.key = jax.random.PRNGKey(a.seed)   # the image tracker's draws
-                return slam
-
-            run_slam.build_system = keyed
     else:
         from eorb_slam_tpu_torch.apps import run_slam
         from eorb_slam_tpu_torch.optim import inertial
@@ -180,28 +183,11 @@ def main(argv=None):
     if a.max_frames:
         args += ["--max-frames", str(a.max_frames)]
     (out,) = run_slam.main(args)
-    if a.kind == "shakes" and a.mode:
+    if a.mode == "continuous":
         st = out["stats"]
-        if a.mode == "continuous":
-            print(f"RESULT {a.package} continuous: {st['chunks']} chunks ({st['idle']} idle), "
-                  f"{st['windows']} windows, {st['l2_tiny']} tiny and {st['l2_full']} full "
-                  f"images, {st['l2_kf']} keyframes, {out['tracked_poses']} tracked poses")
-            return
-        from importlib import import_module
-
-        datasets = import_module(run_slam.__name__.rsplit(".", 2)[0] + ".io.datasets")
-        seq = datasets.load_sequence("ev_ethz", a.out, "shakes_01", ts_factor=1.0)
-        ev = (run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
-              if "trajectory_file" in out else {})
-        path = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
-        print(f"RESULT {a.package} {a.mode}: {out['iterations']} images, "
-              f"{out['tracked_poses']} tracked poses; image / event keyframes "
-              f"{st['im']['kf']} / {st['ev']['kf']}; joint inits {st['joint_inits']}, "
-              f"joint frames {st['joint_frames']}, joint BAs {st['joint_bas']}; Sim3 ATE "
-              f"{ev.get('ate_rmse')} m over {path} m of path "
-              f"({100 * ev.get('ate_rmse', np.nan) / max(path, 1e-12):.1f}%); fused file "
-              f"{'written' if 'fused_trajectory_file' in out else 'not written'}, fusion "
-              f"error {out.get('fusion_error')}; event tracker frames {st['ev']['frames']}")
+        print(f"RESULT {a.package} continuous: {st['chunks']} chunks ({st['idle']} idle), "
+              f"{st['windows']} windows, {st['l2_tiny']} tiny and {st['l2_full']} full "
+              f"images, {st['l2_kf']} keyframes, {out['tracked_poses']} tracked poses")
         return
     if a.loops:
         rec, passes = mono
@@ -223,6 +209,114 @@ def main(argv=None):
           f"{'MCIs' if mci else 'frames'} tracked ({st.get('l2_lost', st.get('lost'))} lost); "
           f"ATE with the scale fixed at 1 {ev.get('ate_rmse')} m over "
           f"{ev.get('ape_piecewise', {}).get('traj_len')} m of path")
+
+
+def _event_image(a, settings):
+    """EVENT_MONO / EVENT_IMU_MONO: one app run per seed (``--package jax`` /
+    ``port``), or JAX's run then the port's on JAX's draws (``both``)."""
+    import importlib
+
+    lo, hi = map(int, (a.seeds or f"{a.seed}-{a.seed}").split("-"))
+    born = {}
+    for seed in range(lo, hi + 1):
+        runs = {}
+        if a.package == "both":
+            import pytest
+
+            from tests.test_torch_l2_slice import install_jax_draws
+
+            mp = pytest.MonkeyPatch()
+            keys = {"two": [], "pnp": [], "i_two": 0, "i_pnp": 0}
+            _record_and_replay(mp, install_jax_draws(mp), keys)
+        for pkg in (("jax", "port") if a.package == "both" else (a.package,)):
+            root = "eorb_slam_tpu" if pkg == "jax" else "eorb_slam_tpu_torch"
+            run_slam = importlib.import_module(root + ".apps.run_slam")
+            evi = importlib.import_module(root + ".slam.ev_image_system")
+            datasets = importlib.import_module(root + ".io.datasets")
+            rec, build, track = [], run_slam.build_system, evi.EvImageSlam.track_ev_mono
+
+            def seeded(*args, _pkg=pkg, _seed=seed, **kw):
+                slam = build(*args, **kw)
+                if _pkg == "jax":
+                    import jax
+
+                    slam.im.key = jax.random.PRNGKey(_seed)
+                elif a.package == "port":
+                    slam.im.generator.manual_seed(_seed)
+                return slam
+
+            def tracked(self, *args, **kw):
+                r = track(self, *args, **kw)
+                T = np.asarray(self.im.T_last.cpu() if hasattr(self.im.T_last, "cpu")
+                               else self.im.T_last)
+                rec.append((self.im.state, self.ev.state, (r["event"] or {}).get("n"), T))
+                return r
+
+            run_slam.build_system, evi.EvImageSlam.track_ev_mono = seeded, tracked
+            extra = ["--device", "cpu" if a.package == "both" else a.device] \
+                if pkg == "port" else []
+            try:
+                (out,) = run_slam.main([settings, "--eval", "--out",
+                                        os.path.join(a.out, f"{pkg}_{seed}")] + extra)
+            finally:
+                run_slam.build_system, evi.EvImageSlam.track_ev_mono = build, track
+            seq = datasets.load_sequence("ev_ethz", a.out, "shakes_01", ts_factor=1.0)
+            ev = (run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
+                  if "trajectory_file" in out else {})
+            runs[pkg] = (out, ev, rec)
+            st = out["stats"]
+            path = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+            born[(pkg, seed)] = st["ev"]["kf"] >= 2 and st["joint_frames"] >= 1
+            print(f"RESULT {pkg} {a.mode} seed {seed}: {out['iterations']} images, "
+                  f"{out['tracked_poses']} tracked poses; image / event keyframes "
+                  f"{st['im']['kf']} / {st['ev']['kf']}; joint inits {st['joint_inits']}, "
+                  f"joint frames {st['joint_frames']}, joint BAs {st['joint_bas']}; Sim3 ATE "
+                  f"{ev.get('ate_rmse')} m over {path} m of path "
+                  f"({100 * ev.get('ate_rmse', np.nan) / max(path, 1e-12):.1f}%); fused file "
+                  f"{'written' if 'fused_trajectory_file' in out else 'not written'}, fusion "
+                  f"error {out.get('fusion_error')}; event tracker frames {st['ev']['frames']}; "
+                  f"per image (image state, event state, joint-init matches) "
+                  f"{[r[:3] for r in rec]}", flush=True)
+        if a.package == "both":
+            (_, _, rj), (_, _, rt) = runs["jax"], runs["port"]
+            same = [x[:3] == y[:3] for x, y in zip(rj, rt)]
+            dT = [float(np.abs(x[3] - y[3]).max()) for x, y in zip(rj, rt)]
+            print(f"BOTH seed {seed}: {len(rj)} / {len(rt)} images, the same (states, matches) "
+                  f"per image {same}, image-pose max abs difference per image "
+                  f"{[f'{d:.1e}' for d in dT]}; draws replayed {keys['i_two']} of "
+                  f"{len(keys['two'])} two-view, {keys['i_pnp']} of {len(keys['pnp'])} PnP",
+                  flush=True)
+            mp.undo()
+    for pkg in sorted({p for p, _ in born}):
+        got = [s for (p, s), b in born.items() if p == pkg and b]
+        print(f"BORN {pkg} {a.mode}: the event map born with a joint frame at seeds {got}, "
+              f"{len(got)} of {hi - lo + 1}", flush=True)
+
+
+def _record_and_replay(mp, draws, keys):
+    """``--package both``: JAX's RANSAC keys recorded in call order, and handed
+    to the port's samplers (``draws``, from ``install_jax_draws``) before its
+    call of the same number: the ``both`` fixture of tests/test_torch_apps.py."""
+    from eorb_slam_tpu.geometry import twoview as jtv
+    from eorb_slam_tpu.slam import relocalization as jrl
+    from eorb_slam_tpu_torch.geometry import twoview as ttv
+    from eorb_slam_tpu_torch.slam import relocalization as trl
+
+    for which, jm, tm, name in (("two", jtv, ttv, "reconstruct_two_views"),
+                                ("pnp", jrl, trl, "pnp_ransac")):
+        jfn, tfn = getattr(jm, name), getattr(tm, name)
+
+        def record(cam, x, y, valid, key, _fn=jfn, _w=which, **kw):
+            keys[_w].append(key)
+            return _fn(cam, x, y, valid, key, **kw)
+
+        def replay(*args, _fn=tfn, _w=which, **kw):
+            draws[_w] = keys[_w][keys["i_" + _w]]
+            keys["i_" + _w] += 1
+            return _fn(*args, **kw)
+
+        mp.setattr(jm, name, record)
+        mp.setattr(tm, name, replay)
 
 
 def _watch_loops(mono_cls, closer_cls):
