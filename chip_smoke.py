@@ -36,7 +36,16 @@ the per-chunk step() on the card against the CPU; EventSlamContinuous on
 the card against the CPU; and EVENT_MONO, EVENT_IMU_MONO and EVENT_ONLY
 with Event.contTracking: 1 through run_slam.main with the
 configs/synth_ev_*.yaml settings on the generated EV-ETHZ sequence, the
-splat launches of each gated exactly.
+splat launches of each gated exactly. Then the last modules: AKAZE and the
+mixed ORB + AKAZE extraction on the card against the CPU; MONOCULAR with
+Features.mode: 2 (MixedMonoSlam) through run_slam.run_sequence on the
+generated corridor beside plain MONOCULAR; a checkpoint of a MonoSlam saved
+and resumed on the card; 0.1 s of the generated shakes sequence written
+into a ROS bag, read back and run through run_slam.main EVENT_ONLY; and the
+scale-out: two gloo ranks sharing the card and one NCCL rank, each a
+process of its own (``python3 chip_smoke.py --dist-worker ...``), through
+the event-sharded splat (the forward kernel once per rank per call) and the
+float64 landmark-sharded BA.
 
     python3 chip_smoke.py
 
@@ -73,7 +82,8 @@ H, W = 180, 240
 SIGMA, TRUNC = 1.0, 2.5
 KERNEL_NS = (8192, 16384, 32768, 65536)
 MAIN_N = 16384      # the shape of 125 of a window's 129 splat calls
-FWD_TOL = 1e-5      # x max|ref|: f32 atomics sum in a run-dependent order
+FWD_TOL = 1e-5      # x max|ref|: the plain version sums in f32, the kernel
+#                     in fixed point (exact at 2^-32), in another order
 GRAD_TOL = 1e-4     # x max|ref|: per-event sums of <= 36 f32 terms, and for
 #                     dL/dparams a sum over all N events, in another order
 CM_ITERS = 40       # BuilderConfig.cm_iters
@@ -177,6 +187,11 @@ CONT_EVENTS, CONT_PACKET = 64000, 8000
 EV_STEP_TOL = 1e-4         # joint pose step / write-back, Tcw max abs, f32 GN
 EV_PROP_TOL = 1e-5         # the loop propagation, max abs (no solve)
 CONT_POSE_TOL = 2e-3       # continuous tracker, Tcw max abs per window
+# build_mci's ascent, card vs CPU: params and contrasts agree (relative)
+# step by step until the two first decide differently, and that decision
+# is a tie: the new contrast within ASCENT_TIE (relative) of the best on
+# both devices (eight f32 ulps; one ulp is 6e-8 to 1.2e-7 of the value)
+ASCENT_TOL, ASCENT_TIE = 1e-5, 1e-6
 # forward and VJP splat launches of one build_mci: 4 candidates, the
 # ascent's 1 + 2 per step, and one VJP per step
 MCI_FWD, MCI_VJP = 4 + 1 + 2 * CM_ITERS, CM_ITERS
@@ -387,6 +402,8 @@ def check_kernel():
                 for a, b, name in zip(gk, gp, ("xy", "w"))]
         if not all(_same_bits(a, b) for a, b in zip(gk, gk2)):
             raise RuntimeError(f"N={n}: two VJP calls differ")
+        if not _same_bits(got, hs.splat(xy, w, *cfg)):
+            raise RuntimeError(f"N={n}: two forward calls differ")
 
         # ---- SE2 form: forward, dL/dparams through the contrast, determinism
         sxy, st, sv, sp = _se2_events(n, seed=n + 1)
@@ -396,6 +413,8 @@ def check_kernel():
         n_flip = int(((sgot - sref).abs() > FWD_TOL * sscale).sum())
         serr = _held(sgot, sref, FWD_TOL, f"N={n} SE2 forward ({n_flip} px over: "
                                            f"tap flips if ~{np.exp(-3.125):.3f})")
+        if not _same_bits(sgot, hs.splat_se2(sxy, st, sv, sp, center, *cfg)):
+            raise RuntimeError(f"N={n}: two SE2 forward calls differ")
         pk = _contrast_grad(lambda p: hs.splat_se2(sxy, st, sv, p, center, *cfg), sp)
         pp = _contrast_grad(lambda p: hs._splat_se2_plain(sxy, st, sv, p, center, *cfg), sp)
         perr = _held(pk, pp, GRAD_TOL, f"N={n} SE2 VJP dL/dparams")
@@ -440,10 +459,6 @@ def check_kernel():
         row["vjp_dev_ms"] = _device_ms(lambda: hs._vjp_cuda(
             g, xy, None, w, None, (0.0, 0.0), *cfg, need_xy=True, need_w=True))
         row["vjp_se2_dev_ms"] = _device_ms(lambda: hs._vjp_cuda(g, sxy, st, sv, sp, center, *cfg))
-        if n in (MAIN_N, KERNEL_NS[-1]):      # lanes per forward atomic
-            row["fwd_se2_dev_ms_by_lanes"] = {
-                v: _device_ms(lambda v=v: hs._splat_cuda(sxy, st, sv, sp, center, *cfg, vec=v))
-                for v in (1, 2, 4)}
 
         # the kernels' own time by name, and what else one call enqueues
         def both():
@@ -452,7 +467,8 @@ def check_kernel():
                 hs._vjp_cuda(g, sxy, st, sv, sp, center, *cfg)
         _, per = _profile(both)
         prof_us = {k: _matching(per, k)[1] / 20 for k in
-                   ("splat_fwd_kernel", "splat_vjp_kernel", "sum_partials_kernel", "Memset")}
+                   ("splat_fwd_kernel", "splat_fwd_finish_kernel", "splat_vjp_kernel",
+                    "sum_partials_kernel", "Memset")}
         if min(prof_us["splat_fwd_kernel"], prof_us["splat_vjp_kernel"]) <= 0:
             raise RuntimeError(f"profiler saw no splat kernel time: {sorted(per)}")
 
@@ -467,23 +483,22 @@ def check_kernel():
             vjp_bound=_bound(n, act, False, True), vjp_se2_bound=_bound(n, sact, True, True))
         _log(f"splat N={n} identity: fwd max abs {err:.3e} (max|ref| {row['fwd_ref']:.3f}, "
              f"tol {FWD_TOL}x), VJP max abs xy {gerr[0]:.3e} w {gerr[1]:.3e} (tol "
-             f"{GRAD_TOL}x), two VJP calls bit-equal | ms by events / device only / "
-             f"plain / bound: fwd {row['fwd_ms']:.4f} / {row['fwd_dev_ms']:.5f} / "
+             f"{GRAD_TOL}x), two forward and two VJP calls bit-equal | ms by events / "
+             f"device only / plain / bound: fwd {row['fwd_ms']:.4f} / {row['fwd_dev_ms']:.5f} / "
              f"{row['fwd_plain_ms']:.4f} / {row['fwd_bound'][0]:.6f}; VJP "
              f"{row['vjp_ms']:.4f} (through autograd.grad {row['vjp_autograd_ms']:.4f}) / "
              f"{row['vjp_dev_ms']:.5f} / {row['vjp_plain_ms']:.4f} / "
              f"{row['vjp_bound'][0]:.6f}")
         _log(f"splat N={n} SE2: fwd max abs {serr:.3e} (max|ref| {sscale:.3f}, {n_flip} "
              f"px over tol), dL/dparams max abs {perr:.3e} (max|ref| "
-             f"{row['vjp_se2_ref']:.3e}), bit-equal twice | fwd {row['fwd_se2_ms']:.4f} / "
-             f"{row['fwd_se2_dev_ms']:.5f} / {row['fwd_se2_plain_ms']:.4f} / "
-             f"{row['fwd_se2_bound'][0]:.6f}; VJP {row['vjp_se2_ms']:.4f} (through "
+             f"{row['vjp_se2_ref']:.3e}), forward and VJP bit-equal twice | fwd "
+             f"{row['fwd_se2_ms']:.4f} / {row['fwd_se2_dev_ms']:.5f} / "
+             f"{row['fwd_se2_plain_ms']:.4f} / {row['fwd_se2_bound'][0]:.6f}; VJP {row['vjp_se2_ms']:.4f} (through "
              f"autograd.grad {row['vjp_se2_autograd_ms']:.4f}) / "
              f"{row['vjp_se2_dev_ms']:.5f} / {row['vjp_se2_plain_ms']:.4f} (dense "
              f"autograd {row['vjp_se2_dense_ms']:.4f}) / {row['vjp_se2_bound'][0]:.6f} | "
              f"profiler us per call: { {k: round(v, 3) for k, v in prof_us.items()} }"
-             + (f" | fwd device ms by lanes per atomic: {row['fwd_se2_dev_ms_by_lanes']}"
-                if "fwd_se2_dev_ms_by_lanes" in row else ""))
+             )
         rows.append(row)
 
     # non-finite events: a NaN coordinate poisons the whole image in the
@@ -1095,14 +1110,22 @@ def _identity_row(what, xy, w, sigma):
     return row
 
 
-def _settings_with_root(config: str, root: str, out_dir: str) -> str:
-    """A copy of ``configs/<config>`` that differs in ``DS.Paths.root`` only."""
+def _settings_with_root(config: str, root: str, out_dir: str, fmt: str = None,
+                        extra: str = "", name: str = None) -> str:
+    """A copy of ``configs/<config>`` that differs in ``DS.Paths.root`` (and,
+    where given, ``DS.format`` and the ``extra`` lines appended) only,
+    written to ``out_dir/<name or config>``."""
     with open(os.path.join(REPO, "configs", config)) as f:
         text = f.read()
     text, n = re.subn(r'(?m)^DS\.Paths\.root:.*$', f'DS.Paths.root: "{root}"', text)
     if n != 1:
         raise RuntimeError(f"{config}: expected one DS.Paths.root line, found {n}")
-    path = os.path.join(out_dir, config)
+    if fmt is not None:
+        text, n = re.subn(r'(?m)^DS\.format:.*$', f'DS.format: "{fmt}"', text)
+        if n != 1:
+            raise RuntimeError(f"{config}: expected one DS.format line, found {n}")
+    text += extra
+    path = os.path.join(out_dir, name or config)
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -1315,7 +1338,9 @@ def run_app_monocular(work: str):
         raise RuntimeError(f"no mapping step ran fusion and the refresh: {stats}")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= 0.8 * len(after)):
         raise RuntimeError(f"evaluate gave {ev}")
-    return dict(frames=len(states), wall_s=out["wall_s"])
+    return dict(frames=len(states), wall_s=out["wall_s"], root=root,
+                ate_frac=ev["ate_rmse"] / max(path_len, 1e-12), first_ok=first_ok,
+                tracked=n_ok / max(len(after), 1))
 
 
 class _Syncs:
@@ -1370,15 +1395,15 @@ class _Syncs:
         return False
 
 
-def _pipe_frames():
-    """PIPE_FRAMES corridor frames through the box renderer on the card, as
-    uint8 device images, with their ground-truth Tcw."""
+def _pipe_frames(n=PIPE_FRAMES):
+    """``n`` corridor frames through the box renderer on the card, as uint8
+    device images, with their ground-truth Tcw."""
     from eorb_slam_tpu_torch.io import synth_dataset as sd
 
     render = sd.make_box_renderer("corridor", PIPE_W, PIPE_H, PIPE_FX)
     pose = sd.make_trajectory("corridor", 10.0)
     out = []
-    for i in range(PIPE_FRAMES):
+    for i in range(n):
         Tcw = np.asarray(pose(i / 20.0), np.float32)
         out.append((i / 20.0, (render(Tcw) * 255.0).to(torch.uint8), Tcw))
     return out
@@ -2675,22 +2700,37 @@ def check_ev_image_small():
     if e_cost > L2_COST_TOL_F64 or e_ba > POSE_GRAPH_TOL_F64:
         raise RuntimeError(f"joint local BA float64: cost {e_cost}, kf_T {e_ba}")
 
-    # build_mci on one 65,536-event window, with the pose prior in: the same
-    # winner, scores within 1e-5 relative and the MCI within the forward
-    # tolerance of the CPU's; and each of the four candidate splats
-    # recomputed on the CPU from what the card gave it, and the card's MCI
-    # against the plain version of its winner.
-    from eorb_slam_tpu_torch.event import tensorize
+    # build_mci on one 65,536-event window, with the pose prior in. The
+    # contrast-maximization ascent accepts a step only if the contrast rises
+    # (contrast_max.maximize_rt2d, as the reference): where a step leaves it
+    # equal to the last bit, the two devices' roundings decide, and the
+    # ascents part to another point of the same contrast. So: the two
+    # ascents are held step by step up to where they part, which must be
+    # such a tie; if they never part, the card's MCI is held against the
+    # CPU's at the forward tolerance, else against the plain version of the
+    # card's winner on the card's inputs and the SE2 score against the plain
+    # one at the card's parameters. Always: the same winner, each of the four
+    # candidate splats recomputed on the CPU from what the card gave it, and
+    # the scores of the candidates the ascent does not touch within 1e-5
+    # relative; and a second builder on the card gives the same bits.
+    from eorb_slam_tpu_torch.event import contrast_max, tensorize
 
     win = synth_stream(0.03, RATE, seed=23)
-    scores, mcis, kinds, se2, calls = {}, {}, {}, {}, []
-    make = eb._make_candidates
+    scores, mcis, kinds, se2, calls, steps = {}, {}, {}, {}, [], {}
+    make, contrast = eb._make_candidates, contrast_max._contrast
     splats = (tensorize.splat_gauss, tensorize.splat_gauss_se2)
 
     def rec_make(*a, **kw):
         out = make(*a, **kw)
         scores[a[0].device.type] = out[2].cpu().numpy()
         return out
+
+    def rec_contrast(p, *a, **kw):
+        c = contrast(p, *a, **kw)
+        if not torch.is_grad_enabled():   # the start and each step's trial
+            steps.setdefault(p.device.type, []).append(
+                (p.detach().cpu().double(), float(c)))
+        return c
 
     def recorder(fn):
         def rec(*a, **kw):
@@ -2700,7 +2740,7 @@ def check_ev_image_small():
             return out
         return rec
 
-    eb._make_candidates = rec_make
+    eb._make_candidates, contrast_max._contrast = rec_make, rec_contrast
     tensorize.splat_gauss, tensorize.splat_gauss_se2 = (recorder(f) for f in splats)
     try:
         for d in ("cuda", "cpu"):
@@ -2714,8 +2754,35 @@ def check_ev_image_small():
             if b.stats["ev_truncated"] != len(win) - cap:
                 raise RuntimeError(f"build_mci kept {b.stats} of {len(win)} events")
     finally:
-        eb._make_candidates = make
+        eb._make_candidates, contrast_max._contrast = make, contrast
         tensorize.splat_gauss, tensorize.splat_gauss_se2 = splats
+
+    # the two ascents, step by step: (params, contrast) of the start and of
+    # each step's trial point; a step is taken where the contrast rises
+    sg, sc = steps["cuda"], steps["cpu"]
+    if len(sg) != CM_ITERS + 1 or len(sc) != CM_ITERS + 1:
+        raise RuntimeError(f"ascent: {len(sg)} / {len(sc)} contrasts, {CM_ITERS + 1} wanted")
+    best_g, best_c, part, tie, asc_err = sg[0][1], sc[0][1], None, 0.0, 0.0
+    unit = torch.tensor([2.0 / max(H, W), 1.0, 1.0], dtype=torch.float64)  # the ascent's scale
+    for k, ((pg, cg), (pc, cc)) in enumerate(zip(sg, sc)):
+        e_p = float(((pg - pc) / unit).abs().max() / max(float((pc / unit).abs().max()), 1e-30))
+        e_c = abs(cg - cc) / abs(cc)
+        asc_err = max(asc_err, e_p, e_c)
+        if e_p > ASCENT_TOL or e_c > ASCENT_TOL:
+            raise RuntimeError(f"ascent step {k} before the two part: params {pg} / {pc}, "
+                               f"contrast {cg} / {cc}")
+        if k == 0:
+            continue
+        up_g, up_c = cg > best_g, cc > best_c
+        if up_g != up_c:
+            part = k
+            tie = max(abs(cg - best_g) / abs(best_g), abs(cc - best_c) / abs(best_c))
+            break
+        best_g, best_c = (cg if up_g else best_g), (cc if up_c else best_c)
+    if part is not None and tie > ASCENT_TIE:
+        raise RuntimeError(f"ascent: the devices decide step {part} differently, not at a "
+                           f"tie: {tie:.3e} of the contrast > {ASCENT_TIE}")
+
     # the candidates in _make_candidates' order: hist, (the ascent), se2,
     # dpose, klt2d
     cand = [calls[0]] + calls[-3:]
@@ -2729,15 +2796,43 @@ def check_ev_image_small():
                     FWD_TOL, "build_mci MCI against the plain version of its winner")
     fin = np.isfinite(scores["cpu"])
     rel = np.abs(scores["cuda"][fin] - scores["cpu"][fin]) / np.abs(scores["cpu"][fin])
-    dev_err = _held(mcis["cuda"].cpu(), mcis["cpu"], FWD_TOL, "build_mci MCI cuda vs cpu")
+    gap = float((mcis["cuda"].cpu() - mcis["cpu"]).abs().max())
+    se2_k = eb.KINDS.index("se2")
+    if part is None:
+        dev_err = _held(mcis["cuda"].cpu(), mcis["cpu"], FWD_TOL, "build_mci MCI cuda vs cpu")
+        rel_held = rel.max()
+    else:
+        # the SE2 score on the CPU from the card's SE2 image
+        se2_cpu = float(tensorize.patch_std_mean(raw_cpu[se2_k][None])[0])
+        rel_se2 = abs(scores["cuda"][se2_k] - se2_cpu) / abs(se2_cpu)
+        rel_held = max(rel_se2, max((r for k, r in zip(np.flatnonzero(fin), rel)
+                                     if k != se2_k), default=0.0))
+    # the card's build_mci is the same bits on a second builder
+    b = eb.EventWindowBuilder(eb.BuilderConfig(**SLICE_CFG), torch.tensor(
+        [*CAM, 0, 0, 0, 0, 0]), device="cuda")
+    b.set_pose_prior(*(torch.from_numpy(im_np["kf_T"][k]).cuda() for k in (0, 1)),
+                     torch.tensor(2.0, device="cuda"))
+    again = b.build_mci(win).img
+    if not _same_bits(again, mcis["cuda"]):
+        raise RuntimeError("build_mci on the card: two builders' MCIs differ")
     _log(f"build_mci cuda vs cpu, {len(win)} events into {cap} slots, {CM_ITERS} ascent "
-         f"steps: best {kinds['cuda']} / {kinds['cpu']}, scores {scores['cuda'].tolist()} max "
-         f"rel {rel.max():.2e}; the MCI cuda vs cpu max abs {dev_err:.2e} (tol {FWD_TOL}x "
-         f"max); the four candidate splats against their plain versions on the card's "
-         f"inputs, max abs {[f'{e:.2e}' for e in raw_err]}, the MCI {mci_err:.2e}; SE2 params "
+         f"steps: " + (f"the ascents agree at every step (max rel {asc_err:.2e}, tol "
+                       f"{ASCENT_TOL}); the MCI cuda vs cpu max abs {dev_err:.2e} (tol "
+                       f"{FWD_TOL}x max)" if part is None else
+                       f"the ascents agree (max rel {asc_err:.2e}, tol {ASCENT_TOL}) until "
+                       f"step {part}, a tie ({tie:.2e} of the contrast, tol {ASCENT_TIE}) "
+                       f"that the devices' roundings decide apart; final contrasts "
+                       f"{sg[-1][1]!r} / {sc[-1][1]!r}; the MCIs part by {gap:.2e} of max "
+                       f"(not gated)") +
+         f"; best {kinds['cuda']} / {kinds['cpu']}, scores {scores['cuda'].tolist()} / "
+         f"{scores['cpu'].tolist()}, max rel {rel_held:.2e} (tol 1e-5"
+         + ("" if part is None else ", SE2 against the plain score of the card's image")
+         + f"); bit-equal on a second builder on the card; the four candidate splats "
+         f"against their plain versions on the card's inputs, max abs "
+         f"{[f'{e:.2e}' for e in raw_err]}, the MCI {mci_err:.2e}; SE2 params "
          f"{se2['cuda'].tolist()} / {se2['cpu'].tolist()}")
     if kinds["cuda"] != kinds["cpu"] or not np.array_equal(np.isfinite(scores["cuda"]), fin) \
-            or rel.max() > 1e-5:
+            or rel_held > 1e-5:
         raise RuntimeError(f"build_mci: {kinds}, scores {scores}")
 
     # step() over a few chunks: chunk images and the adapted chunk sizes (5
@@ -3050,6 +3145,445 @@ def run_app_event_continuous(work: str, root: str):
                 launches_window=win_prof[0], device_ms_window=win_prof[1], stats=st)
 
 
+# ------------------------------------- mixed features, checkpoint, rosbag, scale-out
+
+AKAZE_LVL_TOL = 1e-5       # scale-space level images, x max|ref|, cuda vs cpu
+AKAZE_XY_SHARE = 0.98      # keypoints equal, share of the reference's valid slots
+AKAZE_BIT_SHARE = 0.995    # descriptor bits equal on the shared keypoints
+MIXED_KP = 256             # extract_mixed's budget at 240x180 (half ORB, half AKAZE)
+CKPT_FRAMES, CKPT_MORE = 15, 5
+CKPT_TOL = 1e-4            # T_last of the resumed system against the original, max abs
+BAG_S = 0.1                # seconds of the generated shakes sequence in the bag
+BAG_CHUNKS = 6             # EVENT_ONLY chunks run from the bag
+BAG_EV_PER_MSG = 10000     # events per dvs_msgs/EventArray message
+DIST_N, DIST_WORLD = 65536, 2
+DIST_BA_ITERS = 10
+DIST_BA_TOL = 1e-6         # f64 dist BA against the single-process solve, max abs
+
+
+def _bits_of(desc):
+    """(N,8) int32 words -> (N,256) bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    return (((desc[..., None] >> shifts) & 1) != 0).reshape(desc.shape[0], -1)
+
+
+def _hold_features(got, ref, what):
+    """Keypoints equal in >= AKAZE_XY_SHARE of ``ref``'s valid slots, bits
+    in >= AKAZE_BIT_SHARE on the shared keypoints. Returns both shares."""
+    v = ref.valid.cpu()
+    same = (got.xy.cpu() == ref.xy.cpu()).all(1) & v & got.valid.cpu()
+    xy_share = float(same.sum()) / max(int(v.sum()), 1)
+    bits = (_bits_of(got.desc.cpu()) == _bits_of(ref.desc.cpu()))[same]
+    bit_share = float(bits.float().mean()) if bool(same.any()) else 0.0
+    if int(v.sum()) < 40 or xy_share < AKAZE_XY_SHARE or bit_share < AKAZE_BIT_SHARE:
+        raise RuntimeError(f"{what}: {int(v.sum())} valid, keypoints equal in "
+                           f"{xy_share:.4f}, bits in {bit_share:.5f}")
+    return xy_share, bit_share
+
+
+def check_akaze_small():
+    """ops/akaze and frontend.extract_mixed on the card against the CPU on
+    one rendered 240x180 corridor image (uint8, as the apps ship frames):
+    the nonlinear scale space's level images, extract_akaze's keypoints and
+    MLDB bits, and both halves of extract_mixed with its channel array;
+    then the mixed extraction's time, launches and device time."""
+    from eorb_slam_tpu_torch.io import synth_dataset as sd
+    from eorb_slam_tpu_torch.ops import akaze, frontend
+
+    render = sd.make_box_renderer("corridor", W, H, EVW_CAM[0])
+    img = (render(np.asarray(sd.make_trajectory("corridor", 10.0)(1.0), np.float32))
+           * 255.0).to(torch.uint8)
+    cpu = img.cpu()
+    lv_c = akaze.nonlinear_scale_space(img.float() / 255.0)
+    lv_h = akaze.nonlinear_scale_space(cpu.float() / 255.0)
+    lvl_err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(lv_c, lv_h))
+    if not lvl_err <= AKAZE_LVL_TOL:
+        raise RuntimeError(f"AKAZE level images differ by {lvl_err} x max|ref|")
+    n_ak = MIXED_KP // 2
+    ak = _hold_features(akaze.extract_akaze(img, max_kp=n_ak),
+                        akaze.extract_akaze(cpu, max_kp=n_ak), "extract_akaze")
+    (fc, chc), (fh, chh) = (frontend.extract_mixed(x, max_kp=MIXED_KP) for x in (img, cpu))
+    if not torch.equal(chc.cpu(), chh) or int(chh.sum()) != MIXED_KP - n_ak:
+        raise RuntimeError("extract_mixed's channel arrays differ")
+    halves = {name: _hold_features(frontend.Features(*[f[sl] for f in fc]),
+                                   frontend.Features(*[f[sl] for f in fh]), name)
+              for name, sl in (("ORB half", slice(0, n_ak)),
+                               ("AKAZE half", slice(n_ak, None)))}
+    ms = _time_ms(lambda: frontend.extract_mixed(img, max_kp=MIXED_KP), reps=3, trials=3)
+    ms_ak = _time_ms(lambda: akaze.extract_akaze(img, max_kp=n_ak), reps=3, trials=3)
+    _, per = _profile(lambda: frontend.extract_mixed(img, max_kp=MIXED_KP))
+    launches = sum(c for c, _ in per.values())
+    dev_ms = sum(us for _, us in per.values()) / 1e3
+    _log(f"AKAZE {W}x{H} cuda vs cpu: level images within {lvl_err:.3e} x max|ref| (tol "
+         f"{AKAZE_LVL_TOL}); extract_akaze({n_ak}) keypoints equal {ak[0]:.4f}, bits "
+         f"{ak[1]:.5f}; extract_mixed({MIXED_KP}) ORB half {halves['ORB half']}, AKAZE "
+         f"half {halves['AKAZE half']} (keypoint share, bit share); extract_mixed "
+         f"{ms:.2f} ms by events ({launches} launches, {dev_ms:.3f} ms of device time), "
+         f"extract_akaze {ms_ak:.2f} ms")
+    return dict(ms=ms, launches=launches, dev_ms=dev_ms)
+
+
+def run_app_mixed(work: str, mono: dict):
+    """MONOCULAR with mixed ORB + AKAZE features: the synth_euroc_mono.yaml
+    settings with ``Features.mode: 2`` (MixedMonoSlam, not pipelined) on the
+    corridor run_app_monocular generated, through run_slam.run_sequence +
+    evaluate, its Sim3 ATE beside plain MONOCULAR's on the same frames; the
+    valid AKAZE slots per frame; then the profiled frames."""
+    from eorb_slam_tpu_torch._host import to_device
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.io import config, datasets
+    from eorb_slam_tpu_torch.ops import frontend, hopper_splat
+    from eorb_slam_tpu_torch.slam import system
+
+    root = mono["root"]
+    st = config.load_settings(_settings_with_root(
+        "synth_euroc_mono.yaml", root, work, extra="Features.mode: 2\n",
+        name="synth_euroc_mixed.yaml"))
+    seq = datasets.load_sequence(st.dataset.format, root, "corridor_01",
+                                 ts_factor=st.dataset.ts_factor)
+    states, ak_valid = [], []
+    process, extract = system.MixedMonoSlam.process_image, frontend.extract_mixed
+
+    def recording(self, img, ts, **kw):
+        res = process(self, img, ts, **kw)
+        states.append(res["state"])
+        return res
+
+    def counting(img, **kw):
+        feats, ch = extract(img, **kw)
+        ak_valid.append((feats.valid & (ch == 1)).sum())   # read after the run
+        return feats, ch
+
+    system.MixedMonoSlam.process_image = recording
+    frontend.extract_mixed = counting
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    try:
+        slam, out = run_slam.run_sequence(
+            st, seq, out_dir=os.path.join(work, "results_mixed"),
+            max_frames=MONO_FRAMES, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        system.MixedMonoSlam.process_image = process
+        frontend.extract_mixed = extract
+    splats = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
+    first_ok = states.index(system.OK) if system.OK in states else len(states)
+    after = states[first_ok:]
+    n_ok = sum(s == system.OK for s in after)
+    slots = [int(v) for v in ak_valid]
+    per_frame = []
+    for i in range(MONO_FRAMES, MONO_FRAMES + MONO_PROFILED):
+        img = (seq.image(i) * 255.0).astype(np.uint8)
+        _, per = _profile(lambda: slam.process_image(to_device(img, slam.device),
+                                                     float(seq.image_ts[i])))
+        per_frame.append((sum(c for c, _ in per.values()),
+                          sum(us for _, us in per.values()) / 1e3))
+    path_len = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
+    ate_frac = ev.get("ate_rmse", np.inf) / max(path_len, 1e-12)
+    _log(f"run_slam MONOCULAR mixed (Features.mode 2, {type(slam).__name__}, pipelined "
+         f"{slam.pipelined}) {slam.img_w}x{slam.img_h}, N={slam.map.N}, on {slam.device}: "
+         f"{len(states)} frames in {out['wall_s']:.3f} s wall = "
+         f"{len(states) / out['wall_s']:.3f} frames/s; initialised at frame {first_ok} "
+         f"(ORB: {mono['first_ok']}), then {n_ok}/{len(after)} tracked (ORB: "
+         f"{mono['tracked']:.3f}); Sim3 ATE {100 * ate_frac:.3f}% of a {path_len:.4f} m "
+         f"path over {ev.get('ate_n')} poses (ORB on the same frames: "
+         f"{100 * mono['ate_frac']:.3f}%); valid AKAZE slots per frame min/mean/max "
+         f"{min(slots)}/{np.mean(slots):.1f}/{max(slots)} of {slam.map.N // 2}; splat "
+         f"launches {splats[0]} + {splats[1]}; stats {out['stats']}")
+    _log(f"run_slam MONOCULAR mixed under torch.profiler, {len(per_frame)} frames: "
+         f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
+         f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame")
+    if type(slam) is not system.MixedMonoSlam or slam.pipelined:
+        raise RuntimeError(f"Features.mode 2 built {type(slam).__name__}")
+    if slam.device.type != "cuda" or (slam.img_w, slam.img_h, slam.map.N) != (752, 480, 512):
+        raise RuntimeError(f"not the full width on the card: {slam.img_w}x{slam.img_h}")
+    if splats != (0, 0):
+        raise RuntimeError(f"the mixed path launched the splat {splats} times")
+    if not after or n_ok < APP_TRACK_MIN * len(after):
+        raise RuntimeError(f"only {n_ok}/{len(after)} frames tracked after init")
+    if not (np.isfinite(ate_frac) and ev["ate_n"] >= 0.8 * len(after)) or min(slots) < 40:
+        raise RuntimeError(f"evaluate gave {ev}; AKAZE slots {slots}")
+    return dict(frames=len(states), wall_s=out["wall_s"], ate_frac=ate_frac)
+
+
+def check_checkpoint(work: str):
+    """io/checkpoint on the card: the pipelined MonoSlam (as the MONOCULAR
+    app builds it) on CKPT_FRAMES rendered corridor frames, save_slam,
+    load_slam into a fresh system (map arrays and generator state
+    bit-equal), then both go on CKPT_MORE frames: the same states, T_last
+    within CKPT_TOL."""
+    from eorb_slam_tpu_torch.io import checkpoint
+    from eorb_slam_tpu_torch.slam import map_state, system
+
+    frames = _pipe_frames(CKPT_FRAMES + CKPT_MORE)
+    cam = np.asarray([PIPE_FX, PIPE_FX, PIPE_W / 2, PIPE_H / 2, 0, 0, 0, 0, 0], np.float32)
+    slam = system.MonoSlam(cam, pipelined=True, **PIPE_KW)
+    for ts, img, _ in frames[:CKPT_FRAMES]:
+        slam.process_image(img, ts)
+    path = os.path.join(work, "ckpt", "monoslam.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_slam(path, slam)
+    t_save = time.perf_counter() - t0
+    fresh = system.MonoSlam(cam, pipelined=True, **PIPE_KW)
+    t0 = time.perf_counter()
+    checkpoint.load_slam(path, fresh)
+    t_load = time.perf_counter() - t0
+    if slam.state != system.OK or fresh.state != slam.state or fresh._kf_order != slam._kf_order:
+        raise RuntimeError(f"restored state {fresh.state} / {fresh._kf_order}, "
+                           f"saved {slam.state} / {slam._kf_order}")
+    def same(a, b):   # bit for bit, NaN included
+        return a.device == b.device and torch.equal(a.contiguous().view(torch.uint8),
+                                                    b.contiguous().view(torch.uint8))
+
+    for a, b in zip(slam.atlas.maps, fresh.atlas.maps):
+        for field in map_state.MapState._fields:
+            if not same(getattr(a, field), getattr(b, field)):
+                raise RuntimeError(f"map field {field} not restored bit for bit")
+    if not (same(slam.generator.get_state(), fresh.generator.get_state())
+            and same(slam.T_last, fresh.T_last)):
+        raise RuntimeError("generator state or T_last not restored bit for bit")
+    steps = []
+    for ts, img, _ in frames[CKPT_FRAMES:]:
+        r1, r2 = slam.process_image(img, ts), fresh.process_image(img, ts)
+        steps.append((r1["state"], r2["state"], r1.get("kf"), r2.get("kf")))
+    slam.flush_pipeline()
+    fresh.flush_pipeline()
+    err = float((slam.T_last - fresh.T_last).abs().max())
+    _log(f"checkpoint on the card: MonoSlam after {CKPT_FRAMES} frames ({slam.n_kf} KFs, "
+         f"{slam.stats['lm']} landmarks): save_slam {t_save:.3f} s "
+         f"({os.path.getsize(path) / 1e6:.2f} MB), load_slam {t_load:.3f} s; maps and "
+         f"generator bit-equal; {CKPT_MORE} more frames (state, kf) original/resumed "
+         f"{steps}; T_last max abs {err:.3e} (tol {CKPT_TOL})")
+    if any(a != b or c != d for a, b, c, d in steps) or not err <= CKPT_TOL:
+        raise RuntimeError("the resumed system parted from the original")
+    return dict(save_s=t_save, load_s=t_load, err=err)
+
+
+def check_rosbag(work: str, data_root: str):
+    """io/rosbag: the first BAG_S s of the generated shakes sequence (its
+    images, IMU and events) written into a bag by the port's writer, loaded
+    back by load_sequence("rosbag") and held against the text loader's
+    arrays, then run_slam.main EVENT_ONLY (synth_ev_only.yaml with DS.format
+    rosbag) from the bag for BAG_CHUNKS chunks: 89 + 40 splat launches per
+    window."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.io import datasets, rosbag
+    from eorb_slam_tpu_torch.ops import hopper_splat
+
+    txt = datasets.load_sequence("ev_ethz", data_root, "shakes_01", ts_factor=1.0)
+    ev = txt.events.events
+    t_end = float(ev[0, 0]) + BAG_S
+    ev = ev[ev[:, 0] <= t_end]
+    n_img = int(np.sum(txt.image_ts <= t_end))
+    imu_sel = txt.imu.ts <= t_end
+    imgs = [np.round(txt.image(i) * 255.0).astype(np.uint8) for i in range(n_img)]
+    msgs = [("/dvs/image_raw", "sensor_msgs/Image", float(txt.image_ts[i]),
+             rosbag.encode_image(float(txt.image_ts[i]), imgs[i])) for i in range(n_img)]
+    msgs += [("/dvs/imu", "sensor_msgs/Imu", float(t), rosbag.encode_imu(float(t), g, a))
+             for t, g, a in zip(txt.imu.ts[imu_sel], txt.imu.gyro[imu_sel],
+                                txt.imu.acc[imu_sel])]
+    msgs += [("/dvs/events", "dvs_msgs/EventArray", float(ev[k, 0]),
+              rosbag.encode_event_array(ev[k:k + BAG_EV_PER_MSG], H, W))
+             for k in range(0, len(ev), BAG_EV_PER_MSG)]
+    msgs.sort(key=lambda m: m[2])
+    bag_root = os.path.join(work, "bag")
+    os.makedirs(bag_root)
+    t0 = time.perf_counter()
+    rosbag.write_bag(os.path.join(bag_root, "shakes_01.bag"), msgs)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = datasets.load_sequence("rosbag", bag_root, "shakes_01", ts_factor=1.0)
+    t_read = time.perf_counter() - t0
+    got = seq.events.events
+    checks = {
+        "images": seq.n_frames == n_img and all(
+            np.array_equal(np.round(seq.image(i) * 255.0).astype(np.uint8), imgs[i])
+            for i in range(n_img)),
+        "image_ts": np.abs(seq.image_ts - txt.image_ts[:n_img]).max() <= 2e-9,
+        "imu": (np.array_equal(seq.imu.gyro, txt.imu.gyro[imu_sel])
+                and np.array_equal(seq.imu.acc, txt.imu.acc[imu_sel])
+                and np.abs(seq.imu.ts - txt.imu.ts[imu_sel]).max() <= 2e-9),
+        "events": (got.shape == ev.shape and np.array_equal(got[:, 1:3], ev[:, 1:3])
+                   and np.array_equal(got[:, 3], (ev[:, 3] > 0).astype(np.float64))
+                   and np.abs(got[:, 0] - ev[:, 0]).max() <= 2e-9),
+    }
+    settings = _settings_with_root("synth_ev_only.yaml", bag_root, work, fmt="rosbag",
+                                   name="synth_ev_only_bag.yaml")
+    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--max-frames",
+                            str(BAG_CHUNKS), "--out", os.path.join(work, "results_bag")])
+    torch.cuda.synchronize()
+    launches, vjp = hopper_splat.splat.launches, hopper_splat.splat.vjp_launches
+    windows = out["stats"]["windows"]
+    per_window = SLICE_CFG["l1_num_loop"] + 4 + 1 + 2 * CM_ITERS
+    _log(f"rosbag: {BAG_S} s of shakes_01 ({len(ev)} events in "
+         f"{-(-len(ev) // BAG_EV_PER_MSG)} messages, {n_img} images, {int(imu_sel.sum())} "
+         f"IMU rows) written in {t_write:.3f} s "
+         f"({os.path.getsize(os.path.join(bag_root, 'shakes_01.bag')) / 1e6:.2f} MB), "
+         f"read back in {t_read:.3f} s, against the text loader {checks}; run_slam "
+         f"EVENT_ONLY from the bag on {out['device']}: {out['iterations']} chunks, "
+         f"{windows} windows, {launches} + {vjp} splat launches, stats {out['stats']}")
+    if not all(checks.values()):
+        raise RuntimeError(f"the bag's sequence differs from the text loader's: {checks}")
+    if out["device"] != "cuda" or windows < 1:
+        raise RuntimeError(f"run_slam from the bag ran {windows} windows on {out['device']}")
+    if (launches, vjp) != (windows * per_window, windows * CM_ITERS):
+        raise RuntimeError(f"{launches} + {vjp} launches for {windows} windows, "
+                           f"expected {per_window} + {CM_ITERS} per window")
+    return dict(launches=launches, vjp_launches=vjp, windows=windows)
+
+
+def _ba_problem_np(dtype, K=8, M=256, P=4, seed=0):
+    """A landmark-major BA problem as numpy leaves (BAProblem order): K
+    poses on a line, two fixed, M points 4-8 m away, P noisy observations
+    each, the landmarks perturbed by 2 cm."""
+    rng = np.random.default_rng(seed)
+    lm = np.concatenate([rng.uniform(-2, 2, (M, 2)), rng.uniform(4, 8, (M, 1))], 1)
+    Ts = np.tile(np.eye(4), (K, 1, 1))
+    Ts[:, 0, 3] = -0.25 * np.arange(K)
+    obs_kf = rng.integers(0, K, (M, P)).astype(np.int32)
+    pc = np.einsum("mpij,mj->mpi", Ts[obs_kf][..., :3, :3], lm) + Ts[obs_kf][..., :3, 3]
+    uv = np.stack([458.0 * pc[..., 0] / pc[..., 2] + 376.0,
+                   457.0 * pc[..., 1] / pc[..., 2] + 240.0], -1)
+    uv += rng.normal(0, 0.3, uv.shape)
+    cam = np.asarray([458.0, 457.0, 376.0, 240.0, 0, 0, 0, 0, 0])
+    return (cam.astype(dtype), Ts.astype(dtype), np.asarray([True, True] + [False] * (K - 2)),
+            np.ones(K, bool), (lm + rng.normal(0, 0.02, lm.shape)).astype(dtype),
+            np.ones(M, bool), obs_kf, uv.astype(dtype), np.ones((M, P), dtype),
+            pc[..., 2] > 0.1)
+
+
+def _dist_inputs():
+    """The sharded splat's events: the main path's mix (_kernel_events) at
+    DIST_N, the weight's sign as polarity, nonzero weight as validity."""
+    xy, w = _kernel_events(DIST_N, seed=17)
+    ev = torch.zeros((DIST_N, 4), device="cuda")
+    ev[:, 1:3], ev[:, 3] = xy, w
+    return xy, w != 0, w, ev
+
+
+def _dist_worker(init_file: str, world: int, rank: int, out: str, backend: str) -> int:
+    """One rank of check_dist: the sharded splat and window scores, counted,
+    and (gloo) the f64 landmark-sharded BA; results to out/rank<r>.npz."""
+    import torch.distributed as dist
+
+    import eorb_slam_tpu_torch  # noqa: F401  (sets TF32 off)
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+    from eorb_slam_tpu_torch.optim import schur_ba
+    from eorb_slam_tpu_torch.parallel import dist_ba, dist_splat, multihost
+
+    multihost.init(f"file://{init_file}", num_processes=world, process_id=rank,
+                   backend=backend)
+    mesh = multihost.global_mesh()
+    xy, valid, pol, ev = _dist_inputs()
+    res = {"backend": np.asarray(dist.get_backend(mesh.group)),
+           "device": np.asarray(str(mesh.device))}
+    hs.splat.launches = 0
+    acc = dist_splat.splat_gauss_sharded(mesh, xy, valid, pol, H, W, sigma=SIGMA,
+                                         use_polarity=True)
+    res["splat_launches"] = hs.splat.launches
+    hs.splat.launches = 0
+    win, rate = dist_splat._window_scores_sharded(mesh, ev, valid, 0.012, H, W, SIGMA)
+    res["win_launches"] = hs.splat.launches
+    res.update(splat=acc.cpu().numpy(), win=win.cpu().numpy(), rate=rate.cpu().numpy())
+    res["sharded_ms"] = _time_ms(lambda: dist_splat.splat_gauss_sharded(
+        mesh, xy, valid, pol, H, W, sigma=SIGMA, use_polarity=True), reps=10, trials=3)
+    if backend == "gloo":
+        p = dist_ba.shard_problem(schur_ba.BAProblem(*_ba_problem_np(np.float64)), mesh)
+        r = dist_ba.dist_bundle_adjust(p, mesh, iters=DIST_BA_ITERS)
+        res.update(ba_kf_T=r.kf_T.cpu().numpy(), ba_lm_pos=r.lm_pos.cpu().numpy(),
+                   ba_cost0=r.cost0.cpu().numpy(), ba_cost=r.cost.cpu().numpy())
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_dist(work: str):
+    """parallel/ on the card: DIST_WORLD gloo ranks sharing cuda:0 (NCCL
+    refuses two ranks on one GPU) and one NCCL rank of a world of one, each
+    a process of its own. splat_gauss_sharded and _window_scores_sharded at
+    DIST_N events on 240x180 against the single-process kernel at FWD_TOL
+    (atomics, another summation order), exactly one forward kernel launch
+    per rank per call; dist_bundle_adjust in float64 against the
+    single-process bundle_adjust at the same iterations (converged). Then
+    the per-rank kernel call at its shape (N / world), timed."""
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+    from eorb_slam_tpu_torch.optim import schur_ba
+
+    runs = {}
+    for tag, world in (("gloo", DIST_WORLD), ("nccl", 1)):
+        d = os.path.join(work, f"dist_{tag}")
+        os.makedirs(d)
+        runs[tag] = (d, world, [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             os.path.join(d, "init"), str(world), str(r), d, tag],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)])
+    res = {}
+    try:
+        for tag, (d, world, procs) in runs.items():
+            for p in procs:
+                log = p.communicate(timeout=300)[0]
+                if p.returncode != 0:
+                    raise RuntimeError(f"dist worker ({tag}) exited {p.returncode}:\n"
+                                       f"{log[-3000:]}")
+            res[tag] = [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(world)]
+    finally:   # a rank that failed leaves its peers waiting in a collective
+        for _, _, procs in runs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+    xy, valid, pol, ev = _dist_inputs()
+    w_ev = (pol * valid).contiguous()
+    ref = hs.splat(xy, w_ev, H, W, SIGMA, TRUNC).cpu().numpy()
+    ref_win = hs.splat(xy, valid.to(torch.float32), H, W, SIGMA, TRUNC).cpu().numpy()
+    n = float(valid.sum())
+    errs, launches = [], {}
+    for tag, ranks in res.items():
+        launches[tag] = sum(int(r["splat_launches"]) + int(r["win_launches"]) for r in ranks)
+        for r in ranks:
+            if (int(r["splat_launches"]), int(r["win_launches"])) != (1, 1):
+                raise RuntimeError(f"{tag}: {int(r['splat_launches'])} + "
+                                   f"{int(r['win_launches'])} kernel launches for two calls")
+            if str(r["backend"]) != tag or not str(r["device"]).startswith("cuda"):
+                raise RuntimeError(f"a rank ran {r['backend']} on {r['device']}")
+            for got, want in ((r["splat"], ref), (r["win"], ref_win)):
+                err = float(np.abs(got - want).max())
+                if not err <= FWD_TOL * float(np.abs(want).max()):
+                    raise RuntimeError(f"{tag}: sharded splat off by {err}")
+                errs.append(err)
+            if abs(float(r["rate"]) - n / 0.012 / (H * W)) > 1e-5 * n / 0.012 / (H * W):
+                raise RuntimeError(f"{tag}: rate {float(r['rate'])}")
+    prob = schur_ba.BAProblem(*[torch.from_numpy(x).to("cuda")
+                                for x in _ba_problem_np(np.float64)])
+    single = schur_ba.bundle_adjust(prob, iters=DIST_BA_ITERS)
+    gloo = res["gloo"]
+    ba_err = max(max(float(np.abs(r["ba_kf_T"] - single.kf_T.cpu().numpy()).max())
+                     for r in gloo),
+                 float(np.abs(np.concatenate([r["ba_lm_pos"] for r in gloo])
+                              - single.lm_pos.cpu().numpy()).max()))
+    cost0, cost = float(gloo[0]["ba_cost0"]), float(gloo[0]["ba_cost"])
+    row = _identity_row(f"dist_splat's per-rank block ({DIST_WORLD} ranks)",
+                        xy[: DIST_N // DIST_WORLD].contiguous(),
+                        w_ev[: DIST_N // DIST_WORLD].contiguous(), SIGMA)
+    _log(f"dist on the card: {DIST_WORLD} gloo ranks on cuda:0 and 1 NCCL rank, "
+         f"splat_gauss_sharded + _window_scores_sharded at N={DIST_N}: max abs "
+         f"{max(errs):.3e} against the single-process kernel (max|ref| "
+         f"{np.abs(ref).max():.3f}, tol {FWD_TOL}x), forward launches gloo "
+         f"{launches['gloo']}, nccl {launches['nccl']} (one per rank per call); one "
+         f"sharded call {float(gloo[0]['sharded_ms']):.3f} ms (gloo, rank 0) and "
+         f"{float(res['nccl'][0]['sharded_ms']):.3f} ms (NCCL world 1) by events; "
+         f"dist_bundle_adjust f64 {DIST_BA_ITERS} iterations, cost {cost0:.2f} -> "
+         f"{cost:.6f} (single {float(single.cost):.6f}), max abs {ba_err:.3e} against "
+         f"the single-process solve (tol {DIST_BA_TOL})")
+    if not (ba_err <= DIST_BA_TOL and cost < cost0 / 5.0):
+        raise RuntimeError(f"dist BA off by {ba_err}, cost {cost0} -> {cost}")
+    return dict(row=row, launches=launches["gloo"], launches_nccl=launches["nccl"],
+                err=max(errs + [row["err"]]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3102,6 +3636,7 @@ def main() -> int:
     check_vi_small()
     check_depth_small()
     check_loop_small()
+    timed("check_akaze_small", check_akaze_small)
     timed("check_ev_image_small", check_ev_image_small)
     timed("check_continuous_small", check_continuous_small)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3113,7 +3648,11 @@ def main() -> int:
         app_eim = timed("run_app_event_imu_mono", run_app_event_imu_mono, work, gen["root"])
         app_cont = timed("run_app_event_continuous", run_app_event_continuous, work,
                          gen["root"])
-        run_app_monocular(work)
+        mono = run_app_monocular(work)
+        timed("run_app_mixed", run_app_mixed, work, mono)
+        timed("check_checkpoint", check_checkpoint, work)
+        bag_res = timed("check_rosbag", check_rosbag, work, gen["root"])
+        dist_res = timed("check_dist", check_dist, work)
         run_app_imu_monocular(work)
         depth_root = run_generate_depth(work)
         run_app_stereo(work, depth_root)
@@ -3128,15 +3667,18 @@ def main() -> int:
     # `launches` counts the EventSlam phase, `launches_run_slam` the app's,
     # `launches_event_imu` EVENT_IMU's, `launches_event_mono`,
     # `launches_event_imu_mono` and `launches_continuous` the image-clock
-    # modes' and the continuous tracker's through the app. The last two rows
-    # time the same kernels at the new call sites' shapes, with the launches
-    # of that site: build_mci's ascent (every VJP of those paths, SE2 at
-    # 65,536) and _chunk_image (one identity forward per chunk, 12,000: the
-    # measured forward launches less MCI_FWD per measured window).
+    # modes' and the continuous tracker's through the app, `launches_rosbag`
+    # EVENT_ONLY's from the bag. The last three rows time the same kernels
+    # at the later call sites' shapes, with the launches of that site:
+    # build_mci's ascent (every VJP of those paths, SE2 at 65,536),
+    # _chunk_image (one identity forward per chunk, 12,000: the measured
+    # forward launches less MCI_FWD per measured window) and dist_splat (one
+    # identity forward per rank per call, at N / world).
     _log(f"new phases, wall s: {phase_s}")
     main_row = next(r for r in rows if r["n"] == MAIN_N)
     big_row = next(r for r in rows if r["n"] == KERNEL_NS[-1])
     gen_row = gen_rows[0]
+    dist_row = dist_res["row"]
     common = dict(route="cuda", source="eorb_slam_tpu_torch/csrc/splat.cu",
                   replaces="eorb_slam_tpu/ops/pallas_splat.py:60", library_ms=None)
     # the forward launches of a phase less build_mci's MCI_FWD per window
@@ -3153,6 +3695,7 @@ def main() -> int:
         dict(common, name="splat_gauss", n=MAIN_N, form="se2",
              launches=res["launches"], launches_run_slam=app["launches"],
              launches_event_imu=app_ei["launches"], **paths(0),
+             launches_rosbag=bag_res["launches"],
              max_abs_err=fwd_err,
              ms=main_row["fwd_se2_ms"], device_ms=main_row["fwd_se2_dev_ms"],
              plain_ms=main_row["fwd_se2_plain_ms"],
@@ -3160,6 +3703,7 @@ def main() -> int:
         dict(common, name="splat_gauss_vjp", n=MAIN_N, form="se2",
              launches=res["vjp_launches"], launches_run_slam=app["vjp_launches"],
              launches_event_imu=app_ei["vjp_launches"], **paths(1),
+             launches_rosbag=bag_res["vjp_launches"],
              max_abs_err=vjp_err,
              ms=main_row["vjp_se2_ms"], device_ms=main_row["vjp_se2_dev_ms"],
              plain_ms=main_row["vjp_se2_plain_ms"],
@@ -3185,6 +3729,14 @@ def main() -> int:
              max_abs_err=chunk_row["err"], ms=chunk_row["ms"],
              device_ms=chunk_row["dev_ms"], plain_ms=chunk_row["plain_ms"],
              bound_ms=chunk_row["bound"][0], bound_by=chunk_row["bound"][1]),
+        # dist_splat: the identity form once per rank per call on its block;
+        # launches of the gloo ranks (two calls each) and of the NCCL rank
+        dict(common, name="splat_gauss (dist_splat: identity form, per rank)",
+             n=DIST_N // DIST_WORLD, form="identity", launches=dist_res["launches"],
+             launches_nccl=dist_res["launches_nccl"], max_abs_err=dist_res["err"],
+             ms=dist_row["ms"], device_ms=dist_row["dev_ms"],
+             plain_ms=dist_row["plain_ms"], bound_ms=dist_row["bound"][0],
+             bound_by=dist_row["bound"][1]),
     ]}))
     _log(f"gpu: {gpu}")
     _log(json.dumps({"ok": True, "device": {
@@ -3194,4 +3746,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        a = sys.argv[2:]
+        sys.exit(_dist_worker(a[0], int(a[1]), int(a[2]), a[3], a[4]))
     sys.exit(main())

@@ -10,7 +10,7 @@ timing-stats header.
 Every sensor mode runs: EVENT_ONLY through the discrete tracker
 (slam/event_system.EventSlam) or, with ``Event.contTracking: 1`` (the
 loader's default), the continuous one (slam/event_continuous.py);
-MONOCULAR with ORB features (``Features.mode: 0``); IMU_MONOCULAR
+MONOCULAR with ORB features; IMU_MONOCULAR
 (slam/vi_system.MonoInertialSlam); EVENT_IMU
 (slam/event_inertial.EventInertialSlam); STEREO, RGBD and IMU_STEREO
 (slam/rgbd_stereo.py); and the image-clock event modes EVENT_MONO and
@@ -18,11 +18,11 @@ EVENT_IMU_MONO (slam/ev_image_system.EvImageSlam and
 event_inertial.EvImageInertialSlam), which also write the fused event +
 image trajectory. The image modes close loops and merge maps when the
 settings configure a vocabulary (``make_vocab``: a DBoW2 text file, or one
-trained on the sequence's own frames). Mixed ORB + AKAZE features
-(``Features.mode`` other than 0) are not ported yet and raise
-NotImplementedError naming ROADMAP.md Queue 1 row 13. The system runs on
-the card unless ``--device`` says otherwise; without a card it raises
-rather than carrying on on the CPU.
+trained on the sequence's own frames). MONOCULAR with ``Features.mode:
+2`` runs mixed ORB + AKAZE features (slam/system.MixedMonoSlam); any other
+mode runs ORB, as the reference app does. The system runs on the card
+unless ``--device`` says otherwise; without a card it raises rather than
+carrying on on the CPU.
 
 Usage:
     python -m eorb_slam_tpu_torch.apps.run_slam <settings.yaml> [--out DIR]
@@ -109,10 +109,10 @@ def build_system(st: cfg_mod.Settings, loop_words=None, device=None):
         sigma=st.event.sigma,
     )
     if s is SensorConfig.MONOCULAR:
-        if st.features.mode != 0:
-            raise NotImplementedError(
-                f"Features.mode {st.features.mode} (AKAZE / mixed features, "
-                "MixedMonoSlam) is not ported yet: ROADMAP.md Queue 1 row 13")
+        if st.features.mode == 2:  # mixed ORB + AKAZE (Features.mode: 2)
+            from eorb_slam_tpu_torch.slam.system import MixedMonoSlam
+
+            return MixedMonoSlam(cam, **kw)
         from eorb_slam_tpu_torch.slam.system import MonoSlam
 
         # pipelined: the per-frame decision read overlaps the next frame's

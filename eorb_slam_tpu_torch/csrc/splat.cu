@@ -23,12 +23,14 @@
 // What bounds them: nothing on the device. The bytes that must move are
 // 12 N + 4 H W forward (369 KB at N = 16,384: 0.11 us at 3.35 TB/s) and
 // 16 N + 4 H W + 12 for the SE2 VJP (0.17 us), below what any launch costs;
-// the image (173 KB) lives in L2. The contrast-maximization ascent calls the
-// pair 81 + 40 times per window, so what is scarce is launches and the
-// host's time per launch. The design therefore removes launches and bytes
-// around the kernels rather than cycles inside them:
-// - the C entry zeroes the image itself (cudaMemsetAsync on the caller's
-//   stream), so one splat is one call from Python;
+// the image (173 KB; 346 KB as the forward's fixed-point sums) lives in
+// L2. The contrast-maximization ascent calls the pair 81 + 40 times per
+// window, so what is scarce is launches and the host's time per launch.
+// The design therefore removes launches and bytes around the kernels rather
+// than cycles inside them:
+// - the C entry zeroes the forward's accumulator itself (cudaMemsetAsync on
+//   the caller's stream) and converts it, so one splat is one call from
+//   Python;
 // - the SE2 instantiation reads the unwarped (x, y), the event time t and
 //   (omega, vx, vy) from device memory and warps in registers, so the warped
 //   coordinates, the weight product and their copies never reach memory;
@@ -38,15 +40,18 @@
 //   them to d/d(omega, vx, vy) and reduces them on the card: warp shuffles,
 //   shared memory, one partial per block, then a second kernel adds the
 //   partials in a fixed order, so the gradient is the same bits every run;
-// - the forward adds one row of taps with vector atomics (red.global.add
-//   .v4.f32, compute capability 9.x): the column window is aligned down to a
-//   multiple of the vector width and lanes outside the window carry 0, so a
-//   6-tap row costs 2-3 atomics instead of 6. The width (4, 2 or 1) is an
-//   argument so that a run can time them against each other (chip_smoke.py;
-//   on an H100 80GB HBM3 at 700 W the SE2 forward took 9.6 / 7.5 / 6.9 us
-//   at N = 16,384 and 27.5 / 18.4 / 13.3 us at N = 65,536 with 1 / 2 / 4
-//   lanes, memset included); it falls to a narrower one where W is not a
-//   multiple of it or the image is not aligned.
+// - the forward adds each tap into a 64-bit fixed-point accumulator with an
+//   integer atomic (the f32 product rounded to a multiple of 2^-32), and a
+//   second kernel converts the accumulator to f32. Integer addition is
+//   associative, so the image is the same bits every run whatever order the
+//   atomics land in. With f32 atomics it was not, and the 40-step
+//   contrast-maximization ascent carried that last-bit noise into the SE2
+//   parameters, where it moved a warped event across a truncation edge
+//   (a tap of ~1.4e-3 of the image's maximum appearing or not from run to
+//   run). The rounding to 2^-32 is far below the f32 rounding of the plain
+//   version's sums (one ulp is 9.5e-7 at 10). The range: a weight of
+//   magnitude 2^16 or more is out of range and, like a non-finite one,
+//   makes every pixel NaN; a pixel's sum of |taps| must stay under 2^31.
 //
 // A per-block copy of the image in shared memory was reckoned and not
 // built: 180 x 240 f32 = 173 KB allows one block per SM, and each block
@@ -55,8 +60,9 @@
 // blocks: 13 at N = 16,384 and 54 at N = 65,536, i.e. with most of the 132
 // SMs idle. Events arrive in time order, not by row, so a row band per
 // block would need a sort per ascent step. The direct form's measured
-// device time (4.6 us forward and 5.6 us VJP at N = 16,384, same card) is
-// under the host's cost of one launch, so such a copy has nothing to win.
+// device time (4.6 us forward with f32 atomics and 5.6 us VJP at
+// N = 16,384, H100 80GB HBM3 at 700 W) is under the host's cost of one
+// launch, so such a copy has nothing to win.
 //
 // Semantics that must match the plain versions (ops/hopper_splat.py):
 // - taps are tested with the same f32 arithmetic as
@@ -69,7 +75,8 @@
 //   bit and no tap at |d| = trunc flips between the two;
 // - events far outside the image, +-inf coordinates or weight 0 add
 //   nothing; a NaN coordinate or a non-finite weight makes every pixel NaN
-//   (in the separable form 0 * NaN poisons a whole row and column);
+//   (in the separable form 0 * NaN poisons a whole row and column), through
+//   a flag that the conversion kernel reads;
 // - the VJP writes NaN where the plain VJP is not finite: every output of
 //   an event with a NaN coordinate, the x (y) derivative of an event whose
 //   x (y) is +-inf, and both derivatives under a non-finite weight.
@@ -88,6 +95,9 @@ namespace {
 constexpr int kMaxTap = 16;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr float kFixScale = 4294967296.0f;     // 2^32: fixed-point units per 1.0
+constexpr double kFixUnit = 1.0 / 4294967296.0;
+constexpr float kMaxWeight = 65536.0f;         // 2^16
 
 struct Events {
   const float* xy;      // (n, 2)
@@ -139,40 +149,33 @@ __device__ __forceinline__ bool near_image(float x, float y, int H, int W, float
          y > -trunc - 1.0f && y < H + trunc + 1.0f;
 }
 
-// One thread per event. kVec: lanes per atomic; needs W % kVec == 0 and the
-// image aligned to kVec floats, so that an aligned group of columns never
-// leaves its row.
-template <bool kSe2, int kVec>
+// One thread per event: its taps into acc (H*W fixed-point sums); a NaN
+// coordinate or a weight out of range sets *poison instead.
+template <bool kSe2>
 __global__ void __launch_bounds__(kThreads)
-splat_fwd_kernel(Events ev, float* __restrict__ out, int n, int H, int W,
+splat_fwd_kernel(Events ev, unsigned long long* __restrict__ acc,
+                 unsigned long long* __restrict__ poison, int n, int H, int W,
                  float inv2s2, float trunc, int ntap) {
-  constexpr int kCols = kMaxTap + kVec;   // a multiple of kVec
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Coords co = load_coords<kSe2>(ev, i);
   const float x = co.x, y = co.y;
   const float w = load_weight(ev, i);
 
-  if (isnan(x) || isnan(y) || !isfinite(w)) {
-    for (int k = 0; k < H * W; ++k) out[k] = NAN;
+  if (isnan(x) || isnan(y) || !(fabsf(w) < kMaxWeight)) {
+    *poison = 1ull;
     return;
   }
   if (w == 0.0f || !near_image(x, y, H, W, trunc)) return;
 
   const int h0 = (int)floorf(y - trunc);
   const int c0 = (int)floorf(x - trunc);
-  const int off = ((c0 % kVec) + kVec) % kVec;
-  const int ca0 = c0 - off;                // aligned down; may be negative
-  const int ncols = off + ntap;            // columns ca0 .. ca0 + ncols - 1
-
-  // gx[b] is 0 exactly where column ca0 + b is outside the image or the
-  // truncation window, so groups made only of such columns are skipped
-  float gx[kCols];
+  float gx[kMaxTap];
 #pragma unroll
-  for (int b = 0; b < kCols; ++b) {
+  for (int b = 0; b < kMaxTap; ++b) {
     gx[b] = 0.0f;
-    if (b < ncols) {
-      const int c = ca0 + b;
+    if (b < ntap) {
+      const int c = c0 + b;
       const float dx = (float)c - x;
       if (c >= 0 && c < W && fabsf(dx) <= trunc) gx[b] = expf(-dx * dx * inv2s2);
     }
@@ -184,23 +187,24 @@ splat_fwd_kernel(Events ev, float* __restrict__ out, int n, int H, int W,
     const float dy = (float)h - y;
     if (!(fabsf(dy) <= trunc)) continue;
     const float gy = expf(-dy * dy * inv2s2) * w;
-    float* row = out + (ptrdiff_t)h * W + ca0;
+    unsigned long long* row = acc + (ptrdiff_t)h * W + c0;
 #pragma unroll
-    for (int b = 0; b < kCols; b += kVec) {
-      bool any = false;
-#pragma unroll
-      for (int l = 0; l < kVec; ++l) any |= gx[b + l] != 0.0f;
-      if (!any) continue;
-      if constexpr (kVec == 4) {
-        atomicAdd((float4*)(row + b), make_float4(gy * gx[b], gy * gx[b + 1],
-                                                  gy * gx[b + 2], gy * gx[b + 3]));
-      } else if constexpr (kVec == 2) {
-        atomicAdd((float2*)(row + b), make_float2(gy * gx[b], gy * gx[b + 1]));
-      } else {
-        atomicAdd(row + b, gy * gx[b]);
+    for (int b = 0; b < kMaxTap; ++b) {
+      if (gx[b] != 0.0f) {
+        atomicAdd(row + b, (unsigned long long)__float2ll_rn(gy * gx[b] * kFixScale));
       }
     }
   }
+}
+
+// One thread per pixel: the fixed-point sum as f32, or NaN if poisoned.
+__global__ void __launch_bounds__(kThreads)
+splat_fwd_finish_kernel(const long long* __restrict__ acc,
+                        const unsigned long long* __restrict__ poison,
+                        float* __restrict__ out, int hw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= hw) return;
+  out[i] = *poison ? NAN : (float)((double)acc[i] * kFixUnit);
 }
 
 // One thread per event: s = sum G k, sx = sum G k (c - x) / sigma^2,
@@ -320,50 +324,41 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials, int bloc
   if (lane == 0) out[k] = acc;
 }
 
-template <bool kSe2>
-void launch_fwd(int vec, int blocks, cudaStream_t s, const Events& ev, float* out,
-                int n, int H, int W, float inv2s2, float trunc, int ntap) {
-  if (vec == 4) {
-    splat_fwd_kernel<kSe2, 4><<<blocks, kThreads, 0, s>>>(ev, out, n, H, W, inv2s2, trunc, ntap);
-  } else if (vec == 2) {
-    splat_fwd_kernel<kSe2, 2><<<blocks, kThreads, 0, s>>>(ev, out, n, H, W, inv2s2, trunc, ntap);
-  } else {
-    splat_fwd_kernel<kSe2, 1><<<blocks, kThreads, 0, s>>>(ev, out, n, H, W, inv2s2, trunc, ntap);
-  }
-}
-
 }  // namespace
 
 // Threads per block of both kernels: the SE2 VJP needs (ceil(n / it), 3)
 // floats of scratch.
 extern "C" int splat_threads() { return kThreads; }
 
-// out (H, W) f32 is zeroed here and then accumulated. t == nullptr: the
-// events' own coordinates; else the SE2 warp with params (device) and the
-// centre (cx, cy). w is (n,) f32, or a (n,) bool mask if w_is_mask. vec:
-// lanes per atomic wanted (4, 2 or 1).
+// out (H, W) f32 is written; scratch holds H * W + 1 64-bit words (the
+// fixed-point image and the poison flag) and is zeroed here. t == nullptr:
+// the events' own coordinates; else the SE2 warp with params (device) and
+// the centre (cx, cy). w is (n,) f32, or a (n,) bool mask if w_is_mask.
 extern "C" int splat_gauss_forward(const void* xy, const void* t, const void* w,
                                    int w_is_mask, const void* params, float cx,
-                                   float cy, void* out, int n, int H, int W,
-                                   float inv2s2, float trunc, int ntap, int vec,
+                                   float cy, void* out, void* scratch, int n, int H,
+                                   int W, float inv2s2, float trunc, int ntap,
                                    void* stream) {
-  if (ntap < 1 || ntap > kMaxTap || (vec != 1 && vec != 2 && vec != 4)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (ntap < 1 || ntap > kMaxTap) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t rc = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)H * W, s);
+  const int hw = H * W;
+  unsigned long long* acc = (unsigned long long*)scratch;
+  cudaError_t rc = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * ((size_t)hw + 1), s);
   if (rc != cudaSuccess) return (int)rc;
   if (n > 0) {
-    while (vec > 1 && (W % vec != 0 || (uintptr_t)out % (sizeof(float) * vec) != 0)) vec >>= 1;
     const Events ev{(const float*)xy, (const float*)t, w, w_is_mask,
                     (const float*)params, cx, cy};
     const int blocks = (n + kThreads - 1) / kThreads;
     if (t != nullptr) {
-      launch_fwd<true>(vec, blocks, s, ev, (float*)out, n, H, W, inv2s2, trunc, ntap);
+      splat_fwd_kernel<true><<<blocks, kThreads, 0, s>>>(ev, acc, acc + hw, n, H, W,
+                                                         inv2s2, trunc, ntap);
     } else {
-      launch_fwd<false>(vec, blocks, s, ev, (float*)out, n, H, W, inv2s2, trunc, ntap);
+      splat_fwd_kernel<false><<<blocks, kThreads, 0, s>>>(ev, acc, acc + hw, n, H, W,
+                                                          inv2s2, trunc, ntap);
     }
   }
+  splat_fwd_finish_kernel<<<(hw + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      (const long long*)acc, acc + hw, (float*)out, hw);
   return (int)cudaGetLastError();
 }
 

@@ -484,12 +484,17 @@ def load_mvsec(root: str, sequence: str, max_events: Optional[int] = None,
 
 
 def load_rosbag(root: str, sequence: str, **kw) -> Sequence:
-    """ROS1 bag (v2.0) without ROS (reference RosBagStore,
-    include/ROS/RosBagStore.h): the pure-Python reader `io/rosbag.py` is not
-    ported yet."""
-    raise NotImplementedError(
-        "the rosbag reader (io/rosbag.py) is not ported yet: see ROADMAP.md "
-        "Queue 1 row 15")
+    """ROS1 bag (v2.0) without ROS: pure-Python reader (io/rosbag.py;
+    reference RosBagStore, include/ROS/RosBagStore.h)."""
+    from eorb_slam_tpu_torch.io import rosbag
+
+    path = os.path.join(root, sequence)
+    if not path.endswith(".bag"):
+        path += ".bag"
+    return rosbag.load_rosbag(path, **{
+        k: v for k, v in kw.items()
+        if k in ("image_topic", "imu_topic", "event_topic", "cache_dir")
+    })
 
 
 def load_sequence(fmt: str, root: str, sequence: str, **kw) -> Sequence:

@@ -1,9 +1,10 @@
 """Full ORB feature extraction: pyramid -> FAST -> orientation -> descriptors.
 
-PyTorch port of ``eorb_slam_tpu/ops/frontend.py`` (``extract``; the mixed
-ORB+AKAZE extractor is not ported yet): one call per image producing
-fixed-capacity keypoint tensors with octave bookkeeping. Per-level keypoint
-budgets are geometric in 1/scale, as in the reference ORBextractor.
+PyTorch port of ``eorb_slam_tpu/ops/frontend.py``: one call per image
+producing fixed-capacity keypoint tensors with octave bookkeeping
+(``extract``), and the mixed ORB + AKAZE extraction (``extract_mixed``).
+Per-level keypoint budgets are geometric in 1/scale, as in the reference
+ORBextractor.
 """
 
 from __future__ import annotations
@@ -87,3 +88,29 @@ def extract(
     # accidental agreement (their distance is forced by the valid mask too)
     desc_pm1 = desc_pm1 * valid[:, None].to(torch.int8)
     return Features(xy, angle, octave, response, desc, desc_pm1, valid)
+
+
+def extract_mixed(
+    img: torch.Tensor,
+    max_kp: int = 1024,
+    orb_frac: float = 0.5,
+    **akaze_kw,
+):
+    """Mixed ORB + AKAZE extraction (reference MixedFrame, Features.mode 2):
+    one fixed-capacity Features whose first ``round(orb_frac*max_kp)`` slots
+    are ORB keypoints and the rest AKAZE (MLDB-256), plus a (K,) int32
+    channel array (0 = ORB, 1 = AKAZE). Both descriptors share the 256-bit
+    +-1 layout, so matching needs no per-point type dispatch; a random
+    cross-channel pair lies ~10 sigma from any match threshold."""
+    from eorb_slam_tpu_torch.ops import akaze
+
+    n_orb = int(round(max_kp * orb_frac))
+    n_ak = max_kp - n_orb
+    f_orb = extract(img, max_kp=n_orb)
+    f_ak = akaze.extract_akaze(img, max_kp=n_ak, **akaze_kw)
+    cat = Features(*[torch.cat([a, b]) for a, b in zip(f_orb, f_ak)])
+    channel = torch.cat([
+        torch.zeros(n_orb, dtype=torch.int32, device=img.device),
+        torch.ones(n_ak, dtype=torch.int32, device=img.device),
+    ])
+    return cat, channel

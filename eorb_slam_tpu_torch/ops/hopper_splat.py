@@ -23,6 +23,12 @@ so each kernel exists in two forms of its coordinate source:
   One ascent step is then two kernel calls and a few reductions, with no
   warped coordinates, weight products or dense matrices in device memory.
 
+The forward kernel sums each tap into a 64-bit fixed-point image (units of
+2^-32) and converts it to f32, so on the card both directions give the same
+bits every call, and the 40-step ascent ends at the same parameters every
+run. A weight of magnitude 2^16 or more is outside the kernel's range and
+makes the image NaN, as a non-finite weight does in both versions.
+
 On a CUDA tensor every forward and backward launches its kernel, or raises;
 on a CPU tensor they compute the plain versions beside them here
 (``_splat_gauss_separable``, ``warp_se2`` in front of it, and
@@ -41,7 +47,6 @@ import math
 import torch
 
 _LIB = "splat"
-_VEC = 4    # f32 lanes per atomic of the forward (csrc/splat.cu)
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,8 +59,8 @@ def _kernels():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.splat_gauss_forward
     fwd.restype = i32
-    fwd.argtypes = [ptr, ptr, ptr, i32, ptr, f32, f32, ptr,
-                    i32, i32, i32, f32, f32, i32, i32, ptr]
+    fwd.argtypes = [ptr, ptr, ptr, i32, ptr, f32, f32, ptr, ptr,
+                    i32, i32, i32, f32, f32, i32, ptr]
     vjp = lib.splat_gauss_vjp
     vjp.restype = i32
     vjp.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, f32, f32, ptr, ptr, ptr, ptr,
@@ -79,15 +84,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _splat_cuda(xy, t, w, params, center, H, W, sigma, trunc, vec=_VEC):
-    """Launch the forward kernel: identity form if ``t`` is None, else SE2."""
+def _splat_cuda(xy, t, w, params, center, H, W, sigma, trunc):
+    """Launch the forward kernel: identity form if ``t`` is None, else SE2.
+    The kernel sums in 64-bit fixed point (scratch: the H*W sums and a
+    poison flag), so the image is the same bits every call."""
     fwd, _, _ = _kernels()
     out = torch.empty((H, W), dtype=torch.float32, device=xy.device)
+    scratch = torch.empty((H * W + 1,), dtype=torch.int64, device=xy.device)
     with torch.cuda.device(xy.device):
         rc = fwd(xy.data_ptr(), _ptr(t), w.data_ptr(), w.dtype != torch.float32,
                  _ptr(params), center[0], center[1], out.data_ptr(),
-                 xy.shape[0], H, W, 1.0 / (2.0 * sigma * sigma), trunc,
-                 _n_taps(trunc), vec,
+                 scratch.data_ptr(), xy.shape[0], H, W,
+                 1.0 / (2.0 * sigma * sigma), trunc, _n_taps(trunc),
                  torch.cuda.current_stream(xy.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"splat kernel launch failed: cudaError {rc}")

@@ -91,10 +91,13 @@ def describe(img_blur: torch.Tensor, xy: torch.Tensor,
 
     rx1, ry1 = rot(pat[:, 0], pat[:, 1])
     rx2, ry2 = rot(pat[:, 2], pat[:, 3])
-    bits = (sample(rx1, ry1) < sample(rx2, ry2)).to(torch.int64)  # (N,256)
+    return pack_bits(sample(rx1, ry1) < sample(rx2, ry2))
 
-    # pack 256 bits -> 8 words (little-endian within each word)
-    bits = bits.reshape(-1, DESC_WORDS, 32)
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(N,256) bool -> (N,8) int32 words, little-endian within each word
+    (the uint32 bit pattern of the JAX package's packing)."""
+    bits = bits.to(torch.int64).reshape(-1, DESC_WORDS, 32)
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=bits.device),
         torch.arange(32, dtype=torch.int64, device=bits.device))

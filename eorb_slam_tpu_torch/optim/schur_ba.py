@@ -1,9 +1,8 @@
 """Masked Levenberg-Marquardt bundle adjustment with Schur landmark elimination.
 
-PyTorch port of ``eorb_slam_tpu/optim/schur_ba.py`` (single device; the
-sharded ``axis_name`` variant and the test-only ``_schur_pieces_ref`` are
-not ported). Observations are landmark-major, a fixed ``(M, P)`` table, so
-the Schur products are dense contractions:
+PyTorch port of ``eorb_slam_tpu/optim/schur_ba.py`` (the test-only
+``_schur_pieces_ref`` is not ported). Observations are landmark-major, a
+fixed ``(M, P)`` table, so the Schur products are dense contractions:
 
   V_m     = sum_p  Jl^T W Jl                      (M,3,3)
   U_k     = sum over obs of camera k Jp^T W Jp    (K,6,6)
@@ -12,6 +11,12 @@ the Schur products are dense contractions:
 and the reduced camera system is solved dense (6K x 6K). The per-
 observation quantities keep the JAX package's flat ``(coeff, M*P)`` layout,
 so both packages sum the same terms.
+
+The sharded variant takes a ``torch.distributed`` process group where the
+JAX package takes a ``shard_map`` axis name: each rank holds a block of the
+landmark axis, and the reduced camera system and the cost are all-reduced
+where JAX psums them (parallel/dist_ba.py). Without a group no collective
+runs.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from eorb_slam_tpu_torch.geometry import camera as cam
@@ -233,18 +239,29 @@ def _backsub_landmarks(p: BAProblem, Wf, Vinv, b_l, dx_c):
     return dx_l * lm_free[:, None]
 
 
-def _build_and_solve(p: BAProblem, kf_T, lm_pos, lam, use_huber: bool):
-    """One damped GN step: returns (dx_cam (K,6), dx_lm (M,3))."""
+def _build_and_solve(p: BAProblem, kf_T, lm_pos, lam, use_huber: bool,
+                     group=None):
+    """One damped GN step: returns (dx_cam (K,6), dx_lm (M,3)).
+
+    With ``group`` (a process group over landmark blocks) the reduced
+    camera system is all-reduced, so every rank solves the same global
+    system; back-substitution stays local."""
     S, b_s, Wf, Vinv, b_l = _schur_pieces(p, kf_T, lm_pos, lam, use_huber)
+    if group is not None:
+        dist.all_reduce(S, group=group)
+        dist.all_reduce(b_s, group=group)
     dx_c = _solve_cameras(p, S, b_s, lam)
     dx_l = _backsub_landmarks(p, Wf, Vinv, b_l, dx_c)
     return dx_c, dx_l
 
 
-def _lm_loop(p: BAProblem, iters: int, lam0: float) -> BAResult:
+def _lm_loop(p: BAProblem, iters: int, lam0: float, group=None) -> BAResult:
     """Levenberg-Marquardt loop with per-iteration accept/reject on the
     device: lambda halves on success, grows x10 on failure (bounded), the
-    state reverts on failure (g2o's OptimizationAlgorithmLevenberg)."""
+    state reverts on failure (g2o's OptimizationAlgorithmLevenberg). With
+    ``group``, ``p`` is this rank's landmark block: the cost and the reduced
+    camera system are all-reduced, so every rank takes the same
+    accept/reject decision and the same pose update."""
     dtype = p.kf_T.dtype
     use_huber = True
 
@@ -257,13 +274,16 @@ def _lm_loop(p: BAProblem, iters: int, lam0: float) -> BAResult:
         _, _, chi2, _, pc = _residuals_and_weights(p, kf_T, lm_pos, use_huber)
         c = robust.huber_cost(chi2, robust.CHI2_MONO)
         c = torch.where(pc[..., 2] > 0.0, c, 1e6)   # cheirality penalty
-        return torch.sum(c * valid_static)
+        c = torch.sum(c * valid_static)
+        if group is not None:
+            dist.all_reduce(c, group=group)
+        return c
 
     kf_T, lm_pos = p.kf_T, p.lm_pos
     lam = torch.tensor(lam0, dtype=dtype, device=kf_T.device)
     cost0 = cost = total_cost(kf_T, lm_pos)
     for _ in range(iters):
-        dx_c, dx_l = _build_and_solve(p, kf_T, lm_pos, lam, use_huber)
+        dx_c, dx_l = _build_and_solve(p, kf_T, lm_pos, lam, use_huber, group)
         kf_T_new = lie.se3_project(lie.se3_exp(dx_c) @ kf_T)
         lm_new = lm_pos + dx_l
         cost_new = total_cost(kf_T_new, lm_new)

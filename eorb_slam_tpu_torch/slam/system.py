@@ -23,9 +23,10 @@ cross-map merge of a stored Atlas map (``_try_map_merge``). Frames with
 metric depth (``FrameInput.depth``: stereo, RGB-D) found landmarks from it
 at every keyframe (slam/rgbd_stereo.py).
 
-States: NOT_INITIALIZED -> OK -> (RECENTLY_LOST -> LOST handling).
+``MixedMonoSlam`` runs the same pipeline over mixed ORB + AKAZE features
+(``Features.mode: 2``).
 
-Not ported yet: ``MixedMonoSlam`` (ROADMAP.md Queue 1 row 13).
+States: NOT_INITIALIZED -> OK -> (RECENTLY_LOST -> LOST handling).
 """
 
 from __future__ import annotations
@@ -926,3 +927,32 @@ class MonoSlam:
                 out.append((ts, np.linalg.inv(Tcw)))
         out.sort(key=lambda e: e[0])
         return out
+
+
+class MixedMonoSlam(MonoSlam):
+    """Monocular SLAM over mixed ORB + AKAZE features (the reference's
+    ``Features.mode: 2`` MixedFrame pipeline, include/MixedFrame.h).
+
+    Frame slots are channel-partitioned (the first ``orb_frac`` ORB, the
+    rest AKAZE / MLDB-256); matching and BA downstream are channel-agnostic,
+    because both descriptors share the 256-bit +-1 layout (see
+    ops/frontend.extract_mixed). Every frame takes the synchronous path:
+    the fused ORB tracking call and the speculation do not apply."""
+
+    def __init__(self, cam_params, orb_frac: float = 0.5, **kw):
+        super().__init__(cam_params, **kw)
+        self.orb_frac = orb_frac
+        self.last_channel: Optional[torch.Tensor] = None
+
+    def process_image(self, img: torch.Tensor, ts: float,
+                      max_kp: Optional[int] = None):
+        if max_kp is None:
+            max_kp = self.map.N
+        feats, channel = frontend.extract_mixed(img, max_kp=max_kp,
+                                                orb_frac=self.orb_frac)
+        xy_ud = cam_mod.undistort_points(self.cam, feats.xy)
+        self.last_channel = channel
+        return self.process_features(
+            FrameInput(ts, xy_ud, feats.octave, feats.angle,
+                       feats.desc_pm1, feats.valid)
+        )

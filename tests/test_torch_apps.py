@@ -235,9 +235,17 @@ def test_unported_branches_raise():
     st = tcfg.Settings(sensor=tcfg.SensorConfig.EVENT_ONLY)
     assert st.event.continuous
     assert isinstance(trun.build_system(st, device="cpu"), tec.EventSlamContinuous)
-    st = tcfg.Settings(features=tcfg.FeatureConfig(mode=2))
-    with pytest.raises(NotImplementedError, match="row 13"):   # mixed features
-        trun.build_system(st, device="cpu")
+    # mixed ORB + AKAZE features (row 13) are ported: mode 2 builds
+    # MixedMonoSlam (not pipelined, as in the reference app); any other
+    # mode builds the pipelined ORB MonoSlam, mode 1 (AKAZE only) included
+    from eorb_slam_tpu_torch.slam import system as tsys
+
+    slam = trun.build_system(tcfg.Settings(features=tcfg.FeatureConfig(mode=2)),
+                             device="cpu")
+    assert type(slam) is tsys.MixedMonoSlam and not slam.pipelined
+    slam = trun.build_system(tcfg.Settings(features=tcfg.FeatureConfig(mode=1)),
+                             device="cpu")
+    assert type(slam) is tsys.MonoSlam and slam.pipelined
     assert trun.make_vocab(tcfg.Settings(), device="cpu") is None
     with pytest.raises(ValueError):
         trun.build_system(tcfg.Settings(sensor=tcfg.SensorConfig.IDLE), device="cpu")

@@ -3,6 +3,8 @@ CPU: with ``device=None`` they resolve to ``cuda``, and on a machine without
 a CUDA device they raise a RuntimeError that names CUDA instead of carrying
 on on the CPU. ``device="cpu"`` is what the CPU tests pass."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -11,7 +13,9 @@ from eorb_slam_tpu_torch import _host, convert
 from eorb_slam_tpu_torch.apps import run_slam as trun
 from eorb_slam_tpu_torch.event import builder as tb
 from eorb_slam_tpu_torch.imu import preintegration as tpre
+from eorb_slam_tpu_torch.io import checkpoint as tck
 from eorb_slam_tpu_torch.io import config as tcfg, synth_dataset as tsd
+from eorb_slam_tpu_torch.parallel import mesh_utils as tmesh
 from eorb_slam_tpu_torch.slam import atlas as tatlas
 from eorb_slam_tpu_torch.slam import ev_image_system as tev
 from eorb_slam_tpu_torch.slam import event_continuous as tec
@@ -32,6 +36,15 @@ _MONO = tcfg.Settings(cam=tcfg.CameraConfig(fx=40.0, fy=40.0, cx=24.0, cy=18.0,
                       features=tcfg.FeatureConfig(n_features=128))
 
 
+def _load_atlas(**kw):
+    """``load_atlas`` of a small atlas written on the CPU; the atlas."""
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(), "atlas.npz")
+    tck.save_atlas(path, tatlas.Atlas(N=32, **SMALL, device="cpu"))
+    return tck.load_atlas(path, **kw)[0]
+
+
 class _Renderer:
     """A renderer with the ``device`` its tensors live on."""
 
@@ -49,6 +62,9 @@ ENTRY_POINTS = {
     "EventWindowBuilder": lambda **kw: tb.EventWindowBuilder(
         tb.BuilderConfig(), CAM, **kw),
     "MonoSlam": lambda **kw: tsys.MonoSlam(CAM, N=32, **SMALL, **kw),
+    "MixedMonoSlam": lambda **kw: tsys.MixedMonoSlam(CAM, N=32, **SMALL, **kw),
+    "make_mesh": lambda **kw: tmesh.make_mesh(**kw),
+    "load_atlas": _load_atlas,
     "EventSlam": lambda **kw: tes.EventSlam(CAM, max_kp=32, **SMALL, **kw),
     "MonoInertialSlam": lambda **kw: tvs.MonoInertialSlam(
         CAM, tpre.make_calib(), N=32, **SMALL, **kw),

@@ -308,8 +308,14 @@ def test_tum_rgbd_and_kitti_loaders_match_jax(tmp_path):
 
 
 def test_unported_and_unknown_formats_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="rosbag"):
-        tds.load_sequence("rosbag", str(tmp_path), "x")
+    # the bag reader is ported: "rosbag" loads a bag (tests/test_torch_rosbag.py
+    # holds it against the JAX loader)
+    from eorb_slam_tpu_torch.io import rosbag as tbag
+
+    tbag.write_bag(str(tmp_path / "x.bag"), [
+        ("/dvs/imu", "sensor_msgs/Imu", 1.0, tbag.encode_imu(1.0, [0, 0, 1], [0, 0, 9.81]))])
+    seq = tds.load_sequence("rosbag", str(tmp_path), "x", cache_dir=str(tmp_path / "img"))
+    assert seq.n_frames == 0 and len(seq.imu.ts) == 1 and seq.events is None
     with pytest.raises(ValueError):
         tds.load_sequence("nope", str(tmp_path), "x")
     with pytest.raises(FileNotFoundError):

@@ -39,7 +39,9 @@ def test_port_imports_without_jax():
                  "geometry.sim3_solver", "optim.pose_graph", "retrieval.bow",
                  "slam.loop_closing", "utils.logging", "slam.fusion",
                  "slam.ev_image_system", "slam.event_continuous",
-                 "event.feature_tracks"):
+                 "event.feature_tracks", "ops.akaze", "io.checkpoint",
+                 "io.rosbag", "viz.viewer", "parallel.mesh_utils",
+                 "parallel.dist_ba", "parallel.dist_splat", "parallel.multihost"):
         assert f"eorb_slam_tpu_torch.{name}" in mods, name
     code = "\n".join([
         "import sys, importlib",
@@ -61,11 +63,12 @@ def test_port_imports_without_jax():
 
 
 def test_port_modules_need_no_yaml_or_pil_to_import():
-    """PyYAML and Pillow are used inside the functions that read settings
-    and images; importing the port (and chip_smoke.py) needs neither."""
+    """PyYAML, Pillow and matplotlib are used inside the functions that
+    read settings and images or draw; importing the port (and
+    chip_smoke.py) needs none of them."""
     code = "\n".join([
         "import sys, importlib",
-        "for name in ('yaml', 'PIL', 'h5py'):",
+        "for name in ('yaml', 'PIL', 'h5py', 'matplotlib'):",
         "    sys.modules[name] = None",
         f"for m in {_port_modules()!r}:",
         "    importlib.import_module(m)",
@@ -77,6 +80,26 @@ def test_port_modules_need_no_yaml_or_pil_to_import():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Module for module, the port mirrors the JAX package: every module of
+    eorb_slam_tpu has a file of the same path in eorb_slam_tpu_torch, with
+    one named exception, the Pallas kernel's module, whose counterpart is
+    the Hopper kernel's."""
+    renamed = {"ops/pallas_splat.py": "ops/hopper_splat.py"}
+    jax_root = os.path.join(REPO, "eorb_slam_tpu")
+    missing, n = [], 0
+    for d, _, files in os.walk(jax_root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), jax_root).replace(os.sep, "/")
+            n += 1
+            if not os.path.exists(os.path.join(REPO, "eorb_slam_tpu_torch",
+                                               renamed.get(rel, rel))):
+                missing.append(rel)
+    assert n >= 70 and not missing, missing
 
 
 def test_clis_start_without_jax(tmp_path):
