@@ -1,8 +1,11 @@
 """Drive the PyTorch/CUDA port on one GPU: build the splat kernels (forward
-and gather VJP, each in its identity and SE2-warp form) and the native C++
-I/O library, hold the kernels against their plain PyTorch versions (at the
-event front-end's shapes and at the dataset generator's), time the
-contrast-maximization ascent that calls them, run the L1 event front-end
+and gather VJP, each in its identity and SE2-warp form, and the
+contrast-maximization ascent as one thread-block-cluster kernel) and the
+native C++ I/O library, hold the kernels against their plain PyTorch
+versions (at the event front-end's shapes and at the dataset generator's;
+the ascent kernel step by step against the ascent loop on the card at
+16,384 and 65,536 events), time the ascent kernel beside the loop it
+replaces, run the L1 event front-end
 slice (event stream -> EventWindowBuilder.step_window -> MCI -> ORB
 extract), hold L2 tracking, duplicate fusion, the descriptor refresh and
 local BA on the card against the CPU from the same map, run EVENT_ONLY end
@@ -36,7 +39,7 @@ the per-chunk step() on the card against the CPU; EventSlamContinuous on
 the card against the CPU; and EVENT_MONO, EVENT_IMU_MONO and EVENT_ONLY
 with Event.contTracking: 1 through run_slam.main with the
 configs/synth_ev_*.yaml settings on the generated EV-ETHZ sequence, the
-splat launches of each gated exactly. Then the last modules: AKAZE and the
+splat launches of each gated exactly (forward, VJP and ascent). Then the last modules: AKAZE and the
 mixed ORB + AKAZE extraction on the card against the CPU; MONOCULAR with
 Features.mode: 2 (MixedMonoSlam) through run_slam.run_sequence on the
 generated corridor beside plain MONOCULAR; a checkpoint of a MonoSlam saved
@@ -53,8 +56,9 @@ Every phase raises on failure and the script then exits non-zero. Output:
 the card's name and power limit, the build times, the kernel-vs-plain
 comparisons and times (by CUDA events around eager calls, and device only:
 a CUDA-graph replay and the profiler's time by kernel name), the ascent's
-time and launches per call, the L1 slice's windows/s, the L2 cuda-vs-cpu
-agreement, EventSlam's MCIs/s, real-time factor and ms per MCI by phase,
+time and launches per call (kernel and loop), the L1 slice's windows/s,
+the L2 cuda-vs-cpu agreement, EventSlam's MCIs/s, real-time factor and ms
+per MCI by phase,
 the generator's events/s, the app runs with their accuracy, blocking host
 reads per frame / MCI (torch's sync debug mode), launches and device time
 per frame, the splat launches of each app path, then one JSON line
@@ -81,7 +85,7 @@ import torch
 H, W = 180, 240
 SIGMA, TRUNC = 1.0, 2.5
 KERNEL_NS = (8192, 16384, 32768, 65536)
-MAIN_N = 16384      # the shape of 125 of a window's 129 splat calls
+MAIN_N = 16384      # the L1 window's ascent (cm_sample) and the pair's timed shape
 FWD_TOL = 1e-5      # x max|ref|: the plain version sums in f32, the kernel
 #                     in fixed point (exact at 2^-32), in another order
 GRAD_TOL = 1e-4     # x max|ref|: per-event sums of <= 36 f32 terms, and for
@@ -192,9 +196,12 @@ CONT_POSE_TOL = 2e-3       # continuous tracker, Tcw max abs per window
 # is a tie: the new contrast within ASCENT_TIE (relative) of the best on
 # both devices (eight f32 ulps; one ulp is 6e-8 to 1.2e-7 of the value)
 ASCENT_TOL, ASCENT_TIE = 1e-5, 1e-6
-# forward and VJP splat launches of one build_mci: 4 candidates, the
-# ascent's 1 + 2 per step, and one VJP per step
-MCI_FWD, MCI_VJP = 4 + 1 + 2 * CM_ITERS, CM_ITERS
+# forward, VJP and ascent kernel launches of one build_mci: the 4
+# candidates' forwards, and the ascent as one launch of its own kernel
+MCI_FWD, MCI_VJP, MCI_ASCENT = 4, 0, 1
+# the ascent kernel's call sites: step_window's cm_sample and build_mci's
+# whole padded window
+ASCENT_NS = (MAIN_N, 65536)
 # EVENT_MONO / EVENT_IMU_MONO: the image tracker's generator seed of the app
 # runs. The event map's birth follows the image map's one two-view RANSAC
 # draw: with JAX's draws replayed the port births it as the reference does,
@@ -210,6 +217,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def _log(*a):
     print(*a, flush=True)
+
+
+def _reset_counts():
+    """Set the splat wrappers' launch counts (forward, VJP, ascent) to 0."""
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    hs.splat.launches = hs.splat.vjp_launches = hs.splat.ascent_launches = 0
+
+
+def _counts():
+    """(forward, VJP, ascent) kernel launches since the last _reset_counts."""
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    return hs.splat.launches, hs.splat.vjp_launches, hs.splat.ascent_launches
+
+
+def _window_launches(l1_num_loop):
+    """(forward, VJP, ascent) kernel launches of one L1 window: a forward
+    per chunk and per MCI candidate, no VJP, one ascent."""
+    return l1_num_loop + 4, 0, 1
 
 
 def _gpu_line() -> str:
@@ -525,51 +552,222 @@ def check_kernel():
     return rows
 
 
+class _PlainPair:
+    """Within it the pair's CUDA launchers are their plain versions, so
+    contrast_max._ascent_loop on CUDA tensors runs the plain ascent on the
+    card (the yardstick's plain_ms)."""
+
+    def __enter__(self):
+        from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+        self.saved = hs._splat_cuda, hs._vjp_cuda
+        hs._splat_cuda, hs._vjp_cuda = hs._splat_se2_plain, hs._splat_se2_vjp_plain
+        return self
+
+    def __exit__(self, *exc):
+        from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+        hs._splat_cuda, hs._vjp_cuda = self.saved
+
+
+def _ascents_agree(sg, sc, what):
+    """Two ascents' traces ((iters + 1, 4) float64: params and contrast of
+    the start and of every trial point; a step is taken where the contrast
+    rises) held step by step: params (in the ascent's scale) and contrasts
+    within ASCENT_TOL relative until the two first decide differently, and
+    that decision must be a tie, the trial within ASCENT_TIE (relative) of
+    the best on both sides. Returns (the step where they part or None, the
+    tie, the largest relative difference before it)."""
+    unit = np.asarray([2.0 / max(H, W), 1.0, 1.0])   # the ascent's scale
+    best_g, best_c, part, tie, err = sg[0, 3], sc[0, 3], None, 0.0, 0.0
+    for k, (rg, rc) in enumerate(zip(sg, sc)):
+        e_p = float(np.abs((rg[:3] - rc[:3]) / unit).max()
+                    / max(float(np.abs(rc[:3] / unit).max()), 1e-30))
+        e_c = abs(rg[3] - rc[3]) / abs(rc[3])
+        err = max(err, e_p, e_c)
+        if e_p > ASCENT_TOL or e_c > ASCENT_TOL:
+            raise RuntimeError(f"{what}: step {k} before the two part: params {rg[:3]} / "
+                               f"{rc[:3]}, contrast {rg[3]} / {rc[3]}")
+        if k == 0:
+            continue
+        up_g, up_c = rg[3] > best_g, rc[3] > best_c
+        if up_g != up_c:
+            part = k
+            tie = max(abs(rg[3] - best_g) / abs(best_g), abs(rc[3] - best_c) / abs(best_c))
+            break
+        best_g, best_c = (rg[3] if up_g else best_g), (rc[3] if up_c else best_c)
+    if part is not None and tie > ASCENT_TIE:
+        raise RuntimeError(f"{what}: the two decide step {part} differently, not at a tie: "
+                           f"{tie:.3e} of the contrast > {ASCENT_TIE}")
+    return part, tie, err
+
+
+def _ascent_bound(n, n_active, n_grad):
+    """(bound ms, "bytes" | "operations") of one ascent call: its inputs
+    read once (xy, t and the mask, 13 bytes an event, and params0) and its
+    outputs written once (5 floats and the trace), against the f32
+    operations of CM_ITERS + 1 splats and n_grad gathers of the n_active
+    events that reach the image."""
+    nbytes = 13 * n + 12 + 20 + 16 * (CM_ITERS + 1)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = n_active * ((CM_ITERS + 1) * FWD_OPS + n_grad * VJP_OPS) / F32_FLOPS
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_kernel_ascent():
+    """The ascent kernel (hopper_splat.splat_ascent_se2, as
+    contrast_max.maximize_rt2d calls it on the card) against
+    contrast_max._ascent_loop on the card (the pair's kernels) at both of
+    its call sites' shapes, ASCENT_NS, through the two traces: held step by
+    step until they first decide differently, which must be a tie; the SE2
+    image at the kernel's own params against the plain version at FWD_TOL
+    of max, and its contrast against the kernel's best; two calls the same
+    bits; a NaN event the loop's result; one launch of the kernel and none
+    of the pair's or of torch's cos / sin. Then its times: device only
+    (graph replay), by events, the loop on the card by events, the plain
+    version (the loop through the pair's plain versions on the card), and
+    the bound. Returns one row per N."""
+    from eorb_slam_tpu_torch.event import contrast_max as cm
+    from eorb_slam_tpu_torch.event.tensorize import warp_se2
+    from eorb_slam_tpu_torch.ops import hopper_splat as hs
+
+    t_phase = time.perf_counter()
+    center = (W / 2.0, H / 2.0)
+    rows = []
+    for n in ASCENT_NS:
+        xy, t, valid, _ = _se2_events(n, seed=3)
+        z = torch.zeros(3, device="cuda")
+        kernel = lambda trace=None: cm._ascent_kernel(xy, t, valid, H, W, z, CM_ITERS, SIGMA,
+                                                      1.0, trace=trace)
+        loop = lambda trace=None: cm._ascent_loop(xy, t, valid, H, W, z, CM_ITERS, SIGMA, 1.0,
+                                                  trace=trace)
+        tk, tk2, tl = (torch.zeros((CM_ITERS + 1, 4), device="cuda") for _ in range(3))
+        _reset_counts()
+        (p, best, c0), per = _profile(lambda: kernel(tk))
+        counts = _counts()
+        p2, best2, c02 = kernel(tk2)
+        loop(tl)
+        torch.cuda.synchronize()
+        sg, sc = tk.cpu().double().numpy(), tl.cpu().double().numpy()
+        part, tie, step_err = _ascents_agree(sg, sc, f"ascent kernel N={n} against the loop")
+        if not (_same_bits(tk, tk2) and all(_same_bits(a.reshape(-1), b.reshape(-1)) for a, b
+                                            in ((p, p2), (best, best2), (c0, c02)))):
+            raise RuntimeError(f"N={n}: two ascent kernel calls differ")
+        n_asc = _matching(per, "splat_ascent_kernel")[0]
+        n_pair = _matching(per, "splat_fwd_kernel")[0] + _matching(per, "splat_vjp_kernel")[0]
+        trig = _matching(per, "cos_kernel")[0] + _matching(per, "sin_kernel")[0]
+        if counts != (0, 0, 1) or n_asc != 1 or n_pair or trig:
+            raise RuntimeError(f"N={n}: the ascent launched {counts} (forward, VJP, ascent; "
+                               f"profiler: {sorted(per)})")
+        # the image at the kernel's own params, kernel and plain, and its contrast
+        img = hs.splat_se2(xy, t, valid, p, center, H, W, SIGMA, TRUNC)
+        ref = hs._splat_se2_plain(xy, t, valid, p, center, H, W, SIGMA, TRUNC)
+        err = _held(img, ref, FWD_TOL, f"N={n} SE2 image at the ascent kernel's params")
+        c_ref = float(cm._variance(ref))
+        if not abs(float(best) - c_ref) <= ASCENT_TOL * abs(c_ref):
+            raise RuntimeError(f"N={n}: the kernel's best contrast {float(best)} is not the "
+                               f"contrast at its params {c_ref}")
+        # the work this run's data needed: events that reach the image at the
+        # end, a gradient at the start and after every step taken but the last
+        reach = warp_se2(xy, t, p, xy.new_tensor(center))
+        act = int((valid & (reach[:, 0] > -TRUNC - 1) & (reach[:, 0] < W + TRUNC + 1)
+                   & (reach[:, 1] > -TRUNC - 1) & (reach[:, 1] < H + TRUNC + 1)).sum())
+        taken = [sg[k, 3] > sg[:k, 3].max() for k in range(1, CM_ITERS + 1)]
+        n_grad = 1 + sum(taken[:-1])
+        with _PlainPair():
+            plain_ms = _time_ms(loop, reps=2, trials=3)
+        row = dict(
+            n=n, active=act, grads=n_grad, part=part, tie=tie, step_err=step_err, err=err,
+            ref=float(ref.abs().max()), launches=counts, prof_launches=n_asc,
+            prof_us=_matching(per, "splat_ascent_kernel")[1],
+            dev_ms=_device_ms(kernel, reps=10, trials=3), ms=_time_ms(kernel, reps=5, trials=3),
+            loop_ms=_time_ms(loop, reps=3, trials=3), plain_ms=plain_ms,
+            bound=_ascent_bound(n, act, n_grad))
+        _log(f"ascent kernel N={n} ({act} events reach the image, {sum(taken)} of {CM_ITERS} "
+             f"steps taken, {n_grad} gradients): against the loop on the card "
+             + ("every step agrees" if part is None else
+                f"the steps agree until step {part}, a tie ({tie:.2e} of the contrast)")
+             + f", max rel {step_err:.2e} (tol {ASCENT_TOL}); contrast {float(c0):.6f} -> "
+             f"{float(best):.6f}; the SE2 image at its params max abs {err:.3e} (max|ref| "
+             f"{row['ref']:.3f}, tol {FWD_TOL}x); the same bits twice; launches {counts} "
+             f"(forward, VJP, ascent), profiler: splat_ascent_kernel x{n_asc} "
+             f"{row['prof_us']:.1f} us | ms device only / by events / loop on the card / "
+             f"plain (the loop through the plain pair) / bound ({row['bound'][1]}): "
+             f"{row['dev_ms']:.4f} / {row['ms']:.4f} / {row['loop_ms']:.4f} / "
+             f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
+        rows.append(row)
+
+    # a NaN coordinate poisons every image: the contrast is NaN and no step
+    # is taken, as in the loop
+    xy, t, valid, _ = _se2_events(4096, seed=9)
+    xy[7, 1] = float("nan")
+    z = torch.zeros(3, device="cuda")
+    got = cm._ascent_kernel(xy, t, valid, H, W, z, 5, SIGMA, 1.0)
+    ref = cm._ascent_loop(xy, t, valid, H, W, z, 5, SIGMA, 1.0)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[0], z)
+            and all(torch.isnan(x).item() for x in (*got[1:], *ref[1:]))):
+        raise RuntimeError(f"NaN event: kernel {got}, loop {ref}")
+    _log(f"ascent kernel, NaN event: params stay at the start, contrasts NaN, as in the loop; "
+         f"phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def time_ascent():
-    """One contrast_max.maximize_rt2d call at the main path's shape: its
-    time, and every launch it makes, by name."""
+    """contrast_max.maximize_rt2d at the main path's shape, N = MAIN_N: the
+    kernel (one launch) and the loop it replaces on the card
+    (contrast_max._ascent_loop through the pair's kernels) in one call, in
+    turns (loop, kernel, kernel, loop), by the host clock around
+    synchronised calls; every launch of each, by name."""
     from eorb_slam_tpu_torch.event import contrast_max
     from eorb_slam_tpu_torch.ops import hopper_splat as hs
 
     xy, t, valid, _ = _se2_events(MAIN_N, seed=3)
-    run = lambda: contrast_max.maximize_rt2d(xy, t, valid, H, W, iters=CM_ITERS, sigma=SIGMA)
-    run()
+    z = torch.zeros(3, device="cuda")
+    runs = {"kernel": lambda: contrast_max.maximize_rt2d(xy, t, valid, H, W, iters=CM_ITERS,
+                                                          sigma=SIGMA),
+            "loop": lambda: contrast_max._ascent_loop(xy, t, valid, H, W, z, CM_ITERS, SIGMA,
+                                                       1.0)}
+    for fn in runs.values():
+        fn()
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-    hs.splat.launches = hs.splat.vjp_launches = 0
-    (p, c, c0), per = _profile(run)
-    launches = sum(cnt for cnt, _ in per.values())
-    dev_us = sum(us for _, us in per.values())
-    n_fwd, n_vjp = _matching(per, "splat_fwd_kernel")[0], _matching(per, "splat_vjp_kernel")[0]
-    trig = _matching(per, "cos_kernel")[0] + _matching(per, "sin_kernel")[0]
-    # control: the plain SE2 forward does launch them, under that name
+    walls = {k: [] for k in runs}
+    for k in ("loop", "kernel", "kernel", "loop"):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            walls[k].append(1e3 * (time.perf_counter() - t0))
+    prof = {}
+    for k, fn in runs.items():
+        _reset_counts()
+        (p, c, c0), per = _profile(fn)
+        prof[k] = (per, _counts(), p, c, c0)
+        if not (torch.isfinite(p).all() and float(c) >= float(c0)):
+            raise RuntimeError(f"the {k} ascent went wrong: {p} {c0} -> {c}")
+    # control: the plain SE2 forward launches torch's cos and sin kernels by those names
     _, plain_per = _profile(lambda: hs._splat_se2_plain(
-        xy, t, valid, p, (W / 2.0, H / 2.0), H, W, SIGMA, TRUNC))
+        xy, t, valid, z, (W / 2.0, H / 2.0), H, W, SIGMA, TRUNC))
     if not (_matching(plain_per, "cos_kernel")[0] and _matching(plain_per, "sin_kernel")[0]):
         raise RuntimeError(f"torch's cos/sin kernels not recognised by name: {sorted(plain_per)}")
-    _log(f"maximize_rt2d N={MAIN_N} iters={CM_ITERS}: {np.median(walls):.3f} ms per call "
-         f"(host clock, synchronised; 5 calls {min(walls):.3f}-{max(walls):.3f}), "
-         f"{launches} device launches per call ({launches / CM_ITERS:.1f} per iteration), "
-         f"{dev_us / 1e3:.3f} ms of device time; splat_fwd_kernel x{n_fwd}, "
-         f"splat_vjp_kernel x{n_vjp}, torch cos/sin kernels x{trig}; contrast "
-         f"{float(c0):.6f} -> {float(c):.6f}")
-    # the counters are exact; the profiler may drop a record or two
-    want = (1 + 2 * CM_ITERS, CM_ITERS)
-    if (hs.splat.launches, hs.splat.vjp_launches) != want or \
-            n_fwd < 0.9 * want[0] or n_vjp < 0.9 * want[1]:
-        raise RuntimeError(f"the ascent launched {hs.splat.launches} forward and "
-                           f"{hs.splat.vjp_launches} VJP kernels (profiler: {n_fwd}, "
-                           f"{n_vjp}), expected {want}")
-    if trig:
-        raise RuntimeError("the ascent launched torch cos/sin kernels: warp_se2 "
-                           "is not fused into the splat")
-    if not (torch.isfinite(p).all() and float(c) >= float(c0)):
-        raise RuntimeError(f"the ascent went wrong: {p} {c0} -> {c}")
+    out = {}
+    for k, (per, counts, p, c, c0) in prof.items():
+        launches = sum(cnt for cnt, _ in per.values())
+        dev_us = sum(us for _, us in per.values())
+        trig = _matching(per, "cos_kernel")[0] + _matching(per, "sin_kernel")[0]
+        by = {w: _matching(per, w)[0] for w in ("splat_ascent_kernel", "splat_fwd_kernel",
+                                                "splat_vjp_kernel")}
+        _log(f"maximize_rt2d N={MAIN_N} iters={CM_ITERS}, {k}: {np.median(walls[k]):.3f} ms per "
+             f"call (host clock, synchronised; {len(walls[k])} calls in two turns "
+             f"{min(walls[k]):.3f}-{max(walls[k]):.3f}), {launches} device launches per call, "
+             f"{dev_us / 1e3:.3f} ms of device time; {by}, torch cos/sin kernels x{trig}; "
+             f"counted (forward, VJP, ascent) {counts}; contrast {float(c0):.6f} -> {float(c):.6f}")
+        # the counters are exact; the profiler may drop a record or two
+        want = (0, 0, 1) if k == "kernel" else (1 + CM_ITERS, CM_ITERS, 0)
+        if counts != want or trig or (k == "kernel" and by["splat_ascent_kernel"] != 1):
+            raise RuntimeError(f"the {k} ascent launched {counts} (expected {want}), "
+                               f"profiler {by}, cos/sin x{trig}")
+        out[k] = dict(ms=float(np.median(walls[k])), launches=launches, device_ms=dev_us / 1e3)
+    return out
 
 
 def synth_stream(seconds, rate, seed):
@@ -653,10 +851,10 @@ def check_slice_small():
 
 def run_slice():
     from eorb_slam_tpu_torch.event import builder as eb
-    from eorb_slam_tpu_torch.ops import frontend, hopper_splat
+    from eorb_slam_tpu_torch.ops import frontend
 
     cfg = eb.BuilderConfig(**SLICE_CFG)
-    splats_per_window = cfg.l1_num_loop + 4 + 1 + 2 * cfg.cm_iters
+    per_window = _window_launches(cfg.l1_num_loop)
     ev = synth_stream(WARM_S + RUN_S, RATE, seed=5)
     t_split = WARM_S
     warm, run = ev[ev[:, 0] < t_split], ev[ev[:, 0] >= t_split]
@@ -678,14 +876,13 @@ def run_slice():
     if not warm_rec:
         raise RuntimeError("warm-up produced no window")
 
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     rec = []
     t0 = time.perf_counter()
     drive(run, rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hopper_splat.splat.launches
-    vjp_launches = hopper_splat.splat.vjp_launches
+    counts = _counts()
 
     n_win = len(rec)
     if n_win == 0:
@@ -698,20 +895,18 @@ def run_slice():
     if any(s != (MAX_KP, 2) for _, _, _, s, _ in rec) or \
             any(s != (H, W) for _, _, _, _, s in rec):
         raise RuntimeError("unexpected output shapes")
-    if (launches, vjp_launches) != (n_win * splats_per_window, n_win * cfg.cm_iters):
-        raise RuntimeError(f"{launches} splat and {vjp_launches} VJP launches for "
-                           f"{n_win} windows, expected {splats_per_window} and "
-                           f"{cfg.cm_iters} per window")
+    if counts != tuple(n_win * c for c in per_window):
+        raise RuntimeError(f"{counts} forward, VJP and ascent launches for {n_win} "
+                           f"windows, expected {per_window} per window")
     data_s = rec[-1][0].ts - warm_rec[-1][0].ts
     b._resolve_window_meta(block=True)
     _log(f"slice: {n_win} windows in {wall:.3f} s wall = {n_win / wall:.3f} "
          f"windows/s; {data_s:.4f} s of data -> real-time x {data_s / wall:.4f}; "
          f"keypoints per window min {min(n_kp)} median {int(np.median(n_kp))}; "
-         f"splat launches {launches} ({splats_per_window} per window), VJP "
-         f"launches {vjp_launches} ({cfg.cm_iters} per window); final "
+         f"forward, VJP and ascent launches {counts} ({per_window} per window); final "
          f"chunk size {b.chunk_size}; winners "
          f"{ {k: sum(int(r[0].se2_params[0]) == i for r in rec) for i, k in enumerate(eb.KINDS)} }")
-    return dict(windows=n_win, wall_s=wall, data_s=data_s, launches=launches)
+    return dict(windows=n_win, wall_s=wall, data_s=data_s, launches=counts)
 
 
 def _cam(device="cpu"):
@@ -924,11 +1119,10 @@ def run_event_slam():
     timed, then 0.085 s more window by window: 12 MCIs with synchronised
     per-phase timers, the rest under the profiler."""
     from eorb_slam_tpu_torch.event import builder as eb
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import event_system, system
 
     cfg = eb.BuilderConfig(**SLICE_CFG)
-    splats_per_window = cfg.l1_num_loop + 4 + 1 + 2 * cfg.cm_iters
+    per_window = _window_launches(cfg.l1_num_loop)
     ev = synth_stream(EV_WARM_S + EV_RUN_S + EV_PHASE_S, RATE, seed=5)
     t_run, t_phase = EV_WARM_S, EV_WARM_S + EV_RUN_S
     warm = ev[ev[:, 0] < t_run]
@@ -953,14 +1147,13 @@ def run_event_slam():
     if not any(r["state"] == system.OK for r, _ in warm_rec):
         raise RuntimeError(f"L2 did not initialize in the warm-up: {slam.stats}")
 
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     rec = []
     t0 = time.perf_counter()
     drive(run, rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hopper_splat.splat.launches
-    vjp_launches = hopper_splat.splat.vjp_launches
+    launches, vjp_launches, asc_launches = counts = _counts()
     n = len(rec)
     if n == 0:
         raise RuntimeError("the timed part produced no MCI")
@@ -1029,8 +1222,8 @@ def run_event_slam():
     _log(f"EventSlam: {n} MCIs in {wall:.3f} s wall = {n / wall:.3f} MCIs/s; "
          f"{data_s:.4f} s of data -> real-time x {data_s / wall:.4f}; "
          f"{n_ok}/{n} timed MCIs OK, {n_prior} with the L2 pose prior set; "
-         f"splat launches {launches} ({splats_per_window} per window), VJP "
-         f"launches {vjp_launches} ({cfg.cm_iters} per window); winners {winners}")
+         f"forward, VJP and ascent launches {counts} ({per_window} per window); "
+         f"winners {winners}")
     _log(f"EventSlam phases over {n_ph} MCIs (synchronised): step_window "
          f"{ms_step:.2f} ms, process_image tracking {ms_track:.2f} ms, "
          f"keyframe mapping {ms_map:.2f} ms per MCI ({len(t_map)} keyframes, "
@@ -1049,14 +1242,13 @@ def run_event_slam():
         raise RuntimeError(f"only {n_ok}/{n} timed MCIs tracked")
     if not traj or not all(np.isfinite(T).all() for _, T in traj):
         raise RuntimeError("a trajectory pose is not finite")
-    if (launches, vjp_launches) != (n * splats_per_window, n * cfg.cm_iters):
-        raise RuntimeError(f"{launches} splat and {vjp_launches} VJP launches for "
-                           f"{n} windows, expected {splats_per_window} and "
-                           f"{cfg.cm_iters} per window")
+    if counts != tuple(n * c for c in per_window):
+        raise RuntimeError(f"{counts} forward, VJP and ascent launches for {n} windows, "
+                           f"expected {per_window} per window")
     if n_prior == 0:
         raise RuntimeError("no timed window ran with the L2 pose prior")
     return dict(mcis=n, wall_s=wall, data_s=data_s, launches=launches,
-                vjp_launches=vjp_launches)
+                vjp_launches=vjp_launches, ascent_launches=asc_launches)
 
 
 def check_kernel_generator():
@@ -1179,7 +1371,6 @@ def run_app_event_only(work: str, data_root: str):
     DS.Paths.root differs) on the generated sequence, no --device: the
     system goes to the card; scored against ground truth with --eval."""
     from eorb_slam_tpu_torch.apps import run_slam
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import event_system, system
 
     settings = _settings_with_root("synth_ev_only.yaml", data_root, work)
@@ -1193,7 +1384,7 @@ def run_app_event_only(work: str, data_root: str):
         return res
 
     event_system.EventSlam._track_mci = recording
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     try:
         t0 = time.perf_counter()
         (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
@@ -1202,7 +1393,7 @@ def run_app_event_only(work: str, data_root: str):
         t_main = time.perf_counter() - t0
     finally:
         event_system.EventSlam._track_mci = track_mci
-    launches, vjp = hopper_splat.splat.launches, hopper_splat.splat.vjp_launches
+    launches, vjp, asc = _counts()
     st, ev = out["stats"], out.get("eval", {})
     n = st["mci"]
     first_ok = states.index(system.OK) if system.OK in states else n
@@ -1218,8 +1409,9 @@ def run_app_event_only(work: str, data_root: str):
          f"(real-time x {data_s / out['wall_s']:.4f}; main() with parse and "
          f"evaluation {t_main:.3f} s); avg_track_ms {out['avg_track_ms']:.2f} per "
          f"chunk; initialised at MCI {first_ok}, then {n_ok}/{len(after)} tracked; "
-         f"splat launches {launches} forward + {vjp} VJP for {st['windows']} windows; "
-         f"native queue {'in use' if queues and all(queues) else 'NOT in use'}")
+         f"splat launches {launches} forward + {vjp} VJP + {asc} ascent for "
+         f"{st['windows']} windows; native queue "
+         f"{'in use' if queues and all(queues) else 'NOT in use'}")
     _log(f"run_slam EVENT_ONLY accuracy: ATE rmse {ev.get('ate_rmse')} m over "
          f"{ev.get('ate_n')} poses (Sim3-aligned, scale {ev.get('ate_scale')}), path "
          f"{path_len:.4f} m -> {100 * ate_frac:.2f}% of the path; piecewise APE "
@@ -1231,18 +1423,18 @@ def run_app_event_only(work: str, data_root: str):
         raise RuntimeError("EventWindowBuilder did not use the native event queue")
     if not after or n_ok < 0.8 * len(after):
         raise RuntimeError(f"only {n_ok}/{len(after)} windows tracked after init")
-    per_window = SLICE_CFG["l1_num_loop"] + 4 + 1 + 2 * CM_ITERS
-    if (launches, vjp) != (st["windows"] * per_window, st["windows"] * CM_ITERS):
-        raise RuntimeError(f"{launches} + {vjp} launches for {st['windows']} windows, "
-                           f"expected {per_window} + {CM_ITERS} per window")
+    per_window = _window_launches(SLICE_CFG["l1_num_loop"])
+    if (launches, vjp, asc) != tuple(st["windows"] * c for c in per_window):
+        raise RuntimeError(f"{(launches, vjp, asc)} launches for {st['windows']} windows, "
+                           f"expected {per_window} per window")
     if not header.startswith("# tracking:"):
         raise RuntimeError(f"TUM file starts with {header!r}")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= APP_MIN_ATE_N):
         raise RuntimeError(f"evaluate gave {ev}")
     if not ate_frac <= APP_ATE_MAX:
         raise RuntimeError(f"ATE is {ate_frac} of the path > {APP_ATE_MAX}")
-    return dict(launches=launches, vjp_launches=vjp, mcis=n, wall_s=out["wall_s"],
-                ate_frac=ate_frac)
+    return dict(launches=launches, vjp_launches=vjp, ascent_launches=asc, mcis=n,
+                wall_s=out["wall_s"], ate_frac=ate_frac)
 
 
 def run_app_monocular(work: str):
@@ -1788,7 +1980,6 @@ def run_app_event_imu(work: str, data_root: str):
     settings on the generated shakes sequence (its imu.txt), no --device:
     the card; scored with --eval."""
     from eorb_slam_tpu_torch.apps import run_slam
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import event_inertial
 
     settings = _settings_with_root("synth_ev_imu.yaml", data_root, work)
@@ -1808,7 +1999,7 @@ def run_app_event_imu(work: str, data_root: str):
 
     event_inertial.EventInertialSlam._track_mci = recording
     run_slam.run_sequence = keep
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     try:
         (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
                                 "--out", os.path.join(work, "results_evimu")])
@@ -1816,7 +2007,7 @@ def run_app_event_imu(work: str, data_root: str):
     finally:
         event_inertial.EventInertialSlam._track_mci = track_mci
         run_slam.run_sequence = run_seq
-    launches, vjp = hopper_splat.splat.launches, hopper_splat.splat.vjp_launches
+    launches, vjp, asc = _counts()
     slam, seq = slams[0]
     # --eval scores an inertial mode with the scale fixed; until the IMU
     # initializes the map has the monocular gauge, so the gate is Sim3
@@ -1839,7 +2030,8 @@ def run_app_event_imu(work: str, data_root: str):
          f"{out['wall_s']:.3f} s wall = {n / out['wall_s']:.3f} MCIs/s (real-time x "
          f"{GEN_S / out['wall_s']:.4f}); initialised at MCI {first_ok}, then {n_ok}/"
          f"{len(after)} tracked; imu_initialized {slam.imu_initialized} (not gated); splat "
-         f"launches {launches} forward + {vjp} VJP for {st['windows']} windows; IMU samples "
+         f"launches {launches} forward + {vjp} VJP + {asc} ascent for {st['windows']} "
+         f"windows; IMU samples "
          f"{slam.imu.popped} taken by {n} MCI windows, {len(slam.imu)} left after the last "
          f"MCI ({left_early} of them not later than it), {pushed} pushed")
     _log(f"run_slam EVENT_IMU accuracy: ATE rmse {ev.get('ate_rmse')} m over {ev.get('ate_n')} "
@@ -1850,17 +2042,18 @@ def run_app_event_imu(work: str, data_root: str):
         raise RuntimeError(f"run_slam ran on {out['device']}")
     if not after or n_ok < EVI_TRACK_MIN * len(after):
         raise RuntimeError(f"only {n_ok}/{len(after)} windows tracked after init")
-    per_window = SLICE_CFG["l1_num_loop"] + 4 + 1 + 2 * CM_ITERS
-    if (launches, vjp) != (st["windows"] * per_window, st["windows"] * CM_ITERS):
-        raise RuntimeError(f"{launches} + {vjp} launches for {st['windows']} windows, "
-                           f"expected {per_window} + {CM_ITERS} per window")
+    per_window = _window_launches(SLICE_CFG["l1_num_loop"])
+    if (launches, vjp, asc) != tuple(st["windows"] * c for c in per_window):
+        raise RuntimeError(f"{(launches, vjp, asc)} launches for {st['windows']} windows, "
+                           f"expected {per_window} per window")
     if left_early or slam.imu.popped + len(slam.imu) != pushed or slam.imu.popped == 0:
         raise RuntimeError("the IMU buffer did not hand out every sample up to the last MCI")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= APP_MIN_ATE_N):
         raise RuntimeError(f"evaluate gave {ev}")
     if not ate_frac <= APP_ATE_MAX:
         raise RuntimeError(f"ATE is {ate_frac} of the path > {APP_ATE_MAX}")
-    return dict(launches=launches, vjp_launches=vjp, mcis=n, wall_s=out["wall_s"])
+    return dict(launches=launches, vjp_launches=vjp, ascent_launches=asc, mcis=n,
+                wall_s=out["wall_s"])
 
 
 # ------------------------------------------------- stereo, depth and loops
@@ -2251,7 +2444,6 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     ``step(slam, seq, i)``: half under the blocking-read counter, half under
     the profiler."""
     from eorb_slam_tpu_torch.apps import run_slam
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam.system import OK
 
     settings = _settings_with_root(config, root, work)
@@ -2271,7 +2463,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
 
     setattr(cls, method, recording)
     run_slam.run_sequence = keep
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     try:
         with _LoopLog() as loop_log:
             (out,) = run_slam.main([settings, "--sequence", seq, "--eval",
@@ -2281,7 +2473,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     finally:
         setattr(cls, method, fn)
         run_slam.run_sequence = run_seq
-    launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    launches = _counts()
     slam, sq = slams[0]
     sim3 = run_slam.evaluate(sq, out["trajectory_file"], monocular=True)
     reads, per_frame = [], []
@@ -2323,7 +2515,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
             f"{slam.scale_applied:.4f}" if hasattr(slam, "imu_initialized") else "")
          + f"; frames not OK {not_ok}, new maps at {new_maps}, merges at {merged}; loops "
          f"{slam.loops_closed}, {len(loop_log.lines)} eorb.loop lines; splat launches "
-         f"{launches[0]} forward + {launches[1]} VJP")
+         f"{launches[0]} forward + {launches[1]} VJP + {launches[2]} ascent")
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
          f"launches and {r['device_ms']:.2f} ms of device time (each: "
@@ -2335,7 +2527,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         raise RuntimeError(f"{tag}: not the full width on the card")
     if n_ok < APP_TRACK_MIN * max(n - first_ok, 1) or first_ok >= n:
         raise RuntimeError(f"{tag}: only {n_ok}/{n - first_ok} frames tracked after init")
-    if launches != (0, 0):
+    if launches != (0, 0, 0):
         raise RuntimeError(f"{tag}: the splat kernels ran on this path: {launches}")
     if not (np.isfinite(r["ate"] or np.inf) and np.isfinite(r["ate_sim3"] or np.inf)):
         raise RuntimeError(f"{tag}: evaluate gave {ev} / {sim3}")
@@ -2705,11 +2897,12 @@ def check_ev_image_small():
     # (contrast_max.maximize_rt2d, as the reference): where a step leaves it
     # equal to the last bit, the two devices' roundings decide, and the
     # ascents part to another point of the same contrast. So: the two
-    # ascents are held step by step up to where they part, which must be
-    # such a tie; if they never part, the card's MCI is held against the
-    # CPU's at the forward tolerance, else against the plain version of the
-    # card's winner on the card's inputs and the SE2 score against the plain
-    # one at the card's parameters. Always: the same winner, each of the four
+    # ascents (the card's kernel and the CPU's loop, through their traces)
+    # are held step by step up to where they part, which must be such a
+    # tie; if they never part, the card's MCI is held against the CPU's at
+    # the forward tolerance, else against the plain version of the card's
+    # winner on the card's inputs and the SE2 score against the plain one at
+    # the card's parameters. Always: the same winner, each of the four
     # candidate splats recomputed on the CPU from what the card gave it, and
     # the scores of the candidates the ascent does not touch within 1e-5
     # relative; and a second builder on the card gives the same bits.
@@ -2717,7 +2910,8 @@ def check_ev_image_small():
 
     win = synth_stream(0.03, RATE, seed=23)
     scores, mcis, kinds, se2, calls, steps = {}, {}, {}, {}, [], {}
-    make, contrast = eb._make_candidates, contrast_max._contrast
+    make = eb._make_candidates
+    ascents = (contrast_max._ascent_kernel, contrast_max._ascent_loop)
     splats = (tensorize.splat_gauss, tensorize.splat_gauss_se2)
 
     def rec_make(*a, **kw):
@@ -2725,12 +2919,14 @@ def check_ev_image_small():
         scores[a[0].device.type] = out[2].cpu().numpy()
         return out
 
-    def rec_contrast(p, *a, **kw):
-        c = contrast(p, *a, **kw)
-        if not torch.is_grad_enabled():   # the start and each step's trial
-            steps.setdefault(p.device.type, []).append(
-                (p.detach().cpu().double(), float(c)))
-        return c
+    def traced(fn):
+        """The ascent, its trace (the start and each step's trial) kept."""
+        def run(xy, t, valid, H_, W_, params0, iters, sigma, lr):
+            tr = torch.zeros((iters + 1, 4), device=xy.device)
+            out = fn(xy, t, valid, H_, W_, params0, iters, sigma, lr, trace=tr)
+            steps[xy.device.type] = tr.cpu().double().numpy()
+            return out
+        return run
 
     def recorder(fn):
         def rec(*a, **kw):
@@ -2740,7 +2936,8 @@ def check_ev_image_small():
             return out
         return rec
 
-    eb._make_candidates, contrast_max._contrast = rec_make, rec_contrast
+    eb._make_candidates = rec_make
+    contrast_max._ascent_kernel, contrast_max._ascent_loop = (traced(f) for f in ascents)
     tensorize.splat_gauss, tensorize.splat_gauss_se2 = (recorder(f) for f in splats)
     try:
         for d in ("cuda", "cpu"):
@@ -2754,34 +2951,14 @@ def check_ev_image_small():
             if b.stats["ev_truncated"] != len(win) - cap:
                 raise RuntimeError(f"build_mci kept {b.stats} of {len(win)} events")
     finally:
-        eb._make_candidates, contrast_max._contrast = make, contrast
+        eb._make_candidates = make
+        contrast_max._ascent_kernel, contrast_max._ascent_loop = ascents
         tensorize.splat_gauss, tensorize.splat_gauss_se2 = splats
 
     # the two ascents, step by step: (params, contrast) of the start and of
-    # each step's trial point; a step is taken where the contrast rises
+    # each step's trial point, from the card's kernel and the CPU's loop
     sg, sc = steps["cuda"], steps["cpu"]
-    if len(sg) != CM_ITERS + 1 or len(sc) != CM_ITERS + 1:
-        raise RuntimeError(f"ascent: {len(sg)} / {len(sc)} contrasts, {CM_ITERS + 1} wanted")
-    best_g, best_c, part, tie, asc_err = sg[0][1], sc[0][1], None, 0.0, 0.0
-    unit = torch.tensor([2.0 / max(H, W), 1.0, 1.0], dtype=torch.float64)  # the ascent's scale
-    for k, ((pg, cg), (pc, cc)) in enumerate(zip(sg, sc)):
-        e_p = float(((pg - pc) / unit).abs().max() / max(float((pc / unit).abs().max()), 1e-30))
-        e_c = abs(cg - cc) / abs(cc)
-        asc_err = max(asc_err, e_p, e_c)
-        if e_p > ASCENT_TOL or e_c > ASCENT_TOL:
-            raise RuntimeError(f"ascent step {k} before the two part: params {pg} / {pc}, "
-                               f"contrast {cg} / {cc}")
-        if k == 0:
-            continue
-        up_g, up_c = cg > best_g, cc > best_c
-        if up_g != up_c:
-            part = k
-            tie = max(abs(cg - best_g) / abs(best_g), abs(cc - best_c) / abs(best_c))
-            break
-        best_g, best_c = (cg if up_g else best_g), (cc if up_c else best_c)
-    if part is not None and tie > ASCENT_TIE:
-        raise RuntimeError(f"ascent: the devices decide step {part} differently, not at a "
-                           f"tie: {tie:.3e} of the contrast > {ASCENT_TIE}")
+    part, tie, asc_err = _ascents_agree(sg, sc, "build_mci's ascent, cuda vs cpu")
 
     # the candidates in _make_candidates' order: hist, (the ascent), se2,
     # dpose, klt2d
@@ -2822,7 +2999,7 @@ def check_ev_image_small():
                        f"the ascents agree (max rel {asc_err:.2e}, tol {ASCENT_TOL}) until "
                        f"step {part}, a tie ({tie:.2e} of the contrast, tol {ASCENT_TIE}) "
                        f"that the devices' roundings decide apart; final contrasts "
-                       f"{sg[-1][1]!r} / {sc[-1][1]!r}; the MCIs part by {gap:.2e} of max "
+                       f"{sg[-1, 3]!r} / {sc[-1, 3]!r}; the MCIs part by {gap:.2e} of max "
                        f"(not gated)") +
          f"; best {kinds['cuda']} / {kinds['cpu']}, scores {scores['cuda'].tolist()} / "
          f"{scores['cpu'].tolist()}, max rel {rel_held:.2e} (tol 1e-5"
@@ -2891,10 +3068,9 @@ def check_continuous_small():
     CPU on tests/test_torch_event_continuous.py's stream, on which the
     reference initializes: the same states and keyframe decisions per
     window, poses within CONT_POSE_TOL; and its splat launches on the card,
-    one per chunk past the gen-rate gate and 4 + 1 + 2 x cm_iters forward +
-    cm_iters VJP per window."""
+    one forward per chunk past the gen-rate gate and MCI_FWD forward +
+    MCI_ASCENT ascent per window."""
     from eorb_slam_tpu_torch.event import builder as eb
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import event_continuous as ec
 
     t_phase = time.perf_counter()
@@ -2906,7 +3082,7 @@ def check_continuous_small():
         undo = _fixed_twoview(seed=7)
         try:
             slam = ec.EventSlamContinuous(cam, eb.BuilderConfig(**cfg), device=d, **CONT_KW)
-            hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+            _reset_counts()
             log = []
             t0 = time.perf_counter()
             for k in range(0, len(stream), CONT_PACKET):
@@ -2916,18 +3092,16 @@ def check_continuous_small():
             wall = time.perf_counter() - t0
         finally:
             undo()
-        out[d] = (log, dict(slam.stats), wall,
-                  (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches))
+        out[d] = (log, dict(slam.stats), wall, _counts())
     (lg, sg, wg, lnch), (lc, sc, wc, _) = out["cuda"], out["cpu"]
     e_pose = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(lg, lc))
-    # this stream's builder runs cfg["cm_iters"] ascent steps per window
-    per_fwd, per_vjp = 4 + 1 + 2 * cfg["cm_iters"], cfg["cm_iters"]
-    want = (sg["chunks"] - sg["idle"] + per_fwd * sg["windows"], per_vjp * sg["windows"])
+    want = (sg["chunks"] - sg["idle"] + MCI_FWD * sg["windows"], MCI_VJP * sg["windows"],
+            MCI_ASCENT * sg["windows"])
     _log(f"continuous tracker cuda vs cpu, {len(stream)} events: per window "
          f"{[x for a in lg for x in a[0]]}; KFs {sg['l2_kf']} / {sc['l2_kf']}, landmarks "
          f"{sg['l2_lm']} / {sc['l2_lm']}, poses max abs {e_pose:.2e} (tol {CONT_POSE_TOL}); "
-         f"{wg:.2f} s on the card, {wc:.2f} s on the CPU; card splat launches {lnch[0]} + "
-         f"{lnch[1]} for {sg['chunks']} chunks ({sg['idle']} idle) and {sg['windows']} "
+         f"{wg:.2f} s on the card, {wc:.2f} s on the CPU; card launches (forward, VJP, ascent) "
+         f"{lnch} for {sg['chunks']} chunks ({sg['idle']} idle) and {sg['windows']} "
          f"windows; phase {time.perf_counter() - t_phase:.1f} s")
     if [(a[0], a[1]) for a in lg] != [(a[0], a[1]) for a in lc] or e_pose > CONT_POSE_TOL:
         raise RuntimeError(f"continuous tracker: cuda {[(a[0], a[1]) for a in lg]} cpu "
@@ -2945,12 +3119,11 @@ def _run_app_event_image(work, root, config, tag):
     blocking reads counted per image and the last image under the profiler.
     Gates: cuda; the image map with >= 2 keyframes and the tracked share
     after its init; the Sim3 ATE; no fusion error, and the fused file
-    written when fusion found a chain; the splat launches MCI_FWD + MCI_VJP
-    per synch MCI; the event map born (>= 2 keyframes) and a joint frame
+    written when fusion found a chain; the splat launches MCI_FWD, MCI_VJP
+    and MCI_ASCENT per synch MCI; the event map born (>= 2 keyframes) and a joint frame
     after it. The image tracker's generator is seeded with EV_IMAGE_SEED
     (see there)."""
     from eorb_slam_tpu_torch.apps import run_slam
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import ev_image_system as evi
     from eorb_slam_tpu_torch.slam.system import OK
 
@@ -2984,7 +3157,7 @@ def _run_app_event_image(work, root, config, tag):
 
         evi.EvImageSlam.track_ev_mono = recording
         run_slam.run_sequence, run_slam.build_system = keep, seeded
-        hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+        _reset_counts()
         try:
             (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
                                     "--out", os.path.join(work, f"results_{tag}")])
@@ -2992,7 +3165,7 @@ def _run_app_event_image(work, root, config, tag):
         finally:
             evi.EvImageSlam.track_ev_mono = track
             run_slam.run_sequence, run_slam.build_system = run_seq, build
-    launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    launches = _counts()
     slam, seq = slams[0]
     windows = slam.builder.stats["windows"]
     chains = slam.fused_trajectory().get("chains", 0)
@@ -3017,7 +3190,8 @@ def _run_app_event_image(work, root, config, tag):
          f"{r['fps']:.3f} frames/s (real-time x {n / GEN_FPS / out['wall_s']:.4f}); image map "
          f"initialised at image {first_ok}, then {n_ok}/{len(after)} tracked; event states "
          f"{[b for _, b, _ in rec]}, joint-init matches {[c for _, _, c in rec]}; {windows} "
-         f"synch MCIs, splat launches {launches[0]} forward + {launches[1]} VJP; blocking "
+         f"synch MCIs, splat launches {launches[0]} forward + {launches[1]} VJP + {launches[2]} "
+         f"ascent; blocking "
          f"reads per image after the init {r['reads']:.1f} (each: {reads}); the last image "
          f"under torch.profiler (event state after it {ev_state_prof}): {prof[0]} device "
          f"launches, {prof[1]:.2f} ms of device time")
@@ -3038,9 +3212,9 @@ def _run_app_event_image(work, root, config, tag):
         raise RuntimeError(f"{tag}: ATE {ev}")
     if "fusion_error" in out or (chains > 0) != ("fused_trajectory_file" in out):
         raise RuntimeError(f"{tag}: fusion {out.get('fusion_error')}, chains {chains}")
-    if launches != (MCI_FWD * windows, MCI_VJP * windows) or windows < 1:
+    if launches != (MCI_FWD * windows, MCI_VJP * windows, MCI_ASCENT * windows) or windows < 1:
         raise RuntimeError(f"{tag}: {launches} splat launches for {windows} synch MCIs, "
-                           f"expected {MCI_FWD} + {MCI_VJP} each")
+                           f"expected {(MCI_FWD, MCI_VJP, MCI_ASCENT)} each")
 
     return slam, r
 
@@ -3070,13 +3244,12 @@ def run_app_event_continuous(work: str, root: str):
     1`` written into the copy, on the generated shakes_01, no --device, with
     --eval (skipped when no trajectory was written). Gates: cuda, the run
     reaches its end, every full image is a window and every tiny one a
-    chunk, and the splat launches: one per chunk past the gen-rate gate
-    plus MCI_FWD + MCI_VJP per window. Accuracy is printed, not gated (the
+    chunk, and the splat launches: one forward per chunk past the gen-rate
+    gate plus MCI_FWD forward and MCI_ASCENT ascent per window. Accuracy is printed, not gated (the
     reference's tracker does not initialize on this data). Blocking reads
     are counted per window (from one full image to the next), and the
     window after CONT_PROFILED full images runs under the profiler."""
     from eorb_slam_tpu_torch.apps import run_slam
-    from eorb_slam_tpu_torch.ops import hopper_splat
     from eorb_slam_tpu_torch.slam import event_continuous as tec
     from torch.profiler import ProfilerActivity, profile
 
@@ -3105,21 +3278,22 @@ def run_app_event_continuous(work: str, root: str):
             return r
 
         tec.ContinuousEventTracker.process_event_image = windowed
-        hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+        _reset_counts()
         try:
             (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--eval",
                                     "--out", os.path.join(work, "results_cont")])
             torch.cuda.synchronize()
         finally:
             tec.ContinuousEventTracker.process_event_image = process
-    launches = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    launches = _counts()
     st, ev = out["stats"], out.get("eval", {})
     if st["windows"] <= CONT_PROFILED + 1:
         raise RuntimeError(f"continuous: {st['windows']} windows, none profiled")
     per = _activity(prof)
     win_prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3)
     reads = sy.steps[1:]
-    want = (st["chunks"] - st["idle"] + MCI_FWD * st["windows"], MCI_VJP * st["windows"])
+    want = (st["chunks"] - st["idle"] + MCI_FWD * st["windows"], MCI_VJP * st["windows"],
+            MCI_ASCENT * st["windows"])
     ate = (f"Sim3 ATE {ev.get('ate_rmse')} m over {ev.get('ate_n')} poses"
            if ev.get("ate_n", 0) >= APP_MIN_ATE_N else "ATE not printed (fewer than "
            f"{APP_MIN_ATE_N} poses)")
@@ -3128,8 +3302,8 @@ def run_app_event_continuous(work: str, root: str):
          f"in {out['wall_s']:.3f} s wall ({st['windows'] / out['wall_s']:.3f} windows/s, real-"
          f"time x {GEN_S / out['wall_s']:.4f}); tiny {st['l2_tiny']}, full {st['l2_full']}; "
          f"keyframes {st['l2_kf']}, tracked poses {out['tracked_poses']}, lost "
-         f"{st['l2_lost']}; {ate}; splat launches {launches[0]} + {launches[1]} (expected "
-         f"{want[0]} + {want[1]}); blocking reads per window {float(np.mean(reads)):.1f} "
+         f"{st['l2_lost']}; {ate}; splat launches (forward, VJP, ascent) {launches} (expected "
+         f"{want}); blocking reads per window {float(np.mean(reads)):.1f} "
          f"(each: {reads}); window {CONT_PROFILED + 1} under torch.profiler: {win_prof[0]} "
          f"device launches, {win_prof[1]:.2f} ms of device time; "
          f"{time.perf_counter() - t0:.1f} s")
@@ -3232,7 +3406,7 @@ def run_app_mixed(work: str, mono: dict):
     from eorb_slam_tpu_torch._host import to_device
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.io import config, datasets
-    from eorb_slam_tpu_torch.ops import frontend, hopper_splat
+    from eorb_slam_tpu_torch.ops import frontend
     from eorb_slam_tpu_torch.slam import system
 
     root = mono["root"]
@@ -3256,7 +3430,7 @@ def run_app_mixed(work: str, mono: dict):
 
     system.MixedMonoSlam.process_image = recording
     frontend.extract_mixed = counting
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     try:
         slam, out = run_slam.run_sequence(
             st, seq, out_dir=os.path.join(work, "results_mixed"),
@@ -3265,7 +3439,7 @@ def run_app_mixed(work: str, mono: dict):
     finally:
         system.MixedMonoSlam.process_image = process
         frontend.extract_mixed = extract
-    splats = (hopper_splat.splat.launches, hopper_splat.splat.vjp_launches)
+    splats = _counts()
     ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
     first_ok = states.index(system.OK) if system.OK in states else len(states)
     after = states[first_ok:]
@@ -3289,7 +3463,7 @@ def run_app_mixed(work: str, mono: dict):
          f"path over {ev.get('ate_n')} poses (ORB on the same frames: "
          f"{100 * mono['ate_frac']:.3f}%); valid AKAZE slots per frame min/mean/max "
          f"{min(slots)}/{np.mean(slots):.1f}/{max(slots)} of {slam.map.N // 2}; splat "
-         f"launches {splats[0]} + {splats[1]}; stats {out['stats']}")
+         f"launches {splats}; stats {out['stats']}")
     _log(f"run_slam MONOCULAR mixed under torch.profiler, {len(per_frame)} frames: "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
          f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame")
@@ -3297,7 +3471,7 @@ def run_app_mixed(work: str, mono: dict):
         raise RuntimeError(f"Features.mode 2 built {type(slam).__name__}")
     if slam.device.type != "cuda" or (slam.img_w, slam.img_h, slam.map.N) != (752, 480, 512):
         raise RuntimeError(f"not the full width on the card: {slam.img_w}x{slam.img_h}")
-    if splats != (0, 0):
+    if splats != (0, 0, 0):
         raise RuntimeError(f"the mixed path launched the splat {splats} times")
     if not after or n_ok < APP_TRACK_MIN * len(after):
         raise RuntimeError(f"only {n_ok}/{len(after)} frames tracked after init")
@@ -3364,11 +3538,10 @@ def check_rosbag(work: str, data_root: str):
     images, IMU and events) written into a bag by the port's writer, loaded
     back by load_sequence("rosbag") and held against the text loader's
     arrays, then run_slam.main EVENT_ONLY (synth_ev_only.yaml with DS.format
-    rosbag) from the bag for BAG_CHUNKS chunks: 89 + 40 splat launches per
-    window."""
+    rosbag) from the bag for BAG_CHUNKS chunks: 8 forward, 0 VJP and 1
+    ascent launch per window."""
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.io import datasets, rosbag
-    from eorb_slam_tpu_torch.ops import hopper_splat
 
     txt = datasets.load_sequence("ev_ethz", data_root, "shakes_01", ts_factor=1.0)
     ev = txt.events.events
@@ -3409,28 +3582,29 @@ def check_rosbag(work: str, data_root: str):
     }
     settings = _settings_with_root("synth_ev_only.yaml", bag_root, work, fmt="rosbag",
                                    name="synth_ev_only_bag.yaml")
-    hopper_splat.splat.launches = hopper_splat.splat.vjp_launches = 0
+    _reset_counts()
     (out,) = run_slam.main([settings, "--sequence", "shakes_01", "--max-frames",
                             str(BAG_CHUNKS), "--out", os.path.join(work, "results_bag")])
     torch.cuda.synchronize()
-    launches, vjp = hopper_splat.splat.launches, hopper_splat.splat.vjp_launches
+    launches, vjp, asc = _counts()
     windows = out["stats"]["windows"]
-    per_window = SLICE_CFG["l1_num_loop"] + 4 + 1 + 2 * CM_ITERS
+    per_window = _window_launches(SLICE_CFG["l1_num_loop"])
     _log(f"rosbag: {BAG_S} s of shakes_01 ({len(ev)} events in "
          f"{-(-len(ev) // BAG_EV_PER_MSG)} messages, {n_img} images, {int(imu_sel.sum())} "
          f"IMU rows) written in {t_write:.3f} s "
          f"({os.path.getsize(os.path.join(bag_root, 'shakes_01.bag')) / 1e6:.2f} MB), "
          f"read back in {t_read:.3f} s, against the text loader {checks}; run_slam "
          f"EVENT_ONLY from the bag on {out['device']}: {out['iterations']} chunks, "
-         f"{windows} windows, {launches} + {vjp} splat launches, stats {out['stats']}")
+         f"{windows} windows, {launches} + {vjp} + {asc} splat launches (forward, VJP, "
+         f"ascent), stats {out['stats']}")
     if not all(checks.values()):
         raise RuntimeError(f"the bag's sequence differs from the text loader's: {checks}")
     if out["device"] != "cuda" or windows < 1:
         raise RuntimeError(f"run_slam from the bag ran {windows} windows on {out['device']}")
-    if (launches, vjp) != (windows * per_window, windows * CM_ITERS):
-        raise RuntimeError(f"{launches} + {vjp} launches for {windows} windows, "
-                           f"expected {per_window} + {CM_ITERS} per window")
-    return dict(launches=launches, vjp_launches=vjp, windows=windows)
+    if (launches, vjp, asc) != tuple(windows * c for c in per_window):
+        raise RuntimeError(f"{(launches, vjp, asc)} launches for {windows} windows, "
+                           f"expected {per_window} per window")
+    return dict(launches=launches, vjp_launches=vjp, ascent_launches=asc, windows=windows)
 
 
 def _ba_problem_np(dtype, K=8, M=256, P=4, seed=0):
@@ -3627,7 +3801,8 @@ def main() -> int:
     rows = check_kernel()
     gen_rows = check_kernel_generator()
     chunk_row = check_kernel_chunk()
-    time_ascent()
+    asc_rows = timed("check_kernel_ascent", check_kernel_ascent)
+    asc_times = time_ascent()
     check_slice_small()
     run_slice()
     check_l2_small()
@@ -3662,21 +3837,23 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # times at the shape and form of 121 of a window's 129 kernel calls:
-    # the SE2 form at 16,384 events; errors are the worst over every N.
-    # `launches` counts the EventSlam phase, `launches_run_slam` the app's,
-    # `launches_event_imu` EVENT_IMU's, `launches_event_mono`,
-    # `launches_event_imu_mono` and `launches_continuous` the image-clock
-    # modes' and the continuous tracker's through the app, `launches_rosbag`
-    # EVENT_ONLY's from the bag. The last three rows time the same kernels
-    # at the later call sites' shapes, with the launches of that site:
-    # build_mci's ascent (every VJP of those paths, SE2 at 65,536),
-    # _chunk_image (one identity forward per chunk, 12,000: the measured
-    # forward launches less MCI_FWD per measured window) and dist_splat (one
-    # identity forward per rank per call, at N / world).
+    # the pair's times at the SE2 form and 16,384 events, errors the worst
+    # over every N; the ascent kernel's at its two call sites' shapes. A
+    # row's `launches` counts its kernel in the EventSlam phase,
+    # `launches_run_slam` in the app's EVENT_ONLY, `launches_event_imu` in
+    # EVENT_IMU's, `launches_event_mono`, `launches_event_imu_mono` and
+    # `launches_continuous` in the image-clock modes' and the continuous
+    # tracker's through the app, `launches_rosbag` in EVENT_ONLY's from the
+    # bag. The forward's remaining call sites per window are the chunk
+    # images and the four candidates; the VJP has none left (the ascent was
+    # its only caller); the ascent kernel runs once per window (16,384: the
+    # L1 window's cm_sample) or per synch MCI / continuous window (65,536).
+    # The last three forward rows time it at the generator's, _chunk_image's
+    # (one identity forward per chunk, 12,000: the measured forward
+    # launches less MCI_FWD per window) and dist_splat's shapes (one per
+    # rank per call, at N / world).
     _log(f"new phases, wall s: {phase_s}")
     main_row = next(r for r in rows if r["n"] == MAIN_N)
-    big_row = next(r for r in rows if r["n"] == KERNEL_NS[-1])
     gen_row = gen_rows[0]
     dist_row = dist_res["row"]
     common = dict(route="cuda", source="eorb_slam_tpu_torch/csrc/splat.cu",
@@ -3689,37 +3866,39 @@ def main() -> int:
     paths = lambda a: dict(launches_event_mono=app_em["launches"][a],
                            launches_event_imu_mono=app_eim["launches"][a],
                            launches_continuous=app_cont["launches"][a])
+    window_paths = lambda key: dict(launches=res[key], launches_run_slam=app[key],
+                                    launches_event_imu=app_ei[key],
+                                    launches_rosbag=bag_res[key])
     fwd_err = max(max(r["fwd_err"], r["fwd_se2_err"]) for r in rows)
     vjp_err = max(max(r["vjp_xy_err"], r["vjp_w_err"], r["vjp_se2_err"]) for r in rows)
+    asc_paths = {MAIN_N: window_paths("ascent_launches"), KERNEL_NS[-1]: dict(
+        launches=app_em["launches"][2], **paths(2))}
     _log(json.dumps({"kernels": [
         dict(common, name="splat_gauss", n=MAIN_N, form="se2",
-             launches=res["launches"], launches_run_slam=app["launches"],
-             launches_event_imu=app_ei["launches"], **paths(0),
-             launches_rosbag=bag_res["launches"],
+             **window_paths("launches"), **paths(0),
              max_abs_err=fwd_err,
              ms=main_row["fwd_se2_ms"], device_ms=main_row["fwd_se2_dev_ms"],
              plain_ms=main_row["fwd_se2_plain_ms"],
              bound_ms=main_row["fwd_se2_bound"][0], bound_by=main_row["fwd_se2_bound"][1]),
         dict(common, name="splat_gauss_vjp", n=MAIN_N, form="se2",
-             launches=res["vjp_launches"], launches_run_slam=app["vjp_launches"],
-             launches_event_imu=app_ei["vjp_launches"], **paths(1),
-             launches_rosbag=bag_res["vjp_launches"],
+             **window_paths("vjp_launches"), **paths(1),
              max_abs_err=vjp_err,
              ms=main_row["vjp_se2_ms"], device_ms=main_row["vjp_se2_dev_ms"],
              plain_ms=main_row["vjp_se2_plain_ms"],
              bound_ms=main_row["vjp_se2_bound"][0], bound_by=main_row["vjp_se2_bound"][1]),
+        *(dict(common, name="splat_ascent_se2", n=r["n"], form="se2", **asc_paths[r["n"]],
+               max_abs_err=r["err"], max_rel_step=r["step_err"], part=r["part"],
+               ms=r["ms"], device_ms=r["dev_ms"], plain_ms=r["plain_ms"],
+               loop_ms=r["loop_ms"], loop_host_ms=asc_times["loop"]["ms"] if r["n"] == MAIN_N
+               else None, host_ms=asc_times["kernel"]["ms"] if r["n"] == MAIN_N else None,
+               bound_ms=r["bound"][0], bound_by=r["bound"][1])
+          for r in asc_rows),
         # the same forward kernel as the dataset generator calls it
         dict(common, name="splat_gauss (generator: identity form, sigma 1.1)",
              n=gen_row["n"], form="identity", launches=gen["launches"],
              max_abs_err=max(r["err"] for r in gen_rows),
              ms=gen_row["ms"], device_ms=gen_row["dev_ms"], plain_ms=gen_row["plain_ms"],
              bound_ms=gen_row["bound"][0], bound_by=gen_row["bound"][1]),
-        # build_mci's ascent: the VJP at the whole padded window
-        dict(common, name="splat_gauss_vjp (build_mci: SE2 form)", n=KERNEL_NS[-1],
-             form="se2", launches=app_em["launches"][1], **paths(1),
-             max_abs_err=big_row["vjp_se2_err"], ms=big_row["vjp_se2_ms"],
-             device_ms=big_row["vjp_se2_dev_ms"], plain_ms=big_row["vjp_se2_plain_ms"],
-             bound_ms=big_row["vjp_se2_bound"][0], bound_by=big_row["vjp_se2_bound"][1]),
         # _chunk_image: one identity splat per chunk of the continuous tracker
         dict(common, name="splat_gauss (_chunk_image: identity form)", n=CHUNK_N,
              form="identity", launches=chunk_site(app_cont),

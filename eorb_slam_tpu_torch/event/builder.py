@@ -16,8 +16,9 @@ continuity and the adaptive chunk size chunk by chunk, a tiny frame per
 chunk and an MCI per window through ``_finish_window``) and ``build_mci``,
 the four candidates over one padded window that the image-clock modes
 build at each image timestamp. Every splat of both goes through
-``tensorize.splat_gauss`` / ``splat_gauss_se2``: the splat kernels on the
-card.
+``tensorize.splat_gauss`` / ``splat_gauss_se2`` (the forward splat kernel on
+the card), and the SE2 candidate's contrast-maximization ascent through
+``contrast_max.maximize_rt2d`` (the ascent kernel on the card: one launch).
 
 The host event buffer is the native C++ queue (``io/native``: O(1) consume
 and front re-injection, background file streaming) where the library
@@ -130,7 +131,8 @@ def _make_candidates(
 ):
     """All four MCI candidates of one window and the winner. Returns
     (best_img normalized to [0,1], best index, (4,) scores, (3,) se2).
-    Runs 4 + 1 + 2*cm_iters forward splats and cm_iters splat VJPs."""
+    Runs 4 forward splats and one ascent (on the card: 4 forward kernel
+    launches and one ascent kernel launch)."""
     t_sec = ev[:, 0].contiguous()
     t_rel = t_sec / torch.clamp(dt, min=1e-9)                   # [0,1]
     xy = ev[:, 1:3].contiguous()

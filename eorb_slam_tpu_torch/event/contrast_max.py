@@ -1,12 +1,15 @@
 """Contrast maximization by gradient ascent through the splat.
 
-PyTorch port of ``eorb_slam_tpu/event/contrast_max.py``: the warp, the
-Gaussian splat and the contrast objective are one differentiable function
-and autograd supplies the gradient. Warp and splat are one kernel
-(``tensorize.splat_gauss_se2``) and its backward is one kernel that returns
-``dL/dparams``, so an ascent step is two kernel calls and a few small
-reductions. The ascent keeps the accept/reject decision on the device
-(``torch.where``), so the loop never waits on the host.
+PyTorch port of ``eorb_slam_tpu/event/contrast_max.py``. On the TPU the
+whole ascent is one XLA program (a ``fori_loop`` of ``jax.grad`` steps). On
+the card it is one kernel launch: ``ops/hopper_splat.splat_ascent_se2``
+runs every step in one thread-block cluster, the image in the cluster's
+shared memory and the events loaded once. On CPU tensors it is
+:func:`_ascent_loop`, the same ascent written as the kernel runs it, with
+no autograd: the contrast's cotangent in closed form feeds the plain SE2
+VJP, and the accepted trial's image becomes the current one, so ``iters``
+steps splat 1 + iters times. The accept/reject decision stays on the
+device (``torch.where``), so the loop never waits on the host.
 """
 
 from __future__ import annotations
@@ -14,17 +17,31 @@ from __future__ import annotations
 import torch
 
 from eorb_slam_tpu_torch.event import tensorize
+from eorb_slam_tpu_torch.ops import hopper_splat
+
+_TRUNC = 2.5   # tensorize.splat_gauss_se2's stencil 5, halved
+
+
+def _variance(img):
+    # variance objective (mean-square of the mean-removed image): sharper
+    # motion-compensated images concentrate mass -> higher variance
+    mu = torch.mean(img)
+    return torch.mean((img - mu) ** 2)
 
 
 def _contrast(params, xy, t_rel, valid, center, H, W, sigma):
     """``center`` is (cx, cy) as Python floats; ``xy``, ``t_rel`` and
     ``valid`` are contiguous. Every event weighs 1 (no polarity)."""
-    img = tensorize.splat_gauss_se2(xy, t_rel, params, center, valid, H, W,
-                                    sigma=sigma)
-    # variance objective (mean-square of the mean-removed image): sharper
-    # motion-compensated images concentrate mass -> higher variance
-    mu = torch.mean(img)
-    return torch.mean((img - mu) ** 2)
+    return _variance(tensorize.splat_gauss_se2(xy, t_rel, params, center, valid,
+                                               H, W, sigma=sigma))
+
+
+def _cotangent(img):
+    """d _variance(img) / d img in closed form, as autograd forms it:
+    2 (img - mu) / HW, less its mean over the image (the path through
+    mu)."""
+    gd = ((img - torch.mean(img)) * 2.0) * (1.0 / img.numel())
+    return gd - gd.sum() / img.numel()
 
 
 def maximize_rt2d(
@@ -42,39 +59,59 @@ def maximize_rt2d(
 
     Returns (params, contrast_final, contrast_initial). Normalized-gradient
     ascent with per-parameter scaling and step-halving on non-improvement.
-    Runs 1 + 2*iters forward splats and ``iters`` backward passes."""
-    dt, dev = xy.dtype, xy.device
-    # what the 1 + 2*iters splats share is made once: contiguous copies of
-    # (possibly strided) inputs and the centre
+    On CUDA tensors one launch of the ascent kernel; on CPU tensors
+    :func:`_ascent_loop`."""
+    # contiguous copies of (possibly strided) inputs
     xy, t_rel, valid = xy.contiguous(), t_rel.contiguous(), valid.contiguous()
-    center = (W / 2.0, H / 2.0)
     if params0 is None:
-        params0 = torch.zeros(3, dtype=dt, device=dev)
+        params0 = torch.zeros(3, dtype=xy.dtype, device=xy.device)
+    ascent = _ascent_kernel if xy.is_cuda else _ascent_loop
+    return ascent(xy, t_rel, valid, H, W, params0.contiguous(), iters, sigma, lr)
 
-    def f(p):
-        return _contrast(p, xy, t_rel, valid, center, H, W, sigma)
 
-    def grad(p):
-        p = p.detach().requires_grad_(True)
-        with torch.enable_grad():
-            (g,) = torch.autograd.grad(f(p), p)
-        return g
+def _ascent_kernel(xy, t_rel, valid, H, W, params0, iters, sigma, lr, trace=None):
+    """The ascent as one launch of ``hopper_splat.splat_ascent_se2``."""
+    return hopper_splat.splat_ascent_se2(xy, t_rel, valid, params0, (W / 2.0, H / 2.0),
+                                         H, W, iters, sigma, _TRUNC, lr, trace=trace)
+
+
+def _ascent_loop(xy, t_rel, valid, H, W, params0, iters, sigma, lr, trace=None):
+    """The ascent as the kernel runs it, through the pair: the plain
+    versions on CPU tensors, the pair's kernels on CUDA tensors (the
+    kernel's yardstick). Each step: the gradient at the current point from
+    the current image's closed-form cotangent, the preconditioned and
+    normalized step, the trial image and its contrast, and the accept
+    test; the accepted trial's image becomes the current one. ``trace``
+    ((iters + 1, 4)), if given, receives (omega, vx, vy, contrast) of the
+    start and of every trial point."""
+    dt, dev = xy.dtype, xy.device
+    center = (W / 2.0, H / 2.0)
+
+    def image(p):
+        return tensorize.splat_gauss_se2(xy, t_rel, p, center, valid, H, W, sigma=sigma)
 
     # parameter scales: a rotation of 1 rad/s moves corner pixels ~H/2 px/s
     scale = torch.tensor([2.0 / max(H, W), 1.0, 1.0], dtype=dt, device=dev)
 
     with torch.no_grad():
-        p = params0
-        best = f(params0)
-        c0 = best
+        p, img = params0, image(params0)
+        best = c0 = _variance(img)
         step = torch.tensor(lr, dtype=dt, device=dev)
-        for _ in range(iters):
-            g = grad(p) * scale * scale  # preconditioned ascent direction
+        if trace is not None:
+            trace[0, :3], trace[0, 3] = p, c0
+        for k in range(iters):
+            g = hopper_splat.splat_se2_vjp(_cotangent(img), xy, t_rel, valid, p, center,
+                                           H, W, sigma, _TRUNC)
+            g = g * scale * scale  # preconditioned ascent direction
             gn = torch.linalg.norm(g / scale)
             p_new = p + step * g / torch.clamp(gn, min=1e-12)
-            c_new = f(p_new)
+            img_new = image(p_new)
+            c_new = _variance(img_new)
+            if trace is not None:
+                trace[k + 1, :3], trace[k + 1, 3] = p_new, c_new
             better = c_new > best
             p = torch.where(better, p_new, p)
+            img = torch.where(better, img_new, img)
             best = torch.where(better, c_new, best)
             step = torch.where(better, step * 1.1, step * 0.5)
     return p, best, c0

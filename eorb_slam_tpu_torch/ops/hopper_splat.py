@@ -1,13 +1,17 @@
-"""The Gaussian event splat on Hopper: two hand-written CUDA kernels
-(csrc/splat.cu) behind ``torch.autograd.Function``s.
+"""The Gaussian event splat on Hopper: hand-written CUDA kernels
+(csrc/splat.cu) behind ``torch.autograd.Function``s, and the
+contrast-maximization ascent over them as one kernel.
 
 Port of ``eorb_slam_tpu/ops/pallas_splat.py``: ``_splat_kernel`` (launched by
 ``_splat_pallas``) becomes ``splat_gauss_forward``, and the dense autodiff
 that its custom VJP ``_splat_bwd`` ran becomes ``splat_gauss_vjp``, a gather
 of each event's <= 36 taps of the cotangent. The splat is the hottest op of
-the event front-end: per L1 window at the default config 89 forward splats
-(4 chunk images, 4 MCI candidates, 81 inside the contrast-maximization
-ascent) and 40 VJPs (one per ascent step).
+the event front-end. Its hottest caller, ``event/contrast_max``'s ascent
+(1 + 2 * iters forwards and ``iters`` VJPs when it called the pair), runs
+as one launch of ``splat_ascent_se2`` (:func:`splat_ascent_se2`): one
+thread-block cluster holds the image in its shared memory for every step.
+Per L1 window at the default config that leaves 8 forward splats (4 chunk
+images, 4 MCI candidates) and one ascent.
 
 What bounds the pair on the card is not the device (the bytes that must move
 take 0.1-0.3 us, the image sits in L2) but launches and host time per launch,
@@ -19,23 +23,25 @@ so each kernel exists in two forms of its coordinate source:
   ``t`` and ``(omega, vx, vy)`` from device memory and computes
   ``tensorize.warp_se2`` in registers; the weight may be a bool mask, read as
   it is. Differentiable w.r.t. ``params``: the VJP kernel chains the gather to
-  ``dL/dparams`` and reduces it on the card in a fixed order (deterministic).
-  One ascent step is then two kernel calls and a few reductions, with no
-  warped coordinates, weight products or dense matrices in device memory.
+  ``dL/dparams`` and reduces it on the card in a fixed order (deterministic),
+  with no warped coordinates, weight products or dense matrices in device
+  memory. :func:`splat_se2_vjp` is that VJP without autograd.
 
 The forward kernel sums each tap into a 64-bit fixed-point image (units of
 2^-32) and converts it to f32, so on the card both directions give the same
-bits every call, and the 40-step ascent ends at the same parameters every
-run. A weight of magnitude 2^16 or more is outside the kernel's range and
-makes the image NaN, as a non-finite weight does in both versions.
+bits every call, and the ascent ends at the same parameters every run. A
+weight of magnitude 2^16 or more is outside the kernel's range and makes the
+image NaN, as a non-finite weight does in both versions.
 
-On a CUDA tensor every forward and backward launches its kernel, or raises;
-on a CPU tensor they compute the plain versions beside them here
-(``_splat_gauss_separable``, ``warp_se2`` in front of it, and
-:func:`_splat_vjp_plain`, the same gather formula in torch). There is no
-other path. ``splat.launches`` counts forward kernel launches and
-``splat.vjp_launches`` VJP kernel launches, so a run can show that its main
-path went through the kernels.
+On a CUDA tensor every forward, backward and ascent launches its kernel, or
+raises; on a CPU tensor the splat and its VJP compute the plain versions
+beside them here (``_splat_gauss_separable``, ``warp_se2`` in front of it,
+and :func:`_splat_vjp_plain`, the same gather formula in torch), and the
+ascent's plain version is ``contrast_max._ascent_loop``. There is no other
+path. ``splat.launches`` counts forward kernel launches,
+``splat.vjp_launches`` VJP kernel launches and ``splat.ascent_launches``
+ascent kernel launches, so a run can show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -43,16 +49,24 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 _LIB = "splat"
+# the ascent kernel's cluster (csrc/splat.cu: kAscentCluster, checked at
+# build) and what a block of it may hold
+ASCENT_CLUSTER = 16
+ASCENT_SMEM_MAX = 232_448     # bytes of dynamic shared memory per block
+_ASCENT_HEADER = 1024         # csrc/splat.cu: kAscentHeader
+_ASCENT_LIST = 1024 * 16      # csrc/splat.cu: kAscentList float4 entries
+ASCENT_MAX_TAPS = 8           # csrc/splat.cu: kAscentTap, taps per row and column
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
     """Build (or reuse) the library once per process; the bound C entries
-    (forward, vjp) and the kernels' threads per block."""
+    (forward, vjp, ascent) and the pair's threads per block."""
     from eorb_slam_tpu_torch import _build
 
     lib = _build.load(_LIB)
@@ -65,8 +79,17 @@ def _kernels():
     vjp.restype = i32
     vjp.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, f32, f32, ptr, ptr, ptr, ptr,
                     i32, i32, i32, f32, f32, i32, ptr]
+    asc = lib.splat_ascent_se2
+    asc.restype = i32
+    asc.argtypes = [ptr, ptr, ptr, i32, ptr, f32, f32, f32, i32, ptr, ptr,
+                    i32, i32, i32, f32, f32, i32, f32, f32, i32, i32, i32, ptr]
     lib.splat_threads.restype = i32
-    return fwd, vjp, lib.splat_threads()
+    lib.splat_ascent_cluster.restype = i32
+    if lib.splat_ascent_cluster() != ASCENT_CLUSTER:
+        raise RuntimeError(f"the ascent kernel runs clusters of "
+                           f"{lib.splat_ascent_cluster()}, its wrapper lays out "
+                           f"{ASCENT_CLUSTER}")
+    return fwd, vjp, asc, lib.splat_threads()
 
 
 def build() -> None:
@@ -88,7 +111,7 @@ def _splat_cuda(xy, t, w, params, center, H, W, sigma, trunc):
     """Launch the forward kernel: identity form if ``t`` is None, else SE2.
     The kernel sums in 64-bit fixed point (scratch: the H*W sums and a
     poison flag), so the image is the same bits every call."""
-    fwd, _, _ = _kernels()
+    fwd = _kernels()[0]
     out = torch.empty((H, W), dtype=torch.float32, device=xy.device)
     scratch = torch.empty((H * W + 1,), dtype=torch.int64, device=xy.device)
     with torch.cuda.device(xy.device):
@@ -107,7 +130,7 @@ def _vjp_cuda(g, xy, t, w, params, center, H, W, sigma, trunc,
               need_xy=False, need_w=False):
     """Launch the VJP kernel. Identity form (``t`` None): (g_xy, g_w), each
     None unless asked for. SE2 form: (3,) dL/dparams."""
-    _, vjp, threads = _kernels()
+    _, vjp, _, threads = _kernels()
     n, dev = xy.shape[0], xy.device
     g = g.contiguous()
     g_xy = g_w = partials = g_params = None
@@ -220,6 +243,22 @@ def _check(xy, w, H, W, trunc, mask_ok=False) -> None:
         raise ValueError(f"splat too large for int32 indexing: N={xy.shape[0]}, {H}x{W}")
 
 
+def _check_se2(xy, t, w, params, H, W, trunc) -> None:
+    _check(xy, w, H, W, trunc, mask_ok=True)
+    if t.shape != w.shape or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"t must be contiguous float32 ({xy.shape[0]},), got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if (params.shape != (3,) or params.dtype != torch.float32
+            or not params.is_contiguous()):
+        raise ValueError(f"params must be contiguous float32 (3,), got "
+                         f"{params.dtype} {tuple(params.shape)}")
+    if t.device != xy.device or params.device != xy.device:
+        raise ValueError(f"xy on {xy.device} but t on {t.device} and params "
+                         f"on {params.device}")
+    if xy.requires_grad or t.requires_grad or w.requires_grad:
+        raise ValueError("splat_se2 is differentiable w.r.t. params only")
+
+
 class _Splat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, w_ev, H, W, sigma, trunc):
@@ -278,23 +317,95 @@ def splat_se2(xy: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
     ``w`` (N,) f32 weights or a bool mask, ``params`` (3,) f32 [omega, vx,
     vy] on the events' device (it is never read on the host), ``center`` two
     Python floats. Differentiable w.r.t. ``params`` only."""
-    _check(xy, w, H, W, trunc, mask_ok=True)
-    if t.shape != w.shape or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"t must be contiguous float32 ({xy.shape[0]},), got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if (params.shape != (3,) or params.dtype != torch.float32
-            or not params.is_contiguous()):
-        raise ValueError(f"params must be contiguous float32 (3,), got "
-                         f"{params.dtype} {tuple(params.shape)}")
-    if t.device != xy.device or params.device != xy.device:
-        raise ValueError(f"xy on {xy.device} but t on {t.device} and params "
-                         f"on {params.device}")
-    if xy.requires_grad or t.requires_grad or w.requires_grad:
-        raise ValueError("splat_se2 is differentiable w.r.t. params only")
+    _check_se2(xy, t, w, params, H, W, trunc)
     center = (float(center[0]), float(center[1]))
     return _SplatSe2.apply(params, xy, t, w, center, H, W, float(sigma),
                            float(trunc))
 
 
+def splat_se2_vjp(g: torch.Tensor, xy: torch.Tensor, t: torch.Tensor,
+                  w: torch.Tensor, params: torch.Tensor, center, H: int, W: int,
+                  sigma: float, trunc: float) -> torch.Tensor:
+    """(3,) dL/d(omega, vx, vy) of :func:`splat_se2` for the image cotangent
+    ``g`` (H,W), without autograd: the VJP kernel on the card,
+    :func:`_splat_se2_vjp_plain` on the CPU."""
+    _check_se2(xy, t, w, params, H, W, trunc)
+    cfg = ((float(center[0]), float(center[1])), H, W, float(sigma), float(trunc))
+    vjp = _vjp_cuda if xy.is_cuda else _splat_se2_vjp_plain
+    return vjp(g, xy, t, w, params, *cfg)
+
+
+class AscentLayout(NamedTuple):
+    """How one call of the ascent kernel lies over its cluster's blocks."""
+
+    rows: int         # image rows per block (the last block may own fewer)
+    per_rank: int     # events per block, a multiple of 16 (the last may hold fewer)
+    smem_bytes: int   # dynamic shared memory of one block
+
+
+def ascent_layout(n: int, H: int, W: int, mask: bool = True) -> AscentLayout:
+    """The ascent kernel's layout of ``n`` events on an (H, W) image: each of
+    the ASCENT_CLUSTER blocks holds a 1 KB header, two bands of ``rows``
+    image rows as 64-bit sums (the current image and the trial), and
+    ``per_rank`` events: the inputs (xy 8 bytes, t 4, the weight 1 as a
+    mask or 4) and the warped ones (24), and a 16 KB list of the events
+    that reach its rows. Raises ValueError where a block would need more
+    than ASCENT_SMEM_MAX bytes."""
+    rows = -(-H // ASCENT_CLUSTER)
+    per_rank = -(-n // (16 * ASCENT_CLUSTER)) * 16
+    band = -(-rows * W * 8 // 16) * 16
+    smem = (_ASCENT_HEADER + 2 * band + per_rank * (12 + (1 if mask else 4) + 24)
+            + _ASCENT_LIST)
+    if smem > ASCENT_SMEM_MAX:
+        raise ValueError(
+            f"the ascent kernel holds a {H}x{W} image and {n} events in the shared "
+            f"memory of {ASCENT_CLUSTER} blocks: {smem} bytes per block, above the "
+            f"{ASCENT_SMEM_MAX} a block may use")
+    return AscentLayout(rows, per_rank, smem)
+
+
+def splat_ascent_se2(xy: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
+                     params0: torch.Tensor, center, H: int, W: int, iters: int,
+                     sigma: float, trunc: float, lr: float, trace=None):
+    """``contrast_max._ascent_loop`` as one launch of the ascent kernel:
+    ``iters`` steps of normalized-gradient ascent on the contrast of
+    ``splat_se2(xy, t, w, p, center, H, W, sigma, trunc)`` from ``params0``
+    (3,). Returns (params (3,), best contrast (), start contrast ()), all on
+    the card and never read back; with ``trace``, an (iters + 1, 4) f32
+    tensor on the card, also (omega, vx, vy, contrast) of the start and of
+    every trial point. CUDA tensors only: on the CPU the ascent is
+    ``contrast_max._ascent_loop``."""
+    _check_se2(xy, t, w, params0, H, W, trunc)
+    if _n_taps(trunc) > ASCENT_MAX_TAPS:
+        raise ValueError(f"the ascent kernel takes trunc < 3.5, got {trunc}")
+    if not xy.is_cuda:
+        raise ValueError("splat_ascent_se2 runs on CUDA tensors; on the CPU the "
+                         "ascent is contrast_max._ascent_loop")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    dev, n = xy.device, xy.shape[0]
+    if trace is not None and (trace.shape != (iters + 1, 4) or trace.dtype != torch.float32
+                              or not trace.is_contiguous() or trace.device != dev):
+        raise ValueError(f"trace must be contiguous float32 ({iters + 1}, 4) on {dev}, "
+                         f"got {trace.dtype} {tuple(trace.shape)} on {trace.device}")
+    lay = ascent_layout(n, H, W, mask=w.dtype == torch.bool)
+    asc = _kernels()[2]
+    # the kernel's bulk copies read 16-byte aligned rows
+    xy, t, w = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (xy, t, w))
+    out = torch.empty((5,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = asc(xy.data_ptr(), t.data_ptr(), w.data_ptr(), w.dtype != torch.float32,
+                 params0.data_ptr(), float(center[0]), float(center[1]), float(lr), iters,
+                 out.data_ptr(), _ptr(trace), n, H, W, 1.0 / (2.0 * sigma * sigma),
+                 float(trunc), _n_taps(trunc), 1.0 / (H * W), 2.0 / max(H, W),
+                 lay.rows, lay.per_rank, lay.smem_bytes,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"splat ascent kernel launch failed: cudaError {rc}")
+    splat.ascent_launches += 1
+    return out[:3], out[3], out[4]
+
+
 splat.launches = 0
 splat.vjp_launches = 0
+splat.ascent_launches = 0
