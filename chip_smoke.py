@@ -52,7 +52,10 @@ float64 landmark-sharded BA.
 
     python3 chip_smoke.py
 
-Every phase raises on failure and the script then exits non-zero. Output:
+Every phase raises on failure and the script then exits non-zero; the
+read gates: a tracked frame or MCI that inserts no keyframe reads at most
+its flags, a keyframe at most READS_KF_MAX, an L1 window at most its
+metadata, and no other phase reads more per step than READS_BEFORE. Output:
 the card's name and power limit, the build times, the kernel-vs-plain
 comparisons and times (by CUDA events around eager calls, and device only:
 a CUDA-graph replay and the profiler's time by kernel name), the ascent's
@@ -60,8 +63,9 @@ time and launches per call (kernel and loop), the L1 slice's windows/s,
 the L2 cuda-vs-cpu agreement, EventSlam's MCIs/s, real-time factor and ms
 per MCI by phase,
 the generator's events/s, the app runs with their accuracy, blocking host
-reads per frame / MCI (torch's sync debug mode), launches and device time
-per frame, the splat launches of each app path, then one JSON line
+reads per frame / MCI (torch's sync debug mode) by kind of step (tracked,
+keyframe, other) with their commonest ``file:line`` sites, launches and
+device time per frame, the splat launches of each app path, then one JSON line
 describing the kernels and, last, the device line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -167,6 +171,28 @@ LOOP_ROOM_S, LOOP_TURNS = 10.0, 2.0
 # the pipelined check: box-rendered corridor frames at 320x240
 PIPE_W, PIPE_H, PIPE_FX, PIPE_FRAMES, PIPE_BLANK = 320, 240, 195.0, 40, 24
 PIPE_KW = dict(img_w=PIPE_W, img_h=PIPE_H, K=8, M=1024, N=256, max_frames_between_kf=4)
+PIPE_PROFILED = 2          # its last frames, under the profiler
+# blocking host reads (_Syncs): a tracked frame or MCI that inserts no
+# keyframe reads at most its (2,) flags, one that inserts a keyframe at
+# most READS_KF_MAX; an L1 window at most its metadata's HostCopy
+READS_TRACK_MAX, READS_KF_MAX, READS_L1_MAX = 1, 10, 1
+# every other phase's blocking reads per step of each kind (_frame_kind;
+# " VI" once the IMU is initialised; per window for the continuous
+# tracker) measured on the code before the frame path stopped copying host
+# constants to the card, the same phases in one call on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md section 5). None may read more.
+READS_BEFORE = {
+    "MONOCULAR": {"track": 67.0, "KF": 108.0},
+    "MONOCULAR mixed": {"track": 156.0, "KF": 197.0},
+    "IMU_MONOCULAR": {"track": 68.0, "KF": 109.75, "track VI": 178.0, "KF VI": 463.5},
+    "STEREO": {"track": 93.0, "KF": 152.0},
+    "RGBD": {"track": 68.0, "KF": 127.0},
+    "IMU_STEREO": {"track": 93.0, "KF": 152.0, "track VI": 180.78, "KF VI": 506.5},
+    "MONOCULAR+loop": {"track": 67.0, "KF": 123.52},
+    "EVENT_MONO": {"track": 158.33, "KF": 203.2},
+    "EVENT_IMU_MONO": {"track": 166.0, "KF": 225.0},
+    "EVENT_ONLY continuous": {"window": 27.0},
+}
 # check_vi_small: card against the CPU, f32 unless stated
 VI_TOL_PRE = 1e-5          # integrate / merge / predict_state, max abs
 VI_TOL_SCALE = 1e-4        # inertial_init, relative
@@ -1178,32 +1204,43 @@ def run_event_slam():
     slam.l2._insert_keyframe = timed_insert
     slam.builder.feed(phase)
     t_step, t_l2 = [], []
-    while len(t_step) < EV_PHASE_TIMED:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pi = slam.builder.step_window()
-        torch.cuda.synchronize()
-        if pi is None:
-            break
-        t_step.append(time.perf_counter() - t)
-        t = time.perf_counter()
-        slam._track_mci(pi)
-        torch.cuda.synchronize()
-        t_l2.append(time.perf_counter() - t)
-    slam.l2._insert_keyframe = insert
-    # what is left of the stream under the profiler, L1 and L2 apart:
-    # device launches and device time per MCI
-    prof = {"L1": [], "L2": []}
+    # blocking reads of both passes, one step per step_window ("L1") and
+    # per L2 call ("L2 track", "L2 KF" or "L2 other": _frame_kind)
+    kinds = []
+    l2_kind = lambda r: "L2 " + _frame_kind(r)
     with _Syncs() as sy:
+        while len(t_step) < EV_PHASE_TIMED:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pi = slam.builder.step_window()
+            torch.cuda.synchronize()
+            sy.mark()
+            kinds.append(None if pi is None else "L1")
+            if pi is None:
+                break
+            t_step.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            r = slam._track_mci(pi)
+            torch.cuda.synchronize()
+            t_l2.append(time.perf_counter() - t)
+            sy.mark()
+            kinds.append(l2_kind(r))
+        slam.l2._insert_keyframe = insert
+        # what is left of the stream under the profiler, L1 and L2 apart:
+        # device launches and device time per MCI
+        prof = {"L1": [], "L2": []}
         while True:
             pi, per = _profile(slam.builder.step_window)
             sy.mark()
+            kinds.append(None if pi is None else "L1")
             if pi is None:
                 break
             prof["L1"].append(per)
-            prof["L2"].append(_profile(lambda: slam._track_mci(pi))[1])
+            r, per = _profile(lambda: slam._track_mci(pi))
+            prof["L2"].append(per)
             sy.mark()
-    reads_l1, reads_l2 = sy.steps[0:-1:2], sy.steps[1::2]
+            kinds.append(l2_kind(r))
+    reads = _Reads(sy, kinds)
     if not prof["L1"]:
         raise RuntimeError("no window was left for the profiled pass")
     per_mci = {k: (sum(c for per in v for c, _ in per.values()) / len(v),
@@ -1231,8 +1268,10 @@ def run_event_slam():
     _log(f"EventSlam under torch.profiler over {len(prof['L1'])} MCIs: step_window "
          f"{per_mci['L1'][0]:.0f} device launches and {per_mci['L1'][1]:.2f} ms of "
          f"device time per MCI; L2 (tracking and mapping) {per_mci['L2'][0]:.0f} "
-         f"launches and {per_mci['L2'][1]:.2f} ms per MCI; blocking host reads per MCI "
-         f"(speculation on): step_window {reads_l1}, L2 {reads_l2}")
+         f"launches and {per_mci['L2'][1]:.2f} ms per MCI")
+    reads.log("EventSlam (speculation on)", "MCI")
+    reads.at_most("EventSlam", {"L1": READS_L1_MAX, "L2 track": READS_TRACK_MAX,
+                                "L2 KF": READS_KF_MAX})
     _log(f"EventSlam map: {l2.n_kf} keyframes, {n_lm} landmarks, "
          f"{l2.stats['lost']} lost windows, {l2.kf_culled} KFs culled, "
          f"{len(traj)} trajectory poses; stats {slam.stats}")
@@ -1462,12 +1501,15 @@ def run_app_monocular(work: str):
     if seq.n_frames != n_all or seq.image(0).shape != (Hm, Wm):
         raise RuntimeError(f"{seq.n_frames} frames of {seq.image(0).shape}")
 
-    states, t_map = [], []
+    states, t_map, kinds = [], [], []
     process, insert = system.MonoSlam.process_image, system.MonoSlam._insert_keyframe
+    sy = _Syncs()
 
     def recording(self, img, ts, **kw):
         res = process(self, img, ts, **kw)
+        sy.mark()
         states.append(res["state"])
+        kinds.append(_frame_kind(res))
         return res
 
     def timed_insert(self, *a, **kw):
@@ -1480,13 +1522,15 @@ def run_app_monocular(work: str):
     system.MonoSlam.process_image = recording
     system.MonoSlam._insert_keyframe = timed_insert
     try:
-        slam, out = run_slam.run_sequence(
-            st, seq, out_dir=os.path.join(work, "results_mono"),
-            max_frames=MONO_FRAMES, verbose=False)
-        torch.cuda.synchronize()
+        with sy:
+            slam, out = run_slam.run_sequence(
+                st, seq, out_dir=os.path.join(work, "results_mono"),
+                max_frames=MONO_FRAMES, verbose=False)
+            torch.cuda.synchronize()
     finally:
         system.MonoSlam.process_image = process
         system.MonoSlam._insert_keyframe = insert
+    reads = _Reads(sy, kinds)
     ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
     stats = out["stats"]
     first_ok = states.index(system.OK) if system.OK in states else len(states)
@@ -1516,6 +1560,8 @@ def run_app_monocular(work: str):
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
          f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame "
          f"(per frame: {[c for c, _ in per_frame]})")
+    reads.log("run_slam MONOCULAR", "frame")
+    reads.not_above("MONOCULAR", "frame")
     _log(f"run_slam MONOCULAR accuracy: ATE rmse {ev.get('ate_rmse')} over "
          f"{ev.get('ate_n')} poses (Sim3-aligned), path {path_len:.4f} m -> "
          f"{100 * ev.get('ate_rmse', np.inf) / max(path_len, 1e-12):.3f}% of the path; "
@@ -1532,27 +1578,53 @@ def run_app_monocular(work: str):
         raise RuntimeError(f"evaluate gave {ev}")
     return dict(frames=len(states), wall_s=out["wall_s"], root=root,
                 ate_frac=ev["ate_rmse"] / max(path_len, 1e-12), first_ok=first_ok,
-                tracked=n_ok / max(len(after), 1))
+                tracked=n_ok / max(len(after), 1), reads=reads)
+
+
+_TORCH_DIR = os.path.dirname(torch.__file__)
+
+
+def _site(frame) -> str:
+    """``file:line`` of the innermost frame at or above ``frame`` that is
+    neither torch's nor the warnings module's: the line that made the call."""
+    while frame is not None:
+        fn = frame.f_code.co_filename
+        if not (fn.startswith(_TORCH_DIR) or fn.endswith(os.sep + "warnings.py")):
+            if fn.startswith(REPO + os.sep):
+                fn = os.path.relpath(fn, REPO)
+            return f"{fn}:{frame.f_lineno}"
+        frame = frame.f_back
+    return "?"
 
 
 class _Syncs:
     """Counts, while active, the host's blocking reads of the card: torch's
     sync debug mode warns at every synchronising CUDA call (a read of a
-    device value, a copy to pageable memory), and a HostCopy read counts
-    where its copy had not landed yet. ``mark()`` closes one step."""
+    device value, a copy from or to pageable memory), and a HostCopy read
+    counts where its copy had not landed yet. Each read is kept under the
+    ``file:line`` that made it (a HostCopy wait under its reader's line,
+    tagged ``HostCopy``). ``mark()`` closes one step: ``steps`` holds the
+    reads of each step, ``sites`` their tally by site."""
 
     def __enter__(self):
         from eorb_slam_tpu_torch import _host
 
-        self.steps, self._waits, self._last = [], 0, 0
-        self._cm = warnings.catch_warnings(record=True)
-        self._rec = self._cm.__enter__()
+        self.steps, self.sites = [], []
+        self._cur = {}
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
         warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                self._hit(_site(sys._getframe(1)))
+
+        warnings.showwarning = show
         self._numpy = _host.HostCopy.numpy
 
         def numpy(hc):
             if not hc.ready():
-                self._waits += 1
+                self._hit(_site(sys._getframe(1)) + " HostCopy")
             return self._numpy(hc)
 
         _host.HostCopy.numpy = numpy
@@ -1569,13 +1641,25 @@ class _Syncs:
         torch.cuda.set_sync_debug_mode("warn")
         return self
 
-    def _count(self):
-        return self._waits + sum("synchroniz" in str(w.message) for w in self._rec)
+    def _hit(self, site):
+        self._cur[site] = self._cur.get(site, 0) + 1
 
     def mark(self):
-        n = self._count()
-        self.steps.append(n - self._last)
-        self._last = n
+        self.steps.append(sum(self._cur.values()))
+        self.sites.append(self._cur)
+        self._cur = {}
+
+    def top(self, idx=None, k=8) -> str:
+        """The ``k`` commonest sites of the steps ``idx`` (all by default),
+        as ``file:line xcount`` per step."""
+        idx = range(len(self.steps)) if idx is None else list(idx)
+        tally = {}
+        for i in idx:
+            for s, c in self.sites[i].items():
+                tally[s] = tally.get(s, 0) + c
+        per = max(len(idx), 1)
+        best = sorted(tally.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+        return ", ".join(f"{s} x{c / per:.2f}" for s, c in best) or "none"
 
     def __exit__(self, *exc):
         from eorb_slam_tpu_torch import _host
@@ -1585,6 +1669,60 @@ class _Syncs:
         _host.HostCopy.numpy = self._numpy
         self._cm.__exit__(*exc)
         return False
+
+
+def _frame_kind(out) -> str:
+    """What one frame step did, from the dict its entry point returned:
+    "KF" where it inserted a keyframe, "track" where it tracked without
+    one, else "other" (initialisation, a lost frame, a relocalisation, a
+    new map)."""
+    if out.get("kf"):
+        return "KF"
+    if out.get("state") == 1 and not ({"reloc", "new_map", "n_pts"} & out.keys()):
+        return "track"
+    return "other"
+
+
+class _Reads:
+    """A finished _Syncs's steps split by the kind of each step (None: a
+    step that is no frame and no MCI)."""
+
+    def __init__(self, sy, kinds):
+        self.sy, self.kinds = sy, kinds
+
+    def at(self, kind):
+        return [i for i, k in enumerate(self.kinds) if k == kind]
+
+    def of(self, kind):
+        return [self.sy.steps[i] for i in self.at(kind)]
+
+    def mean(self, kind):
+        v = self.of(kind)
+        return float(np.mean(v)) if v else float("nan")
+
+    def log(self, tag, unit):
+        """One line per kind: the mean, each step, and the sites."""
+        for kind in dict.fromkeys(k for k in self.kinds if k is not None):
+            v = self.of(kind)
+            _log(f"{tag} blocking reads per {kind} {unit}: {self.mean(kind):.2f} over "
+                 f"{len(v)} (each: {v}); sites per {unit}: {self.sy.top(self.at(kind))}")
+
+    def at_most(self, tag, limits):
+        """Raise unless every step of each kind in ``limits`` reads at most
+        its limit."""
+        over = {k: v for k, lim in limits.items() for v in [self.of(k)] if v and max(v) > lim}
+        if over:
+            raise RuntimeError(f"{tag}: blocking reads above {limits}: {over}")
+
+    def not_above(self, tag, unit):
+        """Print reads per step of each kind before -> now, and raise where
+        a kind's mean rose above READS_BEFORE[tag]."""
+        before = READS_BEFORE[tag]
+        _log(f"{tag} blocking reads per {unit}, before -> after: " + ", ".join(
+            f"{k} {b:.2f} -> {self.mean(k):.2f}" for k, b in before.items()))
+        rose = {k: self.mean(k) for k, b in before.items() if self.mean(k) > b}
+        if rose:
+            raise RuntimeError(f"{tag}: blocking reads rose above {before}: {rose}")
 
 
 def _pipe_frames(n=PIPE_FRAMES):
@@ -1624,31 +1762,48 @@ def check_pipelined_small():
 
     def run(pipelined, blank=None):
         slam = system.MonoSlam(cam, pipelined=pipelined, **PIPE_KW)
+        kinds, launches = [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with _Syncs() as sy:
             for i, (ts, img, _) in enumerate(frames):
-                slam.process_image(torch.zeros_like(img) if i == blank else img, ts)
+                img = torch.zeros_like(img) if i == blank else img
+                if i < PIPE_FRAMES - PIPE_PROFILED:
+                    out = slam.process_image(img, ts)
+                else:
+                    out, per = _profile(lambda: slam.process_image(img, ts))
+                    launches.append(sum(c for c, _ in per.values()))
                 sy.mark()
+                kinds.append(_frame_kind(out))
             slam.flush_pipeline()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         traj = slam.trajectory_twc()
-        # reads per frame once tracking: skip the two init frames
-        steady = sy.steps[3:]
-        return slam, traj, _ate_vs(traj, gt), float(np.mean(steady)), wall
+        return slam, traj, _ate_vs(traj, gt), _Reads(sy, kinds), launches, wall
 
-    s_sync, traj_s, (r_s, n_s, _), reads_s, wall_s = run(False)
-    s_pipe, traj_p, (r_p, n_p, _), reads_p, wall_p = run(True)
-    s_blank, traj_b, (r_b, n_b, _), reads_b, _ = run(True, PIPE_BLANK)
+    s_sync, traj_s, (r_s, n_s, _), reads_s, launch_s, wall_s = run(False)
+    s_pipe, traj_p, (r_p, n_p, _), reads_p, launch_p, wall_p = run(True)
+    s_blank, traj_b, (r_b, n_b, _), reads_b, _, _ = run(True, PIPE_BLANK)
     ts_b = [t for t, _ in traj_b]
+    # every frame once tracking (skip the two init frames), keyframe
+    # frames included: the mean this check has always printed
+    steady = lambda r: float(np.mean(r.sy.steps[3:]))
     _log(f"pipelined MonoSlam {PIPE_W}x{PIPE_H}, {PIPE_FRAMES} frames on the card: sync "
-         f"{n_s} tracked, {s_sync.stats['kf']} KFs, ATE {r_s:.5f}, {reads_s:.2f} blocking "
-         f"reads per frame, {wall_s:.3f} s (sync debug mode on); speculative {n_p} tracked, "
-         f"{s_pipe.stats['kf']} KFs, ATE {r_p:.5f}, {reads_p:.2f} blocking reads per "
-         f"frame, {wall_p:.3f} s; blank frame {PIPE_BLANK}: {n_b} tracked, ATE {r_b:.5f}, "
-         f"lost {s_blank.stats['lost']}, final state {s_blank.state}, "
+         f"{n_s} tracked, {s_sync.stats['kf']} KFs, ATE {r_s:.5f}, {steady(reads_s):.2f} "
+         f"blocking reads per frame, {wall_s:.3f} s (sync debug mode on); speculative {n_p} "
+         f"tracked, {s_pipe.stats['kf']} KFs, ATE {r_p:.5f}, {steady(reads_p):.2f} blocking "
+         f"reads per frame, {wall_p:.3f} s; blank frame {PIPE_BLANK}: {n_b} tracked, ATE "
+         f"{r_b:.5f}, lost {s_blank.stats['lost']}, final state {s_blank.state}, "
          f"{len(ts_b) - len(set(ts_b))} duplicate timestamps")
+    for mode, r, la in (("sync", reads_s, launch_s), ("speculative", reads_p, launch_p),
+                        ("blank frame", reads_b, None)):
+        r.log(f"pipelined MonoSlam {mode}", "frame")
+        if la:
+            _log(f"pipelined MonoSlam {mode}: the last {PIPE_PROFILED} frames under "
+                 f"torch.profiler: {la} device launches")
+    for mode, r in (("sync", reads_s), ("speculative", reads_p)):
+        r.at_most(f"pipelined MonoSlam {mode}",
+                  {"track": READS_TRACK_MAX, "KF": READS_KF_MAX})
     if not n_p >= n_s - 2:
         raise RuntimeError(f"speculation tracked {n_p} frames, sync {n_s}")
     if abs(s_pipe.stats["kf"] - s_sync.stats["kf"]) > 3:
@@ -1657,7 +1812,7 @@ def check_pipelined_small():
         raise RuntimeError(f"speculative ATE {r_p} vs sync {r_s}")
     if s_blank.state != system.OK or len(ts_b) != len(set(ts_b)) or n_b < PIPE_FRAMES - 10:
         raise RuntimeError(f"no recovery after the blank frame: {s_blank.stats}")
-    return dict(reads_sync=reads_s, reads_pipe=reads_p)
+    return dict(reads_sync=steady(reads_s), reads_pipe=steady(reads_p))
 
 
 # ------------------------------------------------------------- the IMU stack
@@ -1883,15 +2038,18 @@ def run_app_imu_monocular(work: str):
                    duration=VI_GEN_FRAMES / fps, fps=fps, verbose=False,
                    renderer=sd.make_box_renderer("room", Wv, Hv, fx))
     t_gen = time.perf_counter() - t0
-    states, inits, t_map, slams = [], [], [], []
+    states, inits, t_map, slams, kinds = [], [], [], [], []
     process = vi_system.MonoInertialSlam.process_image_imu
     insert = vi_system.MonoInertialSlam._insert_keyframe
     run_seq = run_slam.run_sequence
+    sy = _Syncs()
 
     def recording(self, img, ts, imu, **kw):
         res = process(self, img, ts, imu, **kw)
+        sy.mark()
         states.append(res["state"])
         inits.append(self.imu_initialized)
+        kinds.append(_frame_kind(res) + (" VI" if self.imu_initialized else ""))
         return res
 
     def timed_insert(self, *a, **kw):
@@ -1910,14 +2068,16 @@ def run_app_imu_monocular(work: str):
     vi_system.MonoInertialSlam._insert_keyframe = timed_insert
     run_slam.run_sequence = keep
     try:
-        (out,) = run_slam.main([settings, "--sequence", "room_01", "--eval",
-                                "--max-frames", str(VI_FRAMES),
-                                "--out", os.path.join(work, "results_vi")])
-        torch.cuda.synchronize()
+        with sy:
+            (out,) = run_slam.main([settings, "--sequence", "room_01", "--eval",
+                                    "--max-frames", str(VI_FRAMES),
+                                    "--out", os.path.join(work, "results_vi")])
+            torch.cuda.synchronize()
     finally:
         vi_system.MonoInertialSlam.process_image_imu = process
         vi_system.MonoInertialSlam._insert_keyframe = insert
         run_slam.run_sequence = run_seq
+    app_reads = _Reads(sy, kinds)
     slam, seq = slams[0]
     ev = out.get("eval", {})
     sim3 = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
@@ -1956,6 +2116,8 @@ def run_app_imu_monocular(work: str):
          f"at frame {first_ok}, then {n_ok}/{len(after)} tracked; IMU initialised at frame "
          f"{init_at} (the JAX app on the CPU, same data: frame {VI_INIT_REF}); scale applied "
          f"{slam.scale_applied:.4f}; {len(slam.pending_world_transforms)} world transforms")
+    app_reads.log("run_slam IMU_MONOCULAR (the app run)", "frame")
+    app_reads.not_above("IMU_MONOCULAR", "frame")
     _log(f"run_slam IMU_MONOCULAR per frame after the init: {np.mean(reads):.1f} blocking "
          f"reads (each frame: {reads}); under torch.profiler "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
@@ -1972,7 +2134,7 @@ def run_app_imu_monocular(work: str):
         raise RuntimeError("the IMU did not initialize")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and np.isfinite(sim3.get("ate_rmse", np.inf))):
         raise RuntimeError(f"evaluate gave {ev} / {sim3}")
-    return dict(frames=n, wall_s=out["wall_s"], reads=float(np.mean(reads)))
+    return dict(frames=n, wall_s=out["wall_s"], reads=app_reads)
 
 
 def run_app_event_imu(work: str, data_root: str):
@@ -2447,13 +2609,16 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     from eorb_slam_tpu_torch.slam.system import OK
 
     settings = _settings_with_root(config, root, work)
-    rec, slams = [], []
+    rec, slams, kinds = [], [], []
     fn, run_seq = getattr(cls, method), run_slam.run_sequence
+    sy = _Syncs()
 
     def recording(self, *a, **kw):
         res = fn(self, *a, **kw)
+        sy.mark()
         rec.append((res["state"], bool(getattr(self, "imu_initialized", False)),
                     bool(res.get("new_map")), self.map_merges))
+        kinds.append(_frame_kind(res) + (" VI" if rec[-1][1] else ""))
         return res
 
     def keep(st, s, **kw):
@@ -2465,7 +2630,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     run_slam.run_sequence = keep
     _reset_counts()
     try:
-        with _LoopLog() as loop_log:
+        with _LoopLog() as loop_log, sy:
             (out,) = run_slam.main([settings, "--sequence", seq, "--eval",
                                     "--max-frames", str(frames),
                                     "--out", os.path.join(work, f"results_{tag}")])
@@ -2473,6 +2638,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     finally:
         setattr(cls, method, fn)
         run_slam.run_sequence = run_seq
+    app_reads = _Reads(sy, kinds)
     launches = _counts()
     slam, sq = slams[0]
     sim3 = run_slam.evaluate(sq, out["trajectory_file"], monocular=True)
@@ -2504,6 +2670,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         imu_at=imu_at[0] if imu_at else None, ate=ev.get("ate_rmse"),
         ate_scale=ev.get("ate_scale"), ate_sim3=sim3.get("ate_rmse"),
         sim3_scale=sim3.get("ate_scale"), path=path, reads=float(np.mean(reads)),
+        app_reads=app_reads,
         launches_frame=float(np.mean([c for c, _ in per_frame])),
         device_ms=float(np.mean([t for _, t in per_frame])), splat=launches,
         loop_lines=loop_log.lines, device=out["device"], stats=out["stats"])
@@ -2516,6 +2683,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
          + f"; frames not OK {not_ok}, new maps at {new_maps}, merges at {merged}; loops "
          f"{slam.loops_closed}, {len(loop_log.lines)} eorb.loop lines; splat launches "
          f"{launches[0]} forward + {launches[1]} VJP + {launches[2]} ascent")
+    app_reads.log(f"run_slam {tag} (the app run)", "frame")
+    app_reads.not_above(tag, "frame")
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
          f"launches and {r['device_ms']:.2f} ms of device time (each: "
@@ -3128,7 +3297,7 @@ def _run_app_event_image(work, root, config, tag):
     from eorb_slam_tpu_torch.slam.system import OK
 
     settings = _settings_with_root(config, root, work)
-    rec, slams, prof = [], [], []
+    rec, slams, prof, kinds = [], [], [], []
     track, run_seq = evi.EvImageSlam.track_ev_mono, run_slam.run_sequence
     n_images = int(GEN_S * GEN_FPS)
 
@@ -3153,6 +3322,8 @@ def _run_app_event_image(work, root, config, tag):
                 res = track(self, *a, **kw)
             sy.mark()
             rec.append((self.im.state, self.ev.state, (res["event"] or {}).get("n")))
+            im, evr = res["image"] or {}, res["event"] or {}
+            kinds.append("KF" if im.get("kf") or evr.get("kf") else _frame_kind(im))
             return res
 
         evi.EvImageSlam.track_ev_mono = recording
@@ -3180,9 +3351,13 @@ def _run_app_event_image(work, root, config, tag):
     path = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
     ate_frac = ev.get("ate_rmse", float("inf")) / max(path, 1e-12)
     reads = sy.steps[first_ok + 1:-1] or sy.steps
+    # by kind, the init images and the profiled last image left out
+    app_reads = _Reads(sy, [k if first_ok < i < len(kinds) - 1 else None
+                            for i, k in enumerate(kinds)])
     n = len(rec)
     r = dict(frames=n, fps=n / out["wall_s"], wall_s=out["wall_s"], windows=windows,
-             launches=launches, reads=float(np.mean(reads)), launches_frame=prof[0],
+             launches=launches, reads=float(np.mean(reads)), app_reads=app_reads,
+             launches_frame=prof[0],
              device_ms=prof[1], ate_frac=ate_frac, first_ok=first_ok, n_ok=n_ok,
              chains=chains, stats=st)
     _log(f"run_slam {tag} on {out['device']}, image tracker seed {EV_IMAGE_SEED}: {n} images "
@@ -3195,6 +3370,8 @@ def _run_app_event_image(work, root, config, tag):
          f"reads per image after the init {r['reads']:.1f} (each: {reads}); the last image "
          f"under torch.profiler (event state after it {ev_state_prof}): {prof[0]} device "
          f"launches, {prof[1]:.2f} ms of device time")
+    app_reads.log(f"run_slam {tag}", "image")
+    app_reads.not_above(tag, "image")
     _log(f"run_slam {tag} result: image KFs {st['im']['kf']}, event KFs {st['ev']['kf']}, "
          f"joint inits {st['joint_inits']}, joint frames {st['joint_frames']}, joint BAs "
          f"{st['joint_bas']}, gauge reseeds {st['gauge_reseeds']}; Sim3 ATE "
@@ -3307,6 +3484,9 @@ def run_app_event_continuous(work: str, root: str):
          f"(each: {reads}); window {CONT_PROFILED + 1} under torch.profiler: {win_prof[0]} "
          f"device launches, {win_prof[1]:.2f} ms of device time; "
          f"{time.perf_counter() - t0:.1f} s")
+    _log(f"run_slam EVENT_ONLY continuous sites per window: "
+         f"{sy.top(range(1, len(sy.steps)))}")
+    _Reads(sy, [None] + ["window"] * len(reads)).not_above("EVENT_ONLY continuous", "window")
     if out["device"] != "cuda" or out["iterations"] < 1:
         raise RuntimeError(f"continuous: {out['device']}, {out['iterations']} chunks")
     if st["l2_full"] != st["windows"] or st["l2_tiny"] != st["chunks"] - st["windows"]:
@@ -3415,12 +3595,15 @@ def run_app_mixed(work: str, mono: dict):
         name="synth_euroc_mixed.yaml"))
     seq = datasets.load_sequence(st.dataset.format, root, "corridor_01",
                                  ts_factor=st.dataset.ts_factor)
-    states, ak_valid = [], []
+    states, ak_valid, kinds = [], [], []
     process, extract = system.MixedMonoSlam.process_image, frontend.extract_mixed
+    sy = _Syncs()
 
     def recording(self, img, ts, **kw):
         res = process(self, img, ts, **kw)
+        sy.mark()
         states.append(res["state"])
+        kinds.append(_frame_kind(res))
         return res
 
     def counting(img, **kw):
@@ -3432,13 +3615,15 @@ def run_app_mixed(work: str, mono: dict):
     frontend.extract_mixed = counting
     _reset_counts()
     try:
-        slam, out = run_slam.run_sequence(
-            st, seq, out_dir=os.path.join(work, "results_mixed"),
-            max_frames=MONO_FRAMES, verbose=False)
-        torch.cuda.synchronize()
+        with sy:
+            slam, out = run_slam.run_sequence(
+                st, seq, out_dir=os.path.join(work, "results_mixed"),
+                max_frames=MONO_FRAMES, verbose=False)
+            torch.cuda.synchronize()
     finally:
         system.MixedMonoSlam.process_image = process
         frontend.extract_mixed = extract
+    reads = _Reads(sy, kinds)
     splats = _counts()
     ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
     first_ok = states.index(system.OK) if system.OK in states else len(states)
@@ -3467,6 +3652,8 @@ def run_app_mixed(work: str, mono: dict):
     _log(f"run_slam MONOCULAR mixed under torch.profiler, {len(per_frame)} frames: "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
          f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame")
+    reads.log("run_slam MONOCULAR mixed", "frame")
+    reads.not_above("MONOCULAR mixed", "frame")
     if type(slam) is not system.MixedMonoSlam or slam.pipelined:
         raise RuntimeError(f"Features.mode 2 built {type(slam).__name__}")
     if slam.device.type != "cuda" or (slam.img_w, slam.img_h, slam.map.N) != (752, 480, 512):
@@ -3477,7 +3664,7 @@ def run_app_mixed(work: str, mono: dict):
         raise RuntimeError(f"only {n_ok}/{len(after)} frames tracked after init")
     if not (np.isfinite(ate_frac) and ev["ate_n"] >= 0.8 * len(after)) or min(slots) < 40:
         raise RuntimeError(f"evaluate gave {ev}; AKAZE slots {slots}")
-    return dict(frames=len(states), wall_s=out["wall_s"], ate_frac=ate_frac)
+    return dict(frames=len(states), wall_s=out["wall_s"], ate_frac=ate_frac, reads=reads)
 
 
 def check_checkpoint(work: str):

@@ -10,9 +10,17 @@ stats) is copied into pinned host memory with ``non_blocking=True`` and a
 CUDA event is recorded behind the copy; the host reads it once that event
 has completed, without stalling the device queue in between. A CPU tensor
 is its own copy.
+
+Constants go the other way without a copy: ``torch.tensor(..., device=
+cuda)`` copies from pageable host memory and drains the stream first, so a
+Python number becomes a device scalar by a fill (``scalar``) and a small
+fixed table is copied once per device and cached (``constant``).
 """
 
 from __future__ import annotations
+
+import functools
+import numbers
 
 import numpy as np
 import torch
@@ -38,6 +46,24 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor of ``like``'s dtype on ``like``'s device, with the
+    values ``torch.as_tensor(x, dtype=, device=)`` gives. A Python number is
+    filled in on the device (no host-to-device copy); a tensor is moved or
+    cast as ``as_tensor`` would."""
+    if isinstance(x, numbers.Number):
+        return torch.full((), x, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The constant ``torch.tensor(values, dtype=dtype)`` on ``device``,
+    copied there once and cached: later calls copy nothing. Shared by every
+    caller, so never written in place."""
+    return torch.tensor(values, dtype=dtype).to(device)
 
 
 class HostCopy:

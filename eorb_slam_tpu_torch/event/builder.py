@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from eorb_slam_tpu_torch._host import HostCopy, resolve_device
+from eorb_slam_tpu_torch._host import HostCopy, constant, resolve_device
 from eorb_slam_tpu_torch.event import contrast_max, klt, tensorize
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.io import native
@@ -163,7 +163,7 @@ def _make_candidates(
 
     # candidate 3: SE2 flow fitted to the builder's own KLT correspondences
     params_fit, n_fit = contrast_max.fit_rt2d_points(
-        klt_prev, klt_cur, klt_ok, klt_dt, xy.new_tensor(center)
+        klt_prev, klt_cur, klt_ok, klt_dt, constant(center, xy.dtype, xy.device)
     )
     img_fit = tensorize.splat_gauss_se2(xy, t_end, params_fit, center, valid,
                                         H, W, sigma=sigma)
@@ -171,10 +171,9 @@ def _make_candidates(
     # score the RAW accumulators (same event mass in every candidate)
     imgs_raw = torch.stack([img_h, img_se2, img_dp, img_fit])
     scores = tensorize.patch_std_mean(imgs_raw)
-    ninf = torch.tensor(-torch.inf, dtype=scores.dtype, device=scores.device)
     # conditional candidates only compete when their inputs exist
-    s_dp = scores[2] if have_dpose else ninf
-    s_fit = torch.where(have_klt & (n_fit >= 6), scores[3], ninf)
+    s_dp = scores[2] if have_dpose else torch.full_like(scores[2], -torch.inf)
+    s_fit = torch.where(have_klt & (n_fit >= 6), scores[3], -torch.inf)
     scores = torch.stack([scores[0], scores[1], s_dp, s_fit])
     best = torch.argmax(scores)
     # select + normalize on the device (index_select: no host read of best)
@@ -550,7 +549,7 @@ class EventWindowBuilder:
             self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool),
             self._to_dev(np.float32(t1 - t0)), T0, T1, depth, have_dpose,
             kp, kc, kok, self._to_dev(np.float32(kdt)),
-            torch.tensor(have_klt, device=dev),
+            torch.full((), have_klt, dtype=torch.bool, device=dev),
             self.cam, H=cfg.img_h, W=cfg.img_w, sigma=cfg.sigma,
             cm_iters=cfg.cm_iters,
         )

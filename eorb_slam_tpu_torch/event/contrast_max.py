@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from eorb_slam_tpu_torch._host import constant, scalar
 from eorb_slam_tpu_torch.event import tensorize
 from eorb_slam_tpu_torch.ops import hopper_splat
 
@@ -91,12 +92,12 @@ def _ascent_loop(xy, t_rel, valid, H, W, params0, iters, sigma, lr, trace=None):
         return tensorize.splat_gauss_se2(xy, t_rel, p, center, valid, H, W, sigma=sigma)
 
     # parameter scales: a rotation of 1 rad/s moves corner pixels ~H/2 px/s
-    scale = torch.tensor([2.0 / max(H, W), 1.0, 1.0], dtype=dt, device=dev)
+    scale = constant((2.0 / max(H, W), 1.0, 1.0), dt, dev)
 
     with torch.no_grad():
         p, img = params0, image(params0)
         best = c0 = _variance(img)
-        step = torch.tensor(lr, dtype=dt, device=dev)
+        step = torch.full((), lr, dtype=dt, device=dev)
         if trace is not None:
             trace[0, :3], trace[0, 3] = p, c0
         for k in range(iters):
@@ -131,8 +132,7 @@ def fit_rt2d_points(
     d = cur_pts - prev_pts                                   # (Np,2)
     rx = prev_pts[:, 0] - center[0]
     ry = prev_pts[:, 1] - center[1]
-    dt = torch.clamp(torch.as_tensor(dt, dtype=prev_pts.dtype,
-                                     device=prev_pts.device), min=1e-9)
+    dt = torch.clamp(scalar(dt, prev_pts), min=1e-9)
     zero = torch.zeros_like(rx)
     one = torch.ones_like(rx)
     # rows: [ -ry 1 0 ; rx 0 1 ] * dt, stacked per point

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch._host import constant
+
 
 def _bilinear(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Sample img (H,W) at continuous (x,y) points (...,2); zero padding."""
@@ -72,8 +74,8 @@ def track(
     rng = torch.arange(-half, half + 1, dtype=dt, device=dev)
     oy, ox = torch.meshgrid(rng, rng, indexing="ij")
     offs = torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)  # (w2,2)
-    ex = torch.tensor([1.0, 0.0], dtype=dt, device=dev)
-    ey = torch.tensor([0.0, 1.0], dtype=dt, device=dev)
+    ex = constant((1.0, 0.0), dt, dev)
+    ey = constant((0.0, 1.0), dt, dev)
 
     pyr_ref = [img_ref]
     pyr_cur = [img_cur]

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from eorb_slam_tpu_torch._host import scalar
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.ops import hopper_splat
@@ -113,7 +114,7 @@ def warp_se3_depth(
     and a constant/median scene depth. Returns (pixels (N,2), depth in the
     end frame (N,))."""
     rays = cam_mod.pinhole_unproject_linear(cam_params, xy)   # (N,3)
-    depth = torch.as_tensor(depth, dtype=xy.dtype, device=xy.device)
+    depth = scalar(depth, xy)
     pts_c = rays * depth.expand(xy.shape[0])[:, None]
 
     # camera pose at each event time, point to world (batched over events)
@@ -141,8 +142,7 @@ def warp_se3_depthmap(
     xi = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, W - 1)
     yi = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, H - 1)
     d = depth_map[yi, xi]
-    d = torch.where(d > 0, d, torch.as_tensor(default_depth, dtype=d.dtype,
-                                               device=d.device))
+    d = torch.where(d > 0, d, scalar(default_depth, d))
     return warp_se3_depth(xy, t_rel, T0, T1, cam_params, d)
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from eorb_slam_tpu_torch._host import constant, scalar
+
 _EPS = 1e-8
 _SMALL2 = 1e-10  # squared-angle Taylor-guard threshold (theta < 1e-5)
 
@@ -184,7 +186,7 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
@@ -202,7 +204,7 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
 
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     """Spherical interpolation between unit quaternions; t broadcastable."""
-    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    t = scalar(t, q0)
     dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
     q1 = torch.where(dot < 0, -q1, q1)
     dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
@@ -227,10 +229,10 @@ def se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device
-    ).expand(batch + (4,))[..., None, :]
-    return torch.cat([top, bottom], dim=-2)
+    # the [0,0,0,1] row is cached on the device: a copy from the host per
+    # call would drain the stream
+    bottom = constant((0.0, 0.0, 0.0, 1.0), R.dtype, R.device).expand(batch + (4,))
+    return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 
 def se3_rot(T: torch.Tensor) -> torch.Tensor:
@@ -386,7 +388,7 @@ def interpolate_se3(T0: torch.Tensor, T1: torch.Tensor, alpha) -> torch.Tensor:
 
     ``alpha`` may carry a batch (e.g. one value per event): the result then
     has that batch, which is what the JAX package gets by vmapping."""
-    alpha = torch.as_tensor(alpha, dtype=T0.dtype, device=T0.device)
+    alpha = scalar(alpha, T0)
     q0, q1 = quat_from_mat(se3_rot(T0)), quat_from_mat(se3_rot(T1))
     q = quat_slerp(q0, q1, alpha[..., None])
     t = (1.0 - alpha[..., None]) * se3_trans(T0) + alpha[..., None] * se3_trans(T1)

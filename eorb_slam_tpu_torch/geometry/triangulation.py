@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from eorb_slam_tpu_torch._host import scalar
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.optim.linalg import eigh_or_nan
 
@@ -60,10 +61,8 @@ def triangulation_checks(
 
     z1 = torch.where(torch.abs(pc1[..., 2]) < 1e-9, 1e-9, pc1[..., 2])
     z2 = torch.where(torch.abs(pc2[..., 2]) < 1e-9, 1e-9, pc2[..., 2])
-    inv_sigma1 = torch.as_tensor(inv_sigma1, dtype=pts_w.dtype,
-                                 device=pts_w.device)[..., None]
-    inv_sigma2 = torch.as_tensor(inv_sigma2, dtype=pts_w.dtype,
-                                 device=pts_w.device)[..., None]
+    inv_sigma1 = scalar(inv_sigma1, pts_w)[..., None]
+    inv_sigma2 = scalar(inv_sigma2, pts_w)[..., None]
     e1 = (pc1[..., :2] / z1[..., None] - ray1[..., :2]) * inv_sigma1
     e2 = (pc2[..., :2] / z2[..., None] - ray2[..., :2]) * inv_sigma2
     err1 = torch.sum(e1 * e1, dim=-1)

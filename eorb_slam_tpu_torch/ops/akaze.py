@@ -159,13 +159,23 @@ def _mldb_layout():
     return offs.astype(np.float32), cells, pairs, subset
 
 
+@functools.lru_cache(maxsize=None)
+def _mldb_tables(device: torch.device):
+    """``_mldb_layout`` on ``device``: offsets (S,2), per grid the cell of
+    each sample (S,) and the compared cell pairs (P,2), and the bit subset
+    (256,); copied there once (never written in place)."""
+    offs_np, cells, pairs, subset = _mldb_layout()
+    return (torch.from_numpy(offs_np).to(device),
+            [torch.from_numpy(c).long().to(device) for c in cells],
+            [torch.from_numpy(p).long().to(device) for p in pairs],
+            torch.from_numpy(subset).long().to(device))
+
+
 def mldb_describe(L: torch.Tensor, xy: torch.Tensor,
                   angle: torch.Tensor) -> torch.Tensor:
     """(N,8) int32 (uint32 bit pattern) MLDB-256 descriptors from one
     diffused level."""
-    offs_np, cells, pairs, subset = _mldb_layout()
-    dev = L.device
-    offs = torch.from_numpy(offs_np).to(dev)               # (S,2)
+    offs, cell_ids, pair_ids, subset = _mldb_tables(L.device)   # offs (S,2)
     ca, sa = torch.cos(angle), torch.sin(angle)            # (N,)
 
     rx = ca[:, None] * offs[None, :, 0] - sa[:, None] * offs[None, :, 1]
@@ -183,17 +193,26 @@ def mldb_describe(L: torch.Tensor, xy: torch.Tensor,
     chans = torch.stack([val, dx, dy], dim=1)              # (N,3,S)
 
     bits = []
-    for g, cell_id, pr in zip(_GRIDS, cells, pairs):
-        cid = torch.from_numpy(cell_id).long().to(dev)     # (S,)
+    for g, cid, pi in zip(_GRIDS, cell_ids, pair_ids):     # cid (S,), pi (P,2)
         one_hot = F.one_hot(cid, g * g).to(L.dtype)        # (S,C)
         counts = one_hot.sum(dim=0)                        # (C,)
         means = torch.einsum("nks,sc->nkc", chans, one_hot) / counts  # (N,3,C)
-        pi = torch.from_numpy(pr).long().to(dev)           # (P,2)
         cmp = means[..., pi[:, 0]] > means[..., pi[:, 1]]  # (N,3,P)
         bits.append(cmp.reshape(cmp.shape[0], -1))
     raw = torch.cat(bits, dim=1)                           # (N,486)
-    sel = raw[:, torch.from_numpy(subset).long().to(dev)]  # (N,256)
+    sel = raw[:, subset]                                   # (N,256)
     return orb.pack_bits(sel)
+
+
+@functools.lru_cache(maxsize=None)
+def _disk_window(radius: int, device: torch.device):
+    """The disk's x and y offsets and Gaussian weights on ``device``, copied
+    there once (never written in place)."""
+    ys, xs = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    keep = (xs**2 + ys**2) <= radius * radius
+    w_np = np.exp(-(xs**2 + ys**2) / (2.0 * (0.5 * radius) ** 2)) * keep
+    return (torch.from_numpy(xs[keep]).to(device), torch.from_numpy(ys[keep]).to(device),
+            torch.from_numpy(w_np[keep].astype(np.float32)).to(device))
 
 
 def gradient_orientation(L: torch.Tensor, xy: torch.Tensor,
@@ -202,13 +221,7 @@ def gradient_orientation(L: torch.Tensor, xy: torch.Tensor,
     gradient mean (AKAZE's main orientation, simplified from the
     sliding-wedge vote; the same first moment)."""
     gx_im, gy_im = _scharr(L)
-    ys, xs = np.mgrid[-radius:radius + 1, -radius:radius + 1]
-    keep = (xs**2 + ys**2) <= radius * radius
-    w_np = np.exp(-(xs**2 + ys**2) / (2.0 * (0.5 * radius) ** 2)) * keep
-    dev = L.device
-    ox = torch.from_numpy(xs[keep]).to(dev)
-    oy = torch.from_numpy(ys[keep]).to(dev)
-    wv = torch.from_numpy(w_np[keep].astype(np.float32)).to(dev)
+    ox, oy, wv = _disk_window(radius, L.device)
     h, w = L.shape
     xx = torch.clamp(xy[:, 0:1].to(torch.int64) + ox[None, :], 0, w - 1)
     yy = torch.clamp(xy[:, 1:2].to(torch.int64) + oy[None, :], 0, h - 1)

@@ -53,6 +53,8 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch._host import constant
+
 _LIB = "splat"
 # the ascent kernel's cluster (csrc/splat.cu: kAscentCluster, checked at
 # build) and what a block of it may hold
@@ -199,7 +201,7 @@ def _splat_se2_plain(xy, t, w, params, center, H, W, sigma, trunc):
     splat."""
     from eorb_slam_tpu_torch.event.tensorize import _splat_gauss_separable, warp_se2
 
-    xy_w = warp_se2(xy, t, params, xy.new_tensor(center))
+    xy_w = warp_se2(xy, t, params, constant(tuple(center), xy.dtype, xy.device))
     return _splat_gauss_separable(xy_w, w.to(xy.dtype), H, W, sigma, trunc)
 
 
@@ -208,7 +210,7 @@ def _splat_se2_vjp_plain(g, xy, t, w, params, center, H, W, sigma, trunc):
     chained to (3,) dL/d(omega, vx, vy)."""
     from eorb_slam_tpu_torch.event.tensorize import warp_se2
 
-    xy_w = warp_se2(xy, t, params, xy.new_tensor(center))
+    xy_w = warp_se2(xy, t, params, constant(tuple(center), xy.dtype, xy.device))
     g_w_xy, _ = _splat_vjp_plain(g, xy_w, w.to(xy.dtype), H, W, sigma, trunc)
     gx, gy = g_w_xy[:, 0], g_w_xy[:, 1]
     a = params[0] * t

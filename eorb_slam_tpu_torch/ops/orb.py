@@ -56,11 +56,24 @@ def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Te
     return img[yy, xx]
 
 
+@functools.lru_cache(maxsize=None)
+def _orientation_grids(device: torch.device):
+    """The (31,31) masked x and y grids on ``device``, copied there once
+    (never written in place)."""
+    _, mx, my = _orientation_mask()
+    return torch.from_numpy(mx).to(device), torch.from_numpy(my).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _brief_pattern_f32(device: torch.device) -> torch.Tensor:
+    """The (256,4) test pattern as float32 on ``device``, copied there once
+    (never written in place)."""
+    return torch.from_numpy(brief_pattern().astype(np.float32)).to(device)
+
+
 def orientations(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle (radians) per keypoint (N,)."""
-    _, mx, my = _orientation_mask()
-    mx = torch.from_numpy(mx).to(img.device)
-    my = torch.from_numpy(my).to(img.device)
+    mx, my = _orientation_grids(img.device)
     patches = gather_patches(img, xy, PATCH_R)          # (N,31,31)
     m10 = torch.sum(patches * mx, dim=(-2, -1))
     m01 = torch.sum(patches * my, dim=(-2, -1))
@@ -72,7 +85,7 @@ def describe(img_blur: torch.Tensor, xy: torch.Tensor,
     """Steered-BRIEF descriptors (N, 8) int32 (uint32 bit pattern) from a
     blurred image level; rotated pattern points are rounded half-to-even
     and read nearest-neighbour."""
-    pat = torch.from_numpy(brief_pattern().astype(np.float32)).to(img_blur.device)
+    pat = _brief_pattern_f32(img_blur.device)
     ca, sa = torch.cos(angle), torch.sin(angle)          # (N,)
 
     def rot(px, py):

@@ -55,8 +55,9 @@ def stereo_match(
     # reference picks it (torch.median takes the lower middle)
     d_sorted = torch.sort(torch.where(matched, dist, matching.BIG)).values
     n_m = matched.sum()
-    med = d_sorted[torch.clamp(torch.div(n_m, 2, rounding_mode="floor"),
-                               0, dist.shape[0] - 1)]
+    # a gather, not an index by a 0-dim tensor (which reads it on the host)
+    med = d_sorted.gather(0, torch.clamp(torch.div(n_m, 2, rounding_mode="floor"),
+                                         0, dist.shape[0] - 1).view(1))[0]
     matched = matched & (dist <= 1.5 * 1.4 * torch.clamp(med, min=1))
 
     idx_r = torch.where(matched, m_lr, 0).long()

@@ -280,7 +280,7 @@ def _lm_loop(p: BAProblem, iters: int, lam0: float, group=None) -> BAResult:
         return c
 
     kf_T, lm_pos = p.kf_T, p.lm_pos
-    lam = torch.tensor(lam0, dtype=dtype, device=kf_T.device)
+    lam = torch.full((), lam0, dtype=dtype, device=kf_T.device)
     cost0 = cost = total_cost(kf_T, lm_pos)
     for _ in range(iters):
         dx_c, dx_l = _build_and_solve(p, kf_T, lm_pos, lam, use_huber, group)

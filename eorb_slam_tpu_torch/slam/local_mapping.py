@@ -201,7 +201,7 @@ def fuse_duplicates(
     keep = dup & (d_eff <= best_l[l_c]) & (d_eff <= best_w[w_c])
     # targets carry one spare row M that takes every dropped update
     win_mask = torch.zeros(M + 1, dtype=torch.bool, device=dev)
-    win_mask[torch.where(keep, w_c, M)] = True
+    win_mask.index_fill_(0, torch.where(keep, w_c, M), True)
     keep = keep & ~win_mask[l_c]
 
     # move the loser's valid observations into the winner's free columns
@@ -226,7 +226,7 @@ def fuse_duplicates(
     # kill the losers: invalidate their rows, redirect every feature link
     dead = torch.where(keep, l_c, M)
     gone = torch.zeros(M + 1, dtype=torch.bool, device=dev)
-    gone[dead] = True
+    gone.index_fill_(0, dead, True)
     gone = gone[:M]
     obs_valid = obs_valid[:M] & ~gone[:, None]
     remap = ms.scatter_set_last(

@@ -117,9 +117,14 @@ def _flat_set_last(target: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     return scatter_set_last(target.reshape(-1), flat, values).view(target.shape)
 
 
-def _set_row(t: torch.Tensor, slot, value) -> torch.Tensor:
+def _set_row(t: torch.Tensor, slot: int, value) -> torch.Tensor:
     out = t.clone()
-    out[slot] = value
+    if isinstance(value, torch.Tensor):
+        out[slot] = value
+    else:
+        # a Python number is filled in on the device: assigned, it would be
+        # copied from the host with a synchronising copy
+        out.select(0, slot).fill_(value)
     return out
 
 
@@ -241,8 +246,7 @@ def alloc_landmarks(
         take, feat_a.to(i32), m.obs_feat[cand_slot, 0]))
     obs_feat = _flat_set_last(obs_feat, cand_slot, ones, torch.where(
         take, feat_b.to(i32), obs_feat[cand_slot, 1]))
-    fresh_row = torch.zeros(m.P, dtype=torch.bool, device=dev)
-    fresh_row[:2] = True
+    fresh_row = torch.arange(m.P, device=dev) < 2
     obs_valid = put(m.obs_valid, torch.where(tk, fresh_row[None, :],
                                              m.obs_valid[cand_slot]))
     m = m._replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_valid=obs_valid)
@@ -301,5 +305,7 @@ def median_scene_depth(lm_pos: torch.Tensor, lm_valid: torch.Tensor,
     ok = lm_valid & (z > 1e-3)
     n = ok.sum()
     zs = torch.sort(torch.where(ok, z, torch.inf)).values
-    med = zs[torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0, z.shape[0] - 1)]
+    # a gather, not an index by a 0-dim tensor (which reads it on the host)
+    med = zs.gather(0, torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0,
+                                   z.shape[0] - 1).view(1))[0]
     return torch.where(n >= 8, med, 1.0)

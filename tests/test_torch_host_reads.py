@@ -1,0 +1,258 @@
+"""The port's frame path reads nothing back from its device and copies no
+host constant to it.
+
+On the card two kinds of call drain the stream: a read of a device value
+(``int``/``bool``/``float``/``.item()`` of a tensor: ``_local_scalar_dense``,
+and ops whose output shape depends on the data: ``nonzero``, a boolean-mask
+index, ``masked_select``, ``unique``), and a copy of host data to the device
+made by ``torch.tensor``/``as_tensor``/``from_numpy`` (``lift_fresh``; torch
+copies pageable memory to the card with a synchronising memcpy unless
+``non_blocking=True``). On the CPU the same calls reach the dispatcher, so a
+``TorchDispatchMode`` counts them here, each under the ``file:line`` of the
+port that made it. Every check warms up once first, so that constants cached
+per device are built.
+
+Cases: the pose-only GN, ``track_image_frame``, ``MonoSlam.process_image``
+on tracked frames that insert no keyframe (synchronous and speculative),
+``EventWindowBuilder.step_window`` (host data staged only by the named
+helpers), and one keyframe insertion (a stated small count). No JAX here.
+"""
+
+from __future__ import annotations
+
+import collections
+import copy
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.geometry import lie
+from eorb_slam_tpu_torch.io import synth_dataset as tsd
+from eorb_slam_tpu_torch.optim import pose_only
+from eorb_slam_tpu_torch.slam import system as tsys
+from eorb_slam_tpu_torch.slam import tracking
+
+PKG = os.path.dirname(os.path.abspath(tsys.__file__)).rsplit(os.sep, 1)[0]
+aten = torch.ops.aten
+# a device value read on the host
+READS = {aten._local_scalar_dense.default}
+# ops whose output shape depends on the data (the host waits for it)
+SHAPED = {aten.nonzero.default, aten.masked_select.default,
+          aten._unique2.default, aten.unique_consecutive.default,
+          aten.unique_dim.default}
+# host data made into a tensor (a host-to-device copy on the card)
+LIFTS = {aten.lift_fresh.default}
+
+W, H, FX, FPS = 240, 180, 146.25, 20.0
+KW = dict(img_w=W, img_h=H, K=8, M=1024, N=256, max_frames_between_kf=3)
+N_FRAMES = 8
+
+
+def _site() -> str:
+    """``file:line function`` of the innermost frame inside the port's
+    package."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.startswith(PKG + os.sep):
+            return (f"{os.path.relpath(f.f_code.co_filename, PKG)}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "outside the package"
+
+
+def _where(sites) -> set:
+    """The ``file function`` of each ``file:line function`` site."""
+    return {f"{s.split(':')[0]} {s.split()[1]}" for s in sites}
+
+
+class HostReads(TorchDispatchMode):
+    """Counts, while active, the port's host reads and host-data lifts by
+    site: ``reads`` and ``lifts`` are ``Counter({"file:line": n})``."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = collections.Counter()
+        self.lifts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in READS or func in SHAPED or (
+                func is aten.index.Tensor and any(
+                    i is not None and i.dtype == torch.bool for i in args[1])):
+            self.reads[_site()] += 1
+        elif func in LIFTS:
+            self.lifts[_site()] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cam():
+    return np.asarray([FX, FX, W / 2.0, H / 2.0, 0, 0, 0, 0, 0], np.float32)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """The corridor at 240x180 through the port's box renderer, uint8."""
+    render = tsd.make_box_renderer("corridor", W, H, FX, device="cpu")
+    pose = tsd.make_trajectory("corridor", 10.0)
+    return [(i / FPS, (render(np.asarray(pose(i / FPS), np.float32)) * 255.0)
+             .to(torch.uint8)) for i in range(N_FRAMES)]
+
+
+def _tracking_slam(frames, pipelined):
+    """A MonoSlam past its initialisation, and the next frame's index."""
+    slam = tsys.MonoSlam(_cam(), pipelined=pipelined, device="cpu", **KW)
+    for i, (ts, img) in enumerate(frames):
+        slam.process_image(img, ts)
+        if slam.state == tsys.OK:
+            return slam, i + 1
+    pytest.fail("the corridor did not initialise")
+
+
+def test_pose_optimization_reads_nothing():
+    rng = np.random.default_rng(0)
+    n = 128
+    pts = np.c_[rng.uniform(-2, 2, (n, 2)), rng.uniform(3, 8, n)].astype(np.float32)
+    cam = torch.from_numpy(_cam())
+    T0 = torch.eye(4)
+    uv = (FX * pts[:, :2] / pts[:, 2:] + [W / 2.0, H / 2.0]).astype(np.float32)
+    args = (cam, T0, torch.from_numpy(pts), torch.from_numpy(uv), torch.ones(n),
+            torch.from_numpy(rng.random(n) < 0.9))
+    pose_only.pose_optimization(*args)
+    with HostReads() as hr:
+        Tcw, inl, n_inl = pose_only.pose_optimization(*args)
+    assert not hr.reads and not hr.lifts, (hr.reads, hr.lifts)
+    assert torch.isfinite(Tcw).all() and int(n_inl) > 0
+
+
+def test_se3_copies_its_bottom_row_once():
+    """``lie.se3`` lifts no constant once its cached row exists, and keeps
+    its values."""
+    R = lie.so3_exp(torch.tensor([[0.1, -0.2, 0.3], [0.0, 0.0, 0.0]]))
+    t = torch.tensor([[1.0, 2.0, 3.0], [0.0, 0.0, 0.0]])
+    lie.se3(R, t)
+    with HostReads() as hr:
+        T = lie.se3(R, t)
+    assert not hr.lifts and not hr.reads
+    assert T.shape == (2, 4, 4)
+    assert torch.equal(T[:, 3], torch.tensor([[0.0, 0.0, 0.0, 1.0]] * 2))
+    assert torch.equal(T[:, :3, :3], R) and torch.equal(T[:, :3, 3], t)
+
+
+def test_track_image_frame_reads_nothing(frames):
+    slam, i = _tracking_slam(frames, pipelined=False)
+    ts, img = frames[i]
+    args = (img, slam.cam, slam.map, slam.velocity, slam.T_last,
+            slam.map.kf_T[slam._kf_ref()])
+    kw = dict(max_kp=slam.map.N, img_w=W, img_h=H)
+    tracking.track_image_frame(*args, **kw)
+    with HostReads() as hr:
+        res = tracking.track_image_frame(*args, **kw)
+    assert not hr.reads and not hr.lifts, (hr.reads, hr.lifts)
+    assert int(res[3][0]) >= slam.min_track_inliers
+
+
+@pytest.fixture(scope="module")
+def runs(frames):
+    """Both modes over the frames after the initialisation: each step's
+    result and its HostReads."""
+    out = {}
+    slam0, i = _tracking_slam(frames, pipelined=False)
+    for pipelined in (False, True):
+        slam = copy.deepcopy(slam0)
+        slam.pipelined = pipelined
+        steps = []
+        for ts, img in frames[i:]:
+            kf0 = slam.stats["kf"]
+            with HostReads() as hr:
+                res = slam.process_image(img, ts)
+            steps.append((res, slam.stats["kf"] != kf0, hr))
+        out[pipelined] = steps
+    return out
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "speculative"])
+def test_process_image_tracked_frames_read_only_the_flags(runs, pipelined):
+    """A tracked frame that inserts no keyframe: nothing but its (2,)
+    flags read (synchronous: the frame's own, here a CPU tensor that needs
+    no read op; speculative: the previous frame's HostCopy)."""
+    seen = 0
+    for res, new_kf, hr in runs[pipelined]:
+        if res.get("kf") or new_kf or res["state"] != tsys.OK:
+            continue
+        seen += 1
+        assert not hr.reads and not hr.lifts, (res, hr.reads, hr.lifts)
+    assert seen >= 3
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "speculative"])
+def test_keyframe_insertion_reads_a_few(runs, pipelined):
+    """A frame that inserts a keyframe (the mapping step, the culling pass,
+    the BA window; the initialisation warmed the caches up): reads only at
+    KF_READS, and host data lifted only for the BA window's mask."""
+    kf_steps = [hr for res, _, hr in runs[pipelined] if res.get("kf")]
+    assert kf_steps
+    for hr in kf_steps:
+        assert _where(hr.reads) <= KF_READS and sum(hr.reads.values()) <= 16, hr.reads
+        assert _where(hr.lifts) <= KF_LIFTS, hr.lifts
+
+
+# F.one_hot checks its classes' range with two reads on the CPU only (on
+# the card a device assert does it), once per LM iteration of the local BA
+KF_READS = {"optim/schur_ba.py _schur_pieces"}
+# the BA window's (K,) mask: host data, staged without blocking
+KF_LIFTS = {"slam/system.py _ba_window"}
+
+
+def _stream(seconds=0.04, rate=600_000, seed=5):
+    """DAVIS240-sized events of a point cloud seen by a moving camera."""
+    rng = np.random.default_rng(seed)
+    F, Wd, Hd = 199.0, 240, 180
+    pts = np.stack([rng.uniform(-2.2, 2.2, 300), rng.uniform(-1.6, 1.6, 300),
+                    rng.uniform(2.5, 6.0, 300)], 1)
+    n = int(seconds * rate)
+    ts = np.sort(rng.uniform(0, seconds, n))
+    p = pts[rng.integers(0, len(pts), n)]
+    pos = np.stack([4.0 * ts, 0.3 * np.sin(20 * ts), 0.8 * ts], 1)
+    q = p - pos
+    ev = np.stack([ts, F * q[:, 0] / q[:, 2] + Wd / 2.0, F * q[:, 1] / q[:, 2] + Hd / 2.0,
+                   rng.choice([-1.0, 1.0], n)], 1)
+    inb = (ev[:, 1] >= 0) & (ev[:, 1] < Wd) & (ev[:, 2] >= 0) & (ev[:, 2] < Hd)
+    return ev[inb]
+
+
+# the host data a window really brings, staged by these two helpers
+STAGING = {"event/builder.py _to_dev", "_host.py to_device"}
+
+
+def test_step_window_reads_nothing():
+    cfg = tb.BuilderConfig(img_w=240, img_h=180, l1_chunk_size=1000, l1_num_loop=4,
+                           max_pixel_disp=3.0, min_ev_gen_rate=0.5, cm_iters=3)
+    cam = np.asarray([199.0, 199.0, 120.0, 90.0, 0, 0, 0, 0, 0], np.float32)
+    bld = tb.EventWindowBuilder(cfg, cam, device="cpu")
+    bld.feed(_stream())
+    assert bld.step_window() is not None
+    # the L2 pose prior as EventSlam posts it: device tensors
+    T = lie.se3_exp(torch.tensor([0.01, 0.0, 0.02, 0.0, 0.01, 0.0]))
+    bld.set_pose_prior(torch.eye(4), T, torch.tensor(4.0))
+    n = 0
+    while True:
+        with HostReads() as hr:
+            pi = bld.step_window()
+        if pi is None:
+            break
+        n += 1
+        assert not hr.reads, hr.reads
+        assert _where(hr.lifts) <= STAGING, hr.lifts
+    assert n >= 1
