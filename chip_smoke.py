@@ -48,14 +48,19 @@ into a ROS bag, read back and run through run_slam.main EVENT_ONLY; and the
 scale-out: two gloo ranks sharing the card and one NCCL rank, each a
 process of its own (``python3 chip_smoke.py --dist-worker ...``), through
 the event-sharded splat (the forward kernel once per rank per call) and the
-float64 landmark-sharded BA.
+float64 landmark-sharded BA. Beside the splat kernels it builds the
+status-free eigensolver (csrc/sym_eig.cu, one nvcc of its own, started
+with the others) and holds it against torch.linalg.eigh on the card at
+every call site's (n, batch), float32 and float64 (check_kernel_sym_eig),
+and counts its launches per path and per step.
 
     python3 chip_smoke.py
 
 Every phase raises on failure and the script then exits non-zero; the
-read gates: a tracked frame or MCI that inserts no keyframe reads at most
-its flags, a keyframe at most READS_KF_MAX, an L1 window at most its
-metadata, and no other phase reads more per step than READS_BEFORE. Output:
+read gates: a tracked frame or MCI reads at most its flags, with or
+without a keyframe (READS_TRACK_MAX, READS_KF_MAX; an inertial keyframe
+READS_INERTIAL_KF), an L1 window at most its metadata, and no other phase
+reads more per step than READS_BEFORE. Output:
 the card's name and power limit, the build times, the kernel-vs-plain
 comparisons and times (by CUDA events around eager calls, and device only:
 a CUDA-graph replay and the profiler's time by kernel name), the ascent's
@@ -172,10 +177,26 @@ LOOP_ROOM_S, LOOP_TURNS = 10.0, 2.0
 PIPE_W, PIPE_H, PIPE_FX, PIPE_FRAMES, PIPE_BLANK = 320, 240, 195.0, 40, 24
 PIPE_KW = dict(img_w=PIPE_W, img_h=PIPE_H, K=8, M=1024, N=256, max_frames_between_kf=4)
 PIPE_PROFILED = 2          # its last frames, under the profiler
-# blocking host reads (_Syncs): a tracked frame or MCI that inserts no
-# keyframe reads at most its (2,) flags, one that inserts a keyframe at
-# most READS_KF_MAX; an L1 window at most its metadata's HostCopy
-READS_TRACK_MAX, READS_KF_MAX, READS_L1_MAX = 1, 10, 1
+# blocking host reads (_Syncs): a tracked frame or MCI reads at most its
+# (2,) flags, whether or not it inserts a keyframe (the keyframe's
+# triangulations and the inertial frame's prior decompose through the
+# sym_eig kernel, which reads nothing back); an L1 window at most its
+# metadata's HostCopy
+READS_TRACK_MAX, READS_KF_MAX, READS_L1_MAX = 1, 1, 1
+# the app phases' limits per step of each kind: the flags on a tracked
+# frame, keyframe or not. An inertial keyframe frame reads besides where the
+# reference reads too: the keyframe times for the IMU init's time span
+# (vi_system.py:541; eorb_slam_tpu/slam/vi_system.py:620) and an inertial
+# solve's cost, scale and gravity (vi_system.py:534, the init before it and
+# the scale refinement after it; eorb_slam_tpu/slam/vi_system.py:633, :722)
+READS_INERTIAL_KF = {"IMU_MONOCULAR": {"KF": 3, "KF VI": 3},
+                     "IMU_STEREO": {"KF": 3, "KF VI": 3}}
+READS_APP_MAX = {
+    **{tag: {"track": READS_TRACK_MAX, "KF": READS_KF_MAX}
+       for tag in ("MONOCULAR", "MONOCULAR mixed", "STEREO", "RGBD")},
+    **{tag: {"track": READS_TRACK_MAX, "track VI": READS_TRACK_MAX, **kf}
+       for tag, kf in READS_INERTIAL_KF.items()},
+}
 # every other phase's blocking reads per step of each kind (_frame_kind;
 # " VI" once the IMU is initialised; per window for the continuous
 # tracker) measured on the code before the frame path stopped copying host
@@ -257,6 +278,20 @@ def _counts():
     from eorb_slam_tpu_torch.ops import hopper_splat as hs
 
     return hs.splat.launches, hs.splat.vjp_launches, hs.splat.ascent_launches
+
+
+def _reset_eig():
+    """Set the sym_eig wrapper's launch counts (by n) to 0."""
+    from eorb_slam_tpu_torch.ops import hopper_linalg as hl
+
+    hl.sym_eig.by_n = {}
+
+
+def _eig_counts() -> dict:
+    """sym_eig kernel launches by matrix size n since the last _reset_eig."""
+    from eorb_slam_tpu_torch.ops import hopper_linalg as hl
+
+    return dict(sorted(hl.sym_eig.by_n.items()))
 
 
 def _window_launches(l1_num_loop):
@@ -1562,6 +1597,7 @@ def run_app_monocular(work: str):
          f"(per frame: {[c for c, _ in per_frame]})")
     reads.log("run_slam MONOCULAR", "frame")
     reads.not_above("MONOCULAR", "frame")
+    reads.at_most("MONOCULAR", READS_APP_MAX["MONOCULAR"])
     _log(f"run_slam MONOCULAR accuracy: ATE rmse {ev.get('ate_rmse')} over "
          f"{ev.get('ate_n')} poses (Sim3-aligned), path {path_len:.4f} m -> "
          f"{100 * ev.get('ate_rmse', np.inf) / max(path_len, 1e-12):.3f}% of the path; "
@@ -1604,13 +1640,17 @@ class _Syncs:
     counts where its copy had not landed yet. Each read is kept under the
     ``file:line`` that made it (a HostCopy wait under its reader's line,
     tagged ``HostCopy``). ``mark()`` closes one step: ``steps`` holds the
-    reads of each step, ``sites`` their tally by site."""
+    reads of each step, ``sites`` their tally by site, ``eig`` the sym_eig
+    kernel launches of each step."""
 
     def __enter__(self):
         from eorb_slam_tpu_torch import _host
+        from eorb_slam_tpu_torch.ops import hopper_linalg as hl
 
-        self.steps, self.sites = [], []
+        self.steps, self.sites, self.eig = [], [], []
         self._cur = {}
+        self._hl = hl
+        self._eig0 = sum(hl.sym_eig.by_n.values())
         self._cm = warnings.catch_warnings()
         self._cm.__enter__()
         warnings.simplefilter("always")
@@ -1648,6 +1688,9 @@ class _Syncs:
         self.steps.append(sum(self._cur.values()))
         self.sites.append(self._cur)
         self._cur = {}
+        now = sum(self._hl.sym_eig.by_n.values())
+        self.eig.append(now - self._eig0)
+        self._eig0 = now
 
     def top(self, idx=None, k=8) -> str:
         """The ``k`` commonest sites of the steps ``idx`` (all by default),
@@ -1706,6 +1749,10 @@ class _Reads:
             v = self.of(kind)
             _log(f"{tag} blocking reads per {kind} {unit}: {self.mean(kind):.2f} over "
                  f"{len(v)} (each: {v}); sites per {unit}: {self.sy.top(self.at(kind))}")
+            e = [self.sy.eig[i] for i in self.at(kind)]
+            if any(e):
+                _log(f"{tag} sym_eig launches per {kind} {unit}: {np.mean(e):.2f} "
+                     f"(each: {e})")
 
     def at_most(self, tag, limits):
         """Raise unless every step of each kind in ``limits`` reads at most
@@ -2118,6 +2165,7 @@ def run_app_imu_monocular(work: str):
          f"{slam.scale_applied:.4f}; {len(slam.pending_world_transforms)} world transforms")
     app_reads.log("run_slam IMU_MONOCULAR (the app run)", "frame")
     app_reads.not_above("IMU_MONOCULAR", "frame")
+    app_reads.at_most("IMU_MONOCULAR", READS_APP_MAX["IMU_MONOCULAR"])
     _log(f"run_slam IMU_MONOCULAR per frame after the init: {np.mean(reads):.1f} blocking "
          f"reads (each frame: {reads}); under torch.profiler "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
@@ -2685,6 +2733,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
          f"{launches[0]} forward + {launches[1]} VJP + {launches[2]} ascent")
     app_reads.log(f"run_slam {tag} (the app run)", "frame")
     app_reads.not_above(tag, "frame")
+    if tag in READS_APP_MAX:
+        app_reads.at_most(tag, READS_APP_MAX[tag])
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
          f"launches and {r['device_ms']:.2f} ms of device time (each: "
@@ -2883,6 +2933,177 @@ def check_kernel_chunk():
     xy = torch.tensor(pad[:, 1:3], device="cuda").contiguous()
     w = torch.tensor(valid, device="cuda").to(torch.float32)
     return _identity_row("_chunk_image's shape", xy, w, SIGMA)
+
+
+# the status-free eigensolver (ops/hopper_linalg.sym_eig, csrc/sym_eig.cu)
+# at its call sites' (n, batch): the triangulations' 4x4 AtA over a
+# frame's features and the two-view hypotheses, the 8-point fits' 9x9,
+# relocalization's 12x12, the marginalized prior's 15x15 (batch 1) and a
+# small batch of those; each in float32 and float64
+EIG_SHAPES = ((4, 512), (4, 4096), (9, 256), (12, 64), (15, 1), (15, 8))
+EIG_ROW_BATCH = {4: 512, 9: 256, 12: 64, 15: 1}   # the kernels line's row per n
+EIG_CASES = ("spd", "rank n-1", "1e2 I", "indefinite", "1e8 spread")
+# held against the plain version (torch.linalg.eigh) on the card: the
+# eigenvalues to EIG_TOL x max|w|, ||V diag(w) V^T - A|| to EIG_TOL x ||A||,
+# ||V^T V - I|| to EIG_TOL, and every eigenvector whose gap to the others
+# is at least EIG_GAP x ||A|| to |<v, v_ref>| >= 1 - EIG_VEC; float64 at
+# EIG_TOL_F64 throughout (Frobenius norms)
+EIG_TOL, EIG_TOL_F64, EIG_GAP, EIG_VEC = 1e-5, 1e-12, 1e-3, 1e-4
+F64_FLOPS = 34e12          # float64 outside the tensor cores, H100 SXM, published
+# what the kernel replaces: the status-checked torch calls, standing for the
+# reference's decompositions
+EIG_REPLACES = ("eorb_slam_tpu_torch/optim/linalg.py:53 torch.linalg.eigh and :60 "
+                "torch.linalg.svd (status read on the host), for jnp.linalg.eigh "
+                "(eorb_slam_tpu/geometry/triangulation.py:42, "
+                "eorb_slam_tpu/optim/marginalize.py:96) and jnp.linalg.svd "
+                "(eorb_slam_tpu/optim/marginalize.py:36)")
+# the paths that must have run the kernel, and at which n: the keyframes'
+# triangulations (4), the two-view init's 8-point fits (9), the inertial
+# frame's prior (15)
+EIG_PATHS_NEED = {"EventSlam": (4,), "MONOCULAR": (4, 9), "IMU_MONOCULAR": (4, 15)}
+# the operations an eigendecomposition with vectors needs: ~EIG_OPS n^3
+# (Householder tridiagonalization and implicit QR), or, for a member that is
+# nearly diagonal already, the Jacobi rotations it took at EIG_ROT_OPS n
+# each (two rows and two columns of S and two of V, 4 operations an entry),
+# whichever is less; over the card's rate for the operands' type
+EIG_OPS = 9
+EIG_ROT_OPS = 16
+
+
+def _eig_matrices(n, batch, dtype, seed):
+    """``batch`` exactly symmetric n x n matrices on the card, member i of
+    case EIG_CASES[i % 5], and the same with the last member NaN where
+    batch > 5 (else None). Returns (finite, with a NaN member)."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((batch, n, n))
+    for i in range(batch):
+        case = EIG_CASES[i % len(EIG_CASES)]
+        if case == "spd":
+            X = rng.normal(size=(n + 3, n))
+            M = X.T @ X
+        elif case == "rank n-1":             # a consistent DLT's AtA
+            M = (lambda X: X.T @ X)(rng.normal(size=(n - 1, n)) * rng.uniform(0.5, 50.0))
+        elif case == "1e2 I":                # identity_prior's information
+            M = 1e2 * np.eye(n)
+        elif case == "indefinite":           # Sim3's N
+            X = rng.normal(size=(n, n))
+            M = X + X.T
+        else:                                # px^2 beside m^2 information
+            Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+            M = (Q * np.logspace(0.0, 8.0, n)) @ Q.T
+        out[i] = 0.5 * (M + M.T)
+    A = torch.tensor(out, dtype=dtype, device="cuda")
+    if batch <= len(EIG_CASES):
+        return A, None
+    A_nan = A.clone()
+    A_nan[-1, 0, 1] = float("nan")
+    return A, A_nan
+
+
+def _eig_held(A, w, V, w_ref, tol, what):
+    """The worst of each measure over the members (float64 on the card):
+    eigenvalues against ``w_ref`` relative to max|w_ref|, the
+    reconstruction relative to ||A||, V^T V - I, and 1 - |cos| of the
+    eigenvectors with a gap >= EIG_GAP ||A|| against ``V_ref``'s."""
+    A, w, V = A.double(), w.double(), V.double()
+    n = A.shape[-1]
+    wr, Vr = w_ref
+    wr, Vr = wr.double(), Vr.double()
+    nA = torch.linalg.matrix_norm(A)
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    e_w = ((w - wr).abs().amax(-1) / wr.abs().amax(-1)).max()
+    e_rec = (torch.linalg.matrix_norm(V @ torch.diag_embed(w) @ V.mT - A) / nA).max()
+    e_orth = torch.linalg.matrix_norm(V.mT @ V - eye).max()
+    dw = torch.where(eye > 0, torch.inf, (wr[..., :, None] - wr[..., None, :]).abs())
+    sel = dw.amin(-1) >= EIG_GAP * nA[:, None]
+    e_vec = torch.where(sel, 1.0 - (V * Vr).sum(-2).abs(), 0.0).max()
+    abs_w = (w - wr).abs().max()
+    out = dict(w=float(e_w), rec=float(e_rec), orth=float(e_orth), vec=float(e_vec),
+               abs_w=float(abs_w), checked=int(sel.sum()))
+    vec_tol = EIG_VEC if tol == EIG_TOL else tol
+    if not (out["w"] <= tol and out["rec"] <= tol and out["orth"] <= tol
+            and out["vec"] <= vec_tol):
+        raise RuntimeError(f"sym_eig {what}: {out} against tol {tol} (vectors {vec_tol})")
+    return out
+
+
+def check_kernel_sym_eig():
+    """The eigensolver kernel at every (n, batch) of EIG_SHAPES, float32 and
+    float64, on every EIG_CASES matrix and one NaN member, against
+    torch.linalg.eigh on the card (the plain version); the same bits twice;
+    its times (graph replay, events), the plain version's and
+    torch.linalg.eigh's alone (library_ms), and its bound from the
+    operations these inputs need. Returns one row per (n, batch, dtype)."""
+    from eorb_slam_tpu_torch.ops import hopper_linalg as hl
+    from eorb_slam_tpu_torch.optim import linalg
+
+    rows = []
+    for n, batch in EIG_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            tol = EIG_TOL if dtype == torch.float32 else EIG_TOL_F64
+            what = f"n={n} x {batch} {str(dtype)[6:]}"
+            # batch 1: each case alone, and a NaN matrix alone
+            if batch == 1:
+                A5, _ = _eig_matrices(n, len(EIG_CASES), dtype, seed=100 * n + batch)
+                sets = [A5[k:k + 1] for k in range(len(EIG_CASES))]
+                worst = [_eig_held(A, *hl.sym_eig(A), linalg._eigh_plain(A), tol, what)
+                         for A in sets]
+                A = sets[0]
+                nan_A = torch.full_like(A, float("nan"))
+                wn, Vn = hl.sym_eig(nan_A)
+                nan_ok = bool(torch.isnan(wn).all() and torch.isnan(Vn).all())
+                A_timed = A
+            else:
+                A, A_nan = _eig_matrices(n, batch, dtype, seed=100 * n + batch)
+                w, V = hl.sym_eig(A_nan)
+                fin = torch.isfinite(w).all(-1) & torch.isfinite(V).flatten(1).all(-1)
+                nan_ok = bool(torch.isnan(w[-1]).all() and torch.isnan(V[-1]).all()
+                              and fin[:-1].all())
+                worst = [_eig_held(A[:-1], w[:-1], V[:-1],
+                                   tuple(x[:-1] for x in linalg._eigh_plain(A_nan)), tol,
+                                   what)]
+                A_timed = A_nan
+            if not nan_ok:
+                raise RuntimeError(f"sym_eig {what}: NaN not exactly in the NaN member")
+            w1, V1 = hl.sym_eig(A_timed)
+            w2, V2 = hl.sym_eig(A_timed)
+            torch.cuda.synchronize()
+            as_int = torch.int32 if dtype == torch.float32 else torch.int64
+            if not (torch.equal(w1.view(as_int), w2.view(as_int))
+                    and torch.equal(V1.view(as_int), V2.view(as_int))):
+                raise RuntimeError(f"sym_eig {what}: two calls differ")
+            rot = torch.zeros(A_timed.shape[0], dtype=torch.int32, device="cuda")
+            hl._sym_eig_cuda(A_timed.contiguous(), rot)
+            n_rot = int(rot.sum())
+            size = A_timed.element_size()
+            nbytes = A_timed.shape[0] * (2 * n * n + n) * size
+            by_bytes = nbytes / HBM_BYTES_PER_S
+            # what the function needs on these operands, at their type's rate
+            ops = float(torch.clamp(rot.double() * (EIG_ROT_OPS * n),
+                                    max=EIG_OPS * n ** 3).sum())
+            by_ops = ops / (F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
+            A_lib = torch.nan_to_num(A_timed, nan=0.0)
+            row = dict(n=n, batch=batch, dtype=str(dtype)[6:],
+                       err=max(x["abs_w"] for x in worst),
+                       **{k: max(x[k] for x in worst) for k in ("w", "rec", "orth", "vec")},
+                       checked=sum(x["checked"] for x in worst),
+                       rotations=n_rot / A_timed.shape[0],
+                       ms=_time_ms(lambda: hl.sym_eig(A_timed)),
+                       dev_ms=_device_ms(lambda: hl.sym_eig(A_timed)),
+                       plain_ms=_time_ms(lambda: linalg._eigh_plain(A_timed)),
+                       library_ms=_time_ms(lambda: torch.linalg.eigh(A_lib)),
+                       bound=(1e3 * max(by_bytes, by_ops),
+                              "bytes" if by_bytes >= by_ops else "operations"))
+            _log(f"sym_eig {what}: eigenvalues {row['w']:.2e} of max|w| (max abs "
+                 f"{row['err']:.3e}), reconstruction {row['rec']:.2e} of ||A||, "
+                 f"orthogonality {row['orth']:.2e}, eigenvectors (gap >= {EIG_GAP} ||A||, "
+                 f"{row['checked']} checked) 1 - |cos| <= {row['vec']:.2e} (tol {tol}); NaN "
+                 f"member exact, same bits twice; {row['rotations']:.1f} rotations per "
+                 f"matrix | ms by events / device only / plain / torch.linalg.eigh / bound: "
+                 f"{row['ms']:.4f} / {row['dev_ms']:.5f} / {row['plain_ms']:.4f} / "
+                 f"{row['library_ms']:.4f} / {row['bound'][0]:.6f} ({row['bound'][1]})")
+            rows.append(row)
+    return rows
 
 
 class _EvWorld:
@@ -3654,6 +3875,7 @@ def run_app_mixed(work: str, mono: dict):
          f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame")
     reads.log("run_slam MONOCULAR mixed", "frame")
     reads.not_above("MONOCULAR mixed", "frame")
+    reads.at_most("MONOCULAR mixed", READS_APP_MAX["MONOCULAR mixed"])
     if type(slam) is not system.MixedMonoSlam or slam.pipelined:
         raise RuntimeError(f"Features.mode 2 built {type(slam).__name__}")
     if slam.device.type != "cuda" or (slam.img_w, slam.img_h, slam.map.N) != (752, 480, 512):
@@ -3952,32 +4174,40 @@ def main() -> int:
     import eorb_slam_tpu_torch  # noqa: F401  (sets TF32 off)
     from eorb_slam_tpu_torch import _build
     from eorb_slam_tpu_torch.io import native
-    from eorb_slam_tpu_torch.ops import hopper_splat
+    from eorb_slam_tpu_torch.ops import hopper_linalg, hopper_splat
 
     gpu = _gpu_line()
     _log(f"gpu: {gpu}")
     _log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}")
 
-    # both builds at once: g++ on the native I/O library, nvcc on the kernels
+    # every build at once: g++ on the native I/O library, one nvcc per
+    # kernel source
     t0 = time.perf_counter()
-    gxx = threading.Thread(target=native.get_lib)
-    gxx.start()
+    builds = [threading.Thread(target=f) for f in (native.get_lib, hopper_linalg.build)]
+    for b in builds:
+        b.start()
     hopper_splat.build()
     t_nvcc = time.perf_counter() - t0
-    gxx.join()
-    info = _build.BUILD_INFO["splat"]
-    _log(f"build: splat kernels in {t_nvcc:.2f} s (nvcc {info['seconds']:.2f} s) "
-         f"-> {info['path']}; with the native I/O library (g++) "
-         f"{time.perf_counter() - t0:.2f} s in all")
-    if info["log"].strip():
-        _log(info["log"].strip())
+    for b in builds:
+        b.join()
+    hopper_linalg.build()         # raises here if its build failed
+    for name in ("splat", "sym_eig"):
+        info = _build.BUILD_INFO[name]
+        _log(f"build: {name} kernels (nvcc {info['seconds']:.2f} s) -> {info['path']}")
+        if info["log"].strip():
+            _log(info["log"].strip())
+    _log(f"build: splat kernels in {t_nvcc:.2f} s; with the sym_eig kernel and the "
+         f"native I/O library (g++) {time.perf_counter() - t0:.2f} s in all")
     lib = native.get_lib()
     if lib is None:
         raise RuntimeError(f"the native I/O library did not build: {native.BUILD_ERROR}")
     _log(f"build: native I/O library -> {lib._name}")
 
     phase_s = {}
+    # sym_eig launches by n of each phase that drives a path through its
+    # entry points: the counts set to 0 just before it, read just after
+    eig_paths = {}
 
     def timed(name, fn, *a):
         t = time.perf_counter()
@@ -3985,16 +4215,23 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t, 1)
         return out
 
+    def path(name, fn, *a):
+        _reset_eig()
+        out = fn(*a)
+        eig_paths[name] = _eig_counts()
+        return out
+
     rows = check_kernel()
     gen_rows = check_kernel_generator()
     chunk_row = check_kernel_chunk()
+    eig_rows = timed("check_kernel_sym_eig", check_kernel_sym_eig)
     asc_rows = timed("check_kernel_ascent", check_kernel_ascent)
     asc_times = time_ascent()
     check_slice_small()
     run_slice()
     check_l2_small()
-    res = run_event_slam()
-    check_pipelined_small()
+    res = path("EventSlam", run_event_slam)
+    path("pipelined MonoSlam", check_pipelined_small)
     check_vi_small()
     check_depth_small()
     check_loop_small()
@@ -4004,25 +4241,32 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         gen = run_generate(work)
-        app = run_app_event_only(work, gen["root"])
-        app_ei = run_app_event_imu(work, gen["root"])
-        app_em = timed("run_app_event_mono", run_app_event_mono, work, gen["root"])
-        app_eim = timed("run_app_event_imu_mono", run_app_event_imu_mono, work, gen["root"])
-        app_cont = timed("run_app_event_continuous", run_app_event_continuous, work,
-                         gen["root"])
-        mono = run_app_monocular(work)
-        timed("run_app_mixed", run_app_mixed, work, mono)
-        timed("check_checkpoint", check_checkpoint, work)
-        bag_res = timed("check_rosbag", check_rosbag, work, gen["root"])
+        app = path("EVENT_ONLY", run_app_event_only, work, gen["root"])
+        app_ei = path("EVENT_IMU", run_app_event_imu, work, gen["root"])
+        app_em = timed("run_app_event_mono", path, "EVENT_MONO", run_app_event_mono, work,
+                       gen["root"])
+        app_eim = timed("run_app_event_imu_mono", path, "EVENT_IMU_MONO",
+                        run_app_event_imu_mono, work, gen["root"])
+        app_cont = timed("run_app_event_continuous", path, "EVENT_ONLY continuous",
+                         run_app_event_continuous, work, gen["root"])
+        mono = path("MONOCULAR", run_app_monocular, work)
+        timed("run_app_mixed", path, "MONOCULAR mixed", run_app_mixed, work, mono)
+        timed("check_checkpoint", path, "checkpoint", check_checkpoint, work)
+        bag_res = timed("check_rosbag", path, "rosbag", check_rosbag, work, gen["root"])
         dist_res = timed("check_dist", check_dist, work)
-        run_app_imu_monocular(work)
+        path("IMU_MONOCULAR", run_app_imu_monocular, work)
         depth_root = run_generate_depth(work)
-        run_app_stereo(work, depth_root)
-        run_app_rgbd(work, depth_root)
-        run_app_imu_stereo(work, depth_root)
-        run_app_loop(work)
+        path("STEREO", run_app_stereo, work, depth_root)
+        path("RGBD", run_app_rgbd, work, depth_root)
+        path("IMU_STEREO", run_app_imu_stereo, work, depth_root)
+        path("MONOCULAR+loop", run_app_loop, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    _log(f"sym_eig launches by n per path: {eig_paths}")
+    for name, ns in EIG_PATHS_NEED.items():
+        missing = [n for n in ns if not eig_paths[name].get(n)]
+        if missing:
+            raise RuntimeError(f"{name}: the sym_eig kernel never ran at n = {missing}")
 
     # the pair's times at the SE2 form and 16,384 events, errors the worst
     # over every N; the ascent kernel's at its two call sites' shapes. A
@@ -4103,6 +4347,18 @@ def main() -> int:
              ms=dist_row["ms"], device_ms=dist_row["dev_ms"],
              plain_ms=dist_row["plain_ms"], bound_ms=dist_row["bound"][0],
              bound_by=dist_row["bound"][1]),
+        # the eigensolver at each n's call-site shape (float32); launches
+        # in all the paths' runs and per path; library_ms torch.linalg.eigh
+        *(dict(name="sym_eig", route="cuda", source="eorb_slam_tpu_torch/csrc/sym_eig.cu",
+               replaces=EIG_REPLACES, n=r["n"], batch=r["batch"], dtype=r["dtype"],
+               launches=sum(c.get(r["n"], 0) for c in eig_paths.values()),
+               **{f"launches_{k}": c[r["n"]] for k, c in eig_paths.items() if c.get(r["n"])},
+               max_abs_err=r["err"], max_rel_w=r["w"], max_rel_rec=r["rec"],
+               ms=r["ms"], device_ms=r["dev_ms"], plain_ms=r["plain_ms"],
+               library_ms=r["library_ms"], rotations=r["rotations"],
+               bound_ms=r["bound"][0], bound_by=r["bound"][1])
+          for r in eig_rows
+          if r["dtype"] == "float32" and EIG_ROW_BATCH.get(r["n"]) == r["batch"]),
     ]}))
     _log(f"gpu: {gpu}")
     _log(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# one lock per library, so that different sources build at the same time
 _LOCK = threading.Lock()
+_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 # per kernel library: {"seconds": build time (0.0 when reused), "log": nvcc's
 # output, which with -Xptxas -v lists registers, shared memory and spills}
@@ -45,6 +47,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (or reuse) and load ``csrc/<name>.cu``; raises on failure."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(SRC_DIR, f"{name}.cu")

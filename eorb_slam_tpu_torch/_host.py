@@ -14,7 +14,8 @@ is its own copy.
 Constants go the other way without a copy: ``torch.tensor(..., device=
 cuda)`` copies from pageable host memory and drains the stream first, so a
 Python number becomes a device scalar by a fill (``scalar``) and a small
-fixed table is copied once per device and cached (``constant``).
+fixed table is copied once per device, from pinned memory without
+blocking, and cached (``constant``).
 """
 
 from __future__ import annotations
@@ -61,9 +62,14 @@ def scalar(x, like: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The constant ``torch.tensor(values, dtype=dtype)`` on ``device``,
-    copied there once and cached: later calls copy nothing. Shared by every
-    caller, so never written in place."""
-    return torch.tensor(values, dtype=dtype).to(device)
+    copied there once and cached: later calls copy nothing. The one copy to
+    the card goes from pinned memory without blocking, so even a first use
+    does not wait for the device queue. Shared by every caller, so never
+    written in place."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class HostCopy:

@@ -9,11 +9,20 @@ positive definite, and the solvers' accept tests (``cost_new < cost``,
 ``isfinite(dx)``) rely on that NaN to reject the step. ``torch.linalg.
 cholesky`` raises instead and ``cholesky_ex`` returns a finite partial
 factor, so the solve here writes NaN wherever the factorization failed.
+
+Status reads: ``torch.linalg.eigh`` and ``svd`` check cuSOLVER's status on
+the host inside the operator (no ``_ex`` form), which makes the host wait
+for the card. :func:`eigh_or_nan` therefore goes through
+``ops/hopper_linalg.sym_eig``, a hand kernel on a CUDA tensor that reads
+nothing back (LAPACK's ``eigh`` on a CPU tensor), and :func:`pinv_sym`
+takes a symmetric pseudo-inverse through it instead of the SVD.
 """
 
 from __future__ import annotations
 
 import torch
+
+from eorb_slam_tpu_torch.ops import hopper_linalg
 
 
 def solve_spd_jacobi(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -47,11 +56,31 @@ def _nan_where_not(ok: torch.Tensor, x: torch.Tensor, n_core: int) -> torch.Tens
     return torch.where(ok.view(ok.shape + (1,) * n_core), x, torch.nan)
 
 
-def eigh_or_nan(A: torch.Tensor):
-    """``torch.linalg.eigh`` of (...,n,n); NaN for non-finite members."""
+def _eigh_plain(A: torch.Tensor):
+    """``torch.linalg.eigh`` of (...,n,n), NaN for non-finite members: the
+    ``sym_eig`` kernel's plain version, on either device."""
     ok, A = _finite_members(A)
     w, v = torch.linalg.eigh(A)
     return _nan_where_not(ok, w, 1), _nan_where_not(ok, v, 2)
+
+
+def eigh_or_nan(A: torch.Tensor):
+    """Eigendecomposition of symmetric (...,n,n): (w ascending, V with unit
+    eigenvectors as columns); NaN for non-finite members. A CUDA tensor goes
+    to the ``sym_eig`` kernel (n <= 16), which reads no status back; a CPU
+    tensor gets the plain version, ``torch.linalg.eigh``. An eigenvector's
+    sign is a convention."""
+    return hopper_linalg.sym_eig(A) if A.is_cuda else _eigh_plain(A)
+
+
+def pinv_sym(A: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Pseudo-inverse of symmetric (...,n,n) through :func:`eigh_or_nan` of
+    ``(A + A^T) / 2``: ``V diag(1/w where |w| > eps, else 0) V^T``. For a
+    symmetric A this is the SVD pseudo-inverse with the singular-value floor
+    ``eps`` (``s = |w|``, ``U = V sign(w)``); NaN for a non-finite member."""
+    w, V = eigh_or_nan(0.5 * (A + A.transpose(-1, -2)))
+    w_inv = torch.where(torch.abs(w) > eps, 1.0 / w, 0.0)
+    return (V * w_inv[..., None, :]) @ V.transpose(-1, -2)
 
 
 def svd_or_nan(A: torch.Tensor):

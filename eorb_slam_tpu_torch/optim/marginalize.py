@@ -16,7 +16,7 @@ square-root information depends on the prior alone and is formed once per
 call.
 
 Degenerate decompositions give NaN, as in JAX, through
-``optim/linalg.{svd,eigh}_or_nan``.
+``optim/linalg.eigh_or_nan`` and ``pinv_sym``.
 """
 
 from __future__ import annotations
@@ -32,13 +32,6 @@ from eorb_slam_tpu_torch.imu.preintegration import _mv
 from eorb_slam_tpu_torch.optim import inertial, linalg, robust
 
 
-def _pinv_psd(A: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """SVD pseudo-inverse with the reference's 1e-6 singular-value floor."""
-    U, s, Vt = linalg.svd_or_nan(A)
-    s_inv = torch.where(s > eps, 1.0 / torch.clamp(s, min=eps), 0.0)
-    return (Vt.transpose(-1, -2) * s_inv[..., None, :]) @ U.transpose(-1, -2)
-
-
 def marginalize(H: torch.Tensor, start: int, end: int) -> torch.Tensor:
     """Marginalize block [start, end] (inclusive) out of information matrix
     H; the result keeps H's shape with the marginalized rows/cols zeroed."""
@@ -49,7 +42,7 @@ def marginalize(H: torch.Tensor, start: int, end: int) -> torch.Tensor:
     Hkk = H[keep][:, keep]
     Hkm = H[keep][:, marg]
     Hmm = H[marg][:, marg]
-    Hs = Hkk - Hkm @ _pinv_psd(Hmm) @ Hkm.T
+    Hs = Hkk - Hkm @ linalg.pinv_sym(Hmm) @ Hkm.T
     out = torch.zeros_like(H)
     out[keep[:, None], keep[None, :]] = Hs
     return out

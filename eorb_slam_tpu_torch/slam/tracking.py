@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch._host import constant
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.ops import frontend, matching
@@ -35,20 +36,24 @@ class TrackResult(NamedTuple):
     n_inliers: torch.Tensor  # () int32
 
 
-def track_frame(
-    m: MapState,
-    cam_params: torch.Tensor,
-    xy_ud: torch.Tensor,        # (N,2) undistorted feature coords
-    octave: torch.Tensor,       # (N,)
-    desc_pm1: torch.Tensor,     # (N,256) int8
-    feat_valid: torch.Tensor,   # (N,)
-    T_pred: torch.Tensor,       # (4,4) motion-model / predicted pose
-    img_w: int = 752,
-    img_h: int = 480,
-    search_radius: float = 15.0,
-    max_dist: int = matching.TH_HIGH,
-    nn_ratio: float = 0.9,
-) -> TrackResult:
+# the projection search's window and ratio test, and the wide re-search's
+# after too few inliers (the reference's lax.cond branch)
+NARROW_RADIUS, NARROW_NN_RATIO = 15.0, 0.9
+WIDE_RADIUS, WIDE_NN_RATIO = 40.0, 0.95
+
+
+class _Projection(NamedTuple):
+    """The landmarks as one predicted pose sees them (track_frame's stages
+    1 and 1b), shared by every search from that pose."""
+
+    uv: torch.Tensor          # (M,2) projected pixels
+    vis: torch.Tensor         # (M,) bool in view, in range, in front
+    has_obs: torch.Tensor     # (M,) bool has a usable observation
+    pred_level: torch.Tensor  # (M,) int32 predicted pyramid level
+
+
+def _project(m: MapState, cam_params: torch.Tensor, T_pred: torch.Tensor,
+             img_w: int, img_h: int) -> _Projection:
     # 1. project landmarks
     pc = lie.se3_apply(T_pred, m.lm_pos)                   # (M,3)
     uv = cam_mod.pinhole_project_linear(cam_params, pc)    # (M,2)
@@ -88,19 +93,26 @@ def track_frame(
         torch.floor(torch.log(torch.clamp(dmax, min=1e-6)
                               / torch.clamp(dist, min=1e-6))
                     / math.log(1.2) + 0.5), 0, 7).to(torch.int32)
+    return _Projection(uv, vis, has_obs, pred_level)
 
+
+def _search(m, cam_params, xy_ud, octave, desc_pm1, feat_valid, T_pred,
+            proj: _Projection, search_radius, max_dist, nn_ratio) -> TrackResult:
+    """Stages 2-5 from one projection. ``search_radius`` and ``nn_ratio``
+    are Python floats, or 0-dim float32 tensors (one setting of a batch
+    under ``torch.func.vmap``): the same float32 values either way."""
     # 2. admissible pairs: window scaled by feature octave, and the
     # feature's level within +-1 of the predicted one
     scale = 1.2 ** octave.to(torch.float32)
     r = search_radius * scale                               # (N,)
-    d2 = torch.sum((xy_ud[:, None, :] - uv[None, :, :]) ** 2, dim=-1)
-    level_ok = (torch.abs(octave[:, None] - pred_level[None, :]) <= 1) \
-        | ~has_obs[None, :]
-    pair = (d2 <= (r[:, None] ** 2)) & vis[None, :] & level_ok
+    d2 = torch.sum((xy_ud[:, None, :] - proj.uv[None, :, :]) ** 2, dim=-1)
+    level_ok = (torch.abs(octave[:, None] - proj.pred_level[None, :]) <= 1) \
+        | ~proj.has_obs[None, :]
+    pair = (d2 <= (r[:, None] ** 2)) & proj.vis[None, :] & level_ok
 
     # 3. matching
     feat_lm, dist = matching.match_nnratio(
-        desc_pm1, feat_valid, m.lm_desc_pm1, vis, pair_mask=pair,
+        desc_pm1, feat_valid, m.lm_desc_pm1, proj.vis, pair_mask=pair,
         max_dist=max_dist, nn_ratio=nn_ratio, mutual=False,
     )
     matched = feat_lm >= 0
@@ -129,6 +141,60 @@ def track_frame(
         n_matched=matched.sum(dtype=torch.int32),
         n_inliers=n_inl,
     )
+
+
+def track_frame(
+    m: MapState,
+    cam_params: torch.Tensor,
+    xy_ud: torch.Tensor,        # (N,2) undistorted feature coords
+    octave: torch.Tensor,       # (N,)
+    desc_pm1: torch.Tensor,     # (N,256) int8
+    feat_valid: torch.Tensor,   # (N,)
+    T_pred: torch.Tensor,       # (4,4) motion-model / predicted pose
+    img_w: int = 752,
+    img_h: int = 480,
+    search_radius: float = NARROW_RADIUS,
+    max_dist: int = matching.TH_HIGH,
+    nn_ratio: float = NARROW_NN_RATIO,
+) -> TrackResult:
+    proj = _project(m, cam_params, T_pred, img_w, img_h)
+    return _search(m, cam_params, xy_ud, octave, desc_pm1, feat_valid, T_pred,
+                   proj, search_radius, max_dist, nn_ratio)
+
+
+def track_frame_with_retry(
+    m: MapState,
+    cam_params: torch.Tensor,
+    xy_ud: torch.Tensor,
+    octave: torch.Tensor,
+    desc_pm1: torch.Tensor,
+    feat_valid: torch.Tensor,
+    T_pred: torch.Tensor,
+    min_inl_retry: int,
+    img_w: int = 752,
+    img_h: int = 480,
+) -> TrackResult:
+    """``track_frame``, and where its inliers fall short of
+    ``min_inl_retry`` the wide re-search (radius WIDE_RADIUS, ratio
+    WIDE_NN_RATIO) in its place, chosen on the device: what the reference's
+    ``lax.cond`` computes, with no host read.
+
+    The landmarks are projected once; the two searches run as one batch of
+    two settings under ``torch.func.vmap``, so the wide one rides in the
+    narrow one's launches (the Hamming matrix, which no setting changes, is
+    computed once), and each field is picked by ``torch.where``."""
+    dev = xy_ud.device
+    proj = _project(m, cam_params, T_pred, img_w, img_h)
+    radius = constant((NARROW_RADIUS, WIDE_RADIUS), torch.float32, dev)
+    ratio = constant((NARROW_NN_RATIO, WIDE_NN_RATIO), torch.float32, dev)
+
+    def search(r, q):
+        return tuple(_search(m, cam_params, xy_ud, octave, desc_pm1, feat_valid,
+                             T_pred, proj, r, matching.TH_HIGH, q))
+
+    both = torch.func.vmap(search)(radius, ratio)
+    wide = both[4][0] < min_inl_retry
+    return TrackResult(*(torch.where(wide, x[1], x[0]) for x in both))
 
 
 def track_flags(res: TrackResult) -> torch.Tensor:

@@ -15,11 +15,11 @@ integrated at and are corrected through their bias Jacobians at use.
 
 The per-frame step once the IMU is initialized (``_vi_frame_step``) is one
 fused jitted dispatch in the JAX package, with the wide re-search under
-``lax.cond``. Here the re-search is a host branch on the first search's
-inlier count: one more blocking read per frame (two in all: that count,
-then the packed flags), instead of running both searches every frame. The
-IMU window goes in unpadded (the JAX package pads it to a power-of-two
-bucket for a stable trace; padded samples change nothing).
+``lax.cond``. Here both searches run as one batch of two settings and the
+re-search is selected on the device (``tracking.track_frame_with_retry``),
+so the step's one blocking read is its packed flags. The IMU window goes in
+unpadded (the JAX package pads it to a power-of-two bucket for a stable
+trace; padded samples change nothing).
 """
 
 from __future__ import annotations
@@ -128,19 +128,14 @@ def _vi_frame_step(
     R2, p2, v2 = pre_mod.predict_state(Twb[:3, :3], Twb[:3, 3], vel, pre, bg, ba)
     T_pred = pre_mod.Tcw_from_Twb(lie.se3(R2, p2), calib.Tbc)
 
-    # 3. extraction + projection tracking; the wide re-search is a host
-    # branch on the first search's inlier count (one blocking read)
+    # 3. extraction + projection tracking, with the wide re-search chosen
+    # on the device where the first search keeps too few inliers
     feats = frontend.extract(img, max_kp=max_kp)
     xy_ud = cam_mod.undistort_points(cam_params, feats.xy)
-    res = tracking.track_frame(
+    res = tracking.track_frame_with_retry(
         m, cam_params, xy_ud, feats.octave, feats.desc_pm1, feats.valid,
-        T_pred, img_w=img_w, img_h=img_h,
+        T_pred, min_inl_retry, img_w=img_w, img_h=img_h,
     )
-    if int(res.n_inliers) < min_inl_retry:
-        res = tracking.track_frame(
-            m, cam_params, xy_ud, feats.octave, feats.desc_pm1, feats.valid,
-            T_pred, img_w=img_w, img_h=img_h, search_radius=40.0, nn_ratio=0.95,
-        )
 
     # 4. motion-only VI optimization
     matched = res.feat_lm >= 0

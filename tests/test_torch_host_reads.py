@@ -15,7 +15,14 @@ per device are built.
 Cases: the pose-only GN, ``track_image_frame``, ``MonoSlam.process_image``
 on tracked frames that insert no keyframe (synchronous and speculative),
 ``EventWindowBuilder.step_window`` (host data staged only by the named
-helpers), and one keyframe insertion (a stated small count). No JAX here.
+helpers), one keyframe insertion (a stated small count), and the inertial
+frame step ``vi_system._vi_frame_step`` against the last keyframe and
+against a ``PoseImuPrior``, on the narrow and on the wide branch of its
+re-search (chosen on the device): it reads nothing, so the inertial frame's
+one read is its caller's flags (``MonoInertialSlam.process_image_imu``).
+The status checks inside ``torch.linalg.eigh``/``svd`` never reach the
+dispatcher: the card's ``chip_smoke._Syncs`` counts those, and the port no
+longer calls either on a CUDA tensor in these steps. No JAX here.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from eorb_slam_tpu_torch.event import builder as tb
 from eorb_slam_tpu_torch.geometry import lie
+from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
-from eorb_slam_tpu_torch.optim import pose_only
+from eorb_slam_tpu_torch.optim import marginalize, pose_only
 from eorb_slam_tpu_torch.slam import system as tsys
-from eorb_slam_tpu_torch.slam import tracking
+from eorb_slam_tpu_torch.slam import tracking, vi_system
 
 PKG = os.path.dirname(os.path.abspath(tsys.__file__)).rsplit(os.sep, 1)[0]
 aten = torch.ops.aten
@@ -256,3 +264,30 @@ def test_step_window_reads_nothing():
         assert not hr.reads, hr.reads
         assert _where(hr.lifts) <= STAGING, hr.lifts
     assert n >= 1
+
+
+@pytest.mark.parametrize("branch", ["narrow", "wide"])
+@pytest.mark.parametrize("prior", [False, True], ids=["last_keyframe", "pose_imu_prior"])
+def test_vi_frame_step_reads_nothing(frames, prior, branch):
+    """The inertial frame step on the corridor map: 200 Hz IMU samples of
+    a body at rest, the wide re-search forced by the threshold (never met,
+    or always met)."""
+    slam, i = _tracking_slam(frames, pipelined=False)
+    _, img = frames[i]
+    S = int(round(200.0 / FPS))
+    z3 = torch.zeros(3)
+    window = (torch.zeros(S, 3), torch.tensor([[0.0, 0.0, pre_mod.GRAVITY]] * S),
+              torch.full((S,), 1.0 / 200.0), torch.ones(S, dtype=torch.bool))
+    kf = slam._kf_order[-1]
+    imu_prior = marginalize.identity_prior(slam.T_last, z3, z3, z3) if prior else None
+    args = (img, slam.cam, slam.map, *window, slam.T_last, z3, z3, z3,
+            pre_mod.identity_preintegrated(device="cpu"), slam.map.kf_T[kf], z3,
+            imu_prior, slam.map.kf_T[slam._kf_ref()], pre_mod.make_calib(),
+            0 if branch == "narrow" else 10_000)
+    kw = dict(max_kp=slam.map.N, img_w=W, img_h=H)
+    vi_system._vi_frame_step(*args, **kw)
+    with HostReads() as hr:
+        out = vi_system._vi_frame_step(*args, **kw)
+    assert not hr.reads and not hr.lifts, (hr.reads, hr.lifts)
+    flags = out[3]
+    assert flags.shape == (2,) and torch.isfinite(flags).all()
