@@ -52,7 +52,19 @@ float64 landmark-sharded BA. Beside the splat kernels it builds the
 status-free eigensolver (csrc/sym_eig.cu, one nvcc of its own, started
 with the others) and holds it against torch.linalg.eigh on the card at
 every call site's (n, batch), float32 and float64 (check_kernel_sym_eig),
-and counts its launches per path and per step.
+and counts its launches per path and per step. The three one-dispatch
+steps of the main path (the L1 window, the tracked image frame, local BA's
+LM loop) run on the card as CUDA-graph replays (eorb_slam_tpu_torch/
+_graphs.py); check_graphs_small holds each replay against its eager step
+bit for bit across a key change and a map change and prints, eager against
+replayed, the host-issued launches, device kernels, device ms and wall ms
+per step, and EventSlam, MONOCULAR and that phase gate the host-issued
+launches per tracked frame or MCI and per L1 window (GRAPH_LAUNCH_MAX). A
+replay runs no Python, so it adds the hand kernels' launches counted at
+capture: EventSlam holds each profiled step's counts against the kernels
+the profiler saw run, and check_graph_nodes, at the end, holds every
+graph the runners captured (each one some path replayed) to its counts
+by the kernels among its nodes.
 
     python3 chip_smoke.py
 
@@ -77,6 +89,7 @@ describing the kernels and, last, the device line
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import re
@@ -109,7 +122,7 @@ FWD_OPS, VJP_OPS = 12 * 4 + 36 * 2 + 20, 12 * 4 + 36 * 6 + 40
 RATE = 4_000_000    # events/s after the in-image cut (shakes density)
 WARM_S, RUN_S = 0.1, 0.25             # L1 slice
 EV_WARM_S, EV_RUN_S, EV_PHASE_S = 0.2, 0.15, 0.085  # EventSlam
-EV_PHASE_TIMED = 12      # MCIs of the phase pass under timers; the rest (~2)
+EV_PHASE_TIMED = 10      # MCIs of the phase pass under timers; the rest (~4)
 #                          run under the profiler
 PACKET = 40_000          # events per EventSlam.track_events call (10 ms)
 L2_KW = dict(K=24, M=2048, P=8)          # EventSlam's defaults
@@ -177,6 +190,12 @@ LOOP_ROOM_S, LOOP_TURNS = 10.0, 2.0
 PIPE_W, PIPE_H, PIPE_FX, PIPE_FRAMES, PIPE_BLANK = 320, 240, 195.0, 40, 24
 PIPE_KW = dict(img_w=PIPE_W, img_h=PIPE_H, K=8, M=1024, N=256, max_frames_between_kf=4)
 PIPE_PROFILED = 2          # its last frames, under the profiler
+# the graph runner (eorb_slam_tpu_torch/_graphs.py): host-issued launches
+# (HOST_LAUNCH_APIS, by the profiler) per steady step, a tracked frame or
+# L2 MCI and an L1 window; check_graphs_small's recorded sequences
+GRAPH_LAUNCH_MAX = {"frame": 100, "window": 50}
+GRAPH_WINDOWS, GRAPH_STREAM_S = 9, 0.12     # L1 windows from this much stream
+GRAPH_FRAMES, GRAPH_PROFILED = 20, 4        # corridor frames, the last profiled
 # blocking host reads (_Syncs): a tracked frame or MCI reads at most its
 # (2,) flags, whether or not it inserts a keyframe (the keyframe's
 # triangulations and the inertial frame's prior decompose through the
@@ -294,6 +313,28 @@ def _eig_counts() -> dict:
     return dict(sorted(hl.sym_eig.by_n.items()))
 
 
+def _runners() -> dict:
+    """The port's graph runners (the reference's one-dispatch steps) by
+    kind of step."""
+    from eorb_slam_tpu_torch.event import builder
+    from eorb_slam_tpu_torch.optim import schur_ba
+    from eorb_slam_tpu_torch.slam import tracking
+
+    return {"L1 window": builder.window_step, "tracked frame": tracking.track_image_frame,
+            "local BA": schur_ba.bundle_adjust}
+
+
+def _captures() -> int:
+    """Graph captures so far, all runners."""
+    return sum(r.captures for r in _runners().values())
+
+
+def _graph_stats() -> dict:
+    """{kind: (captures, keys, replays, capture s)} of each runner."""
+    return {k: (r.captures, r.keys, r.replays, round(r.capture_s, 3))
+            for k, r in _runners().items()}
+
+
 def _window_launches(l1_num_loop):
     """(forward, VJP, ascent) kernel launches of one L1 window: a forward
     per chunk and per MCI candidate, no VJP, one ascent."""
@@ -366,18 +407,58 @@ def _profile(fn):
     return out, _activity(prof)
 
 
+# the CUDA runtime and driver calls that issue work to the card from the
+# host: a kernel launch or a graph launch (one cudaGraphLaunch replays a
+# whole captured step)
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                    "cudaGraphLaunch", "cuGraphLaunch")
+
+
+class _Per(dict):
+    """{device activity name: (count, total device microseconds)}, in
+    ``host`` the host-issued launches ({API name: count}, HOST_LAUNCH_APIS)
+    and in ``copies`` the host-issued copies (cudaMemcpy*)."""
+
+    host: dict
+    copies: int
+
+    @property
+    def launches(self) -> int:
+        """Host-issued launches: kernel launches and graph launches."""
+        return sum(self.host.values())
+
+
+def _profile_pure(fn, tries=3):
+    """``_profile`` of a call that changes no state, with the splat counts
+    set to 0 just before it, profiled again (``tries`` times in all) while
+    the profiler recorded no device activity at all: two runs have
+    recorded none around an ascent kernel that the counters saw launched
+    (PERF.md section 6), and the next try recorded it."""
+    for _ in range(tries):
+        _reset_counts()
+        out, per = _profile(fn)
+        if per:
+            break
+    return out, per
+
+
 def _activity(prof):
-    """{device activity name: (count, total device microseconds)} of a
-    finished torch.profiler run."""
+    """The device activity of a finished torch.profiler run, by name, with
+    the host-issued launches beside it (_Per)."""
     from torch.autograd import DeviceType
 
-    per = {}
+    per = _Per()
+    per.host, per.copies = {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             per[e.key] = (e.count, float(us))
+        elif e.key.startswith(HOST_LAUNCH_APIS):
+            per.host[e.key] = per.host.get(e.key, 0) + e.count
+        elif e.key.startswith("cudaMemcpy"):
+            per.copies += e.count
     return per
 
 
@@ -386,6 +467,23 @@ def _matching(per, *words):
     every one of ``words``."""
     hit = [v for k, v in per.items() if all(w in k for w in words)]
     return sum(c for c, _ in hit), sum(us for _, us in hit)
+
+
+# the hand kernels whose launches the wrappers count, by their names on the
+# card: forward, VJP, ascent, sym_eig (any n)
+HAND_KERNELS = ("splat_fwd_kernel", "splat_vjp_kernel", "splat_ascent_kernel",
+                "sym_eig_kernel")
+
+
+def _seen(per) -> tuple:
+    """How many of each of HAND_KERNELS the profiler saw run on the card."""
+    return tuple(_matching(per, k)[0] for k in HAND_KERNELS)
+
+
+def _hand_counts() -> tuple:
+    """The wrappers' counts of HAND_KERNELS so far (sym_eig summed over n),
+    each graph replay's capture-time counts included."""
+    return (*_counts(), sum(_eig_counts().values()))
 
 
 def _kernel_events(n, seed):
@@ -435,8 +533,18 @@ def _held(got, ref, tol, what):
     return err
 
 
-def _same_bits(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+def _bits_equal(a, b) -> bool:
+    """The same structure of tensors, bit for bit (a NaN equal to the same
+    NaN)."""
+    from eorb_slam_tpu_torch import _graphs
+
+    la, lb = [], []
+    if _graphs._flatten(a, la, "a") != _graphs._flatten(b, lb, "b"):
+        return False
+    bits = lambda t: t.reshape(-1).view(torch.uint8)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
 
 
 def _bound(n, n_active, se2, vjp):
@@ -488,9 +596,9 @@ def check_kernel():
         gp = torch.autograd.grad(_splat_gauss_separable(xp, wp, *cfg), (xp, wp), g)
         gerr = [_held(a, b, GRAD_TOL, f"N={n} VJP g_{name}")
                 for a, b, name in zip(gk, gp, ("xy", "w"))]
-        if not all(_same_bits(a, b) for a, b in zip(gk, gk2)):
+        if not _bits_equal(gk, gk2):
             raise RuntimeError(f"N={n}: two VJP calls differ")
-        if not _same_bits(got, hs.splat(xy, w, *cfg)):
+        if not _bits_equal(got, hs.splat(xy, w, *cfg)):
             raise RuntimeError(f"N={n}: two forward calls differ")
 
         # ---- SE2 form: forward, dL/dparams through the contrast, determinism
@@ -501,7 +609,7 @@ def check_kernel():
         n_flip = int(((sgot - sref).abs() > FWD_TOL * sscale).sum())
         serr = _held(sgot, sref, FWD_TOL, f"N={n} SE2 forward ({n_flip} px over: "
                                            f"tap flips if ~{np.exp(-3.125):.3f})")
-        if not _same_bits(sgot, hs.splat_se2(sxy, st, sv, sp, center, *cfg)):
+        if not _bits_equal(sgot, hs.splat_se2(sxy, st, sv, sp, center, *cfg)):
             raise RuntimeError(f"N={n}: two SE2 forward calls differ")
         pk = _contrast_grad(lambda p: hs.splat_se2(sxy, st, sv, p, center, *cfg), sp)
         pp = _contrast_grad(lambda p: hs._splat_se2_plain(sxy, st, sv, p, center, *cfg), sp)
@@ -510,7 +618,7 @@ def check_kernel():
         img_s = hs.splat_se2(sxy, st, sv, sq, center, *cfg)
         d1, = torch.autograd.grad(img_s, sq, g, retain_graph=True)
         d2, = torch.autograd.grad(img_s, sq, g, retain_graph=True)
-        if not _same_bits(d1, d2):
+        if not _bits_equal(d1, d2):
             raise RuntimeError(f"N={n}: two SE2 VJP calls differ: {d1} {d2}")
 
         # ---- times: CUDA events around eager calls of the wrappers (host
@@ -703,16 +811,14 @@ def check_kernel_ascent():
         loop = lambda trace=None: cm._ascent_loop(xy, t, valid, H, W, z, CM_ITERS, SIGMA, 1.0,
                                                   trace=trace)
         tk, tk2, tl = (torch.zeros((CM_ITERS + 1, 4), device="cuda") for _ in range(3))
-        _reset_counts()
-        (p, best, c0), per = _profile(lambda: kernel(tk))
+        (p, best, c0), per = _profile_pure(lambda: kernel(tk))
         counts = _counts()
         p2, best2, c02 = kernel(tk2)
         loop(tl)
         torch.cuda.synchronize()
         sg, sc = tk.cpu().double().numpy(), tl.cpu().double().numpy()
         part, tie, step_err = _ascents_agree(sg, sc, f"ascent kernel N={n} against the loop")
-        if not (_same_bits(tk, tk2) and all(_same_bits(a.reshape(-1), b.reshape(-1)) for a, b
-                                            in ((p, p2), (best, best2), (c0, c02)))):
+        if not _bits_equal((tk, p, best, c0), (tk2, p2, best2, c02)):
             raise RuntimeError(f"N={n}: two ascent kernel calls differ")
         n_asc = _matching(per, "splat_ascent_kernel")[0]
         n_pair = _matching(per, "splat_fwd_kernel")[0] + _matching(per, "splat_vjp_kernel")[0]
@@ -800,13 +906,12 @@ def time_ascent():
             walls[k].append(1e3 * (time.perf_counter() - t0))
     prof = {}
     for k, fn in runs.items():
-        _reset_counts()
-        (p, c, c0), per = _profile(fn)
+        (p, c, c0), per = _profile_pure(fn)
         prof[k] = (per, _counts(), p, c, c0)
         if not (torch.isfinite(p).all() and float(c) >= float(c0)):
             raise RuntimeError(f"the {k} ascent went wrong: {p} {c0} -> {c}")
     # control: the plain SE2 forward launches torch's cos and sin kernels by those names
-    _, plain_per = _profile(lambda: hs._splat_se2_plain(
+    _, plain_per = _profile_pure(lambda: hs._splat_se2_plain(
         xy, t, valid, z, (W / 2.0, H / 2.0), H, W, SIGMA, TRUNC))
     if not (_matching(plain_per, "cos_kernel")[0] and _matching(plain_per, "sin_kernel")[0]):
         raise RuntimeError(f"torch's cos/sin kernels not recognised by name: {sorted(plain_per)}")
@@ -1177,7 +1282,7 @@ def check_l2_small():
 def run_event_slam():
     """EventSlam end to end on the card at the synth_ev_only width, through
     EventSlam.track_events: 0.2 s of warm-up (L2 must initialize), 0.15 s
-    timed, then 0.085 s more window by window: 12 MCIs with synchronised
+    timed, then 0.085 s more window by window: 10 MCIs with synchronised
     per-phase timers, the rest under the profiler."""
     from eorb_slam_tpu_torch.event import builder as eb
     from eorb_slam_tpu_torch.slam import event_system, system
@@ -1264,16 +1369,32 @@ def run_event_slam():
         # what is left of the stream under the profiler, L1 and L2 apart:
         # device launches and device time per MCI
         prof = {"L1": [], "L2": []}
-        while True:
-            pi, per = _profile(slam.builder.step_window)
+        # host-issued launches of each profiled step, by kind ("capture"
+        # where the step captured a graph), and the hand kernels it counted
+        # (the wrappers', and each replay's capture-time counts) beside those
+        # the profiler saw run on the card
+        host, held = [], []
+
+        def profiled(fn, kind_of):
+            c0, k0 = _captures(), _hand_counts()
+            out, per = _profile(fn)
             sy.mark()
+            kind = "capture" if _captures() != c0 else kind_of(out)
+            host.append((kind, per.launches))
+            held.append((kind, tuple(b - a for a, b in zip(k0, _hand_counts())), _seen(per),
+                         bool(per)))
+            return out, per
+
+        while True:
+            pi, per = profiled(slam.builder.step_window, lambda _: "L1")
             kinds.append(None if pi is None else "L1")
             if pi is None:
+                host.pop()
+                held.pop()
                 break
             prof["L1"].append(per)
-            r, per = _profile(lambda: slam._track_mci(pi))
+            r, per = profiled(lambda: slam._track_mci(pi), l2_kind)
             prof["L2"].append(per)
-            sy.mark()
             kinds.append(l2_kind(r))
     reads = _Reads(sy, kinds)
     if not prof["L1"]:
@@ -1304,9 +1425,28 @@ def run_event_slam():
          f"{per_mci['L1'][0]:.0f} device launches and {per_mci['L1'][1]:.2f} ms of "
          f"device time per MCI; L2 (tracking and mapping) {per_mci['L2'][0]:.0f} "
          f"launches and {per_mci['L2'][1]:.2f} ms per MCI")
+    _log(f"EventSlam under torch.profiler: host-issued launches per step (kind, "
+         f"launches): {host}")
+    _log(f"EventSlam under torch.profiler: hand kernels {HAND_KERNELS} per step, counted "
+         f"and seen run (kind, counted, seen, recorded): {held}")
+    off = [h for h in held if h[3] and h[1] != h[2]]
+    if off:
+        raise RuntimeError(f"EventSlam: the hand kernels counted differ from those the "
+                           f"profiler saw run: {off}")
+    replays = [c for kd, c, _, rec in held if kd == "L1" and rec]
+    if len(replays) < 2 or any(c != (*per_window, 0) for c in replays):
+        raise RuntimeError(f"EventSlam: {len(replays)} replayed windows held against the "
+                           f"profiler, counting {replays}; expected at least 2, each "
+                           f"{per_window} and no sym_eig")
     reads.log("EventSlam (speculation on)", "MCI")
     reads.at_most("EventSlam", {"L1": READS_L1_MAX, "L2 track": READS_TRACK_MAX,
                                 "L2 KF": READS_KF_MAX})
+    over = [(kd, c) for kd, c in host
+            if c > {"L1": GRAPH_LAUNCH_MAX["window"], "L2 track": GRAPH_LAUNCH_MAX["frame"]}
+            .get(kd, c)]
+    if over:
+        raise RuntimeError(f"EventSlam: host-issued launches above {GRAPH_LAUNCH_MAX} "
+                           f"(window, tracked MCI): {over}")
     _log(f"EventSlam map: {l2.n_kf} keyframes, {n_lm} landmarks, "
          f"{l2.stats['lost']} lost windows, {l2.kf_culled} KFs culled, "
          f"{len(traj)} trajectory poses; stats {slam.stats}")
@@ -1574,13 +1714,15 @@ def run_app_monocular(work: str):
     ms_frame = out["avg_track_ms"]
     ms_map = 1e3 * sum(t_map) / max(len(states), 1)
     # launches per frame, by the profiler, on the frames that follow
-    per_frame = []
+    per_frame, host = [], []
     for i in range(MONO_FRAMES, n_all):
         img = (seq.image(i) * 255.0).astype(np.uint8)
-        _, per = _profile(lambda: slam.process_image(to_device(img, slam.device),
+        c0 = _captures()
+        r, per = _profile(lambda: slam.process_image(to_device(img, slam.device),
                                                      float(seq.image_ts[i])))
         per_frame.append((sum(c for c, _ in per.values()),
                           sum(us for _, us in per.values()) / 1e3))
+        host.append(("capture" if _captures() != c0 else _frame_kind(r), per.launches))
     path_len = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
     _log(f"run_slam MONOCULAR {Wm}x{Hm}, N={slam.map.N}, on {slam.device}: "
          f"{len(states)} frames (generated in {t_gen:.2f} s) in {out['wall_s']:.3f} s "
@@ -1594,7 +1736,8 @@ def run_app_monocular(work: str):
     _log(f"run_slam MONOCULAR under torch.profiler, {len(per_frame)} frames: "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
          f"{np.mean([t for _, t in per_frame]):.2f} ms of device time per frame "
-         f"(per frame: {[c for c, _ in per_frame]})")
+         f"(per frame: {[c for c, _ in per_frame]}); host-issued launches per frame "
+         f"(kind, launches): {host}")
     reads.log("run_slam MONOCULAR", "frame")
     reads.not_above("MONOCULAR", "frame")
     reads.at_most("MONOCULAR", READS_APP_MAX["MONOCULAR"])
@@ -1608,6 +1751,9 @@ def run_app_monocular(work: str):
         raise RuntimeError(f"not the full width: N={slam.map.N} {slam.img_w}x{slam.img_h}")
     if not after or n_ok < 0.8 * len(after):
         raise RuntimeError(f"only {n_ok}/{len(after)} frames tracked after init")
+    if any(kd == "track" and c > GRAPH_LAUNCH_MAX["frame"] for kd, c in host):
+        raise RuntimeError(f"host-issued launches per tracked frame above "
+                           f"{GRAPH_LAUNCH_MAX['frame']}: {host}")
     if stats.get("fuse_steps", 0) < 1 or stats.get("refresh_steps", 0) < 1:
         raise RuntimeError(f"no mapping step ran fusion and the refresh: {stats}")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= 0.8 * len(after)):
@@ -1647,10 +1793,11 @@ class _Syncs:
         from eorb_slam_tpu_torch import _host
         from eorb_slam_tpu_torch.ops import hopper_linalg as hl
 
-        self.steps, self.sites, self.eig = [], [], []
+        self.steps, self.sites, self.eig, self.captures = [], [], [], []
         self._cur = {}
         self._hl = hl
         self._eig0 = sum(hl.sym_eig.by_n.values())
+        self._cap0 = _captures()
         self._cm = warnings.catch_warnings()
         self._cm.__enter__()
         warnings.simplefilter("always")
@@ -1691,6 +1838,9 @@ class _Syncs:
         now = sum(self._hl.sym_eig.by_n.values())
         self.eig.append(now - self._eig0)
         self._eig0 = now
+        now = _captures()
+        self.captures.append(now - self._cap0)
+        self._cap0 = now
 
     def top(self, idx=None, k=8) -> str:
         """The ``k`` commonest sites of the steps ``idx`` (all by default),
@@ -1731,7 +1881,11 @@ class _Reads:
     step that is no frame and no MCI)."""
 
     def __init__(self, sy, kinds):
-        self.sy, self.kinds = sy, kinds
+        # a step that captured a graph (its key's second call) is a kind of
+        # its own: torch.cuda.graph drains the card when a capture begins
+        self.sy = sy
+        self.kinds = [k if k is None or not c else "capture"
+                      for k, c in zip(kinds, sy.captures)]
 
     def at(self, kind):
         return [i for i, k in enumerate(self.kinds) if k == kind]
@@ -1744,7 +1898,10 @@ class _Reads:
         return float(np.mean(v)) if v else float("nan")
 
     def log(self, tag, unit):
-        """One line per kind: the mean, each step, and the sites."""
+        """One line per kind: the mean, each step, and the sites; then the
+        graph captures of these steps."""
+        _log(f"{tag} graph captures: {sum(self.sy.captures)} in "
+             f"{sum(1 for c in self.sy.captures if c)} {unit}s")
         for kind in dict.fromkeys(k for k in self.kinds if k is not None):
             v = self.of(kind)
             _log(f"{tag} blocking reads per {kind} {unit}: {self.mean(kind):.2f} over "
@@ -1860,6 +2017,317 @@ def check_pipelined_small():
     if s_blank.state != system.OK or len(ts_b) != len(set(ts_b)) or n_b < PIPE_FRAMES - 10:
         raise RuntimeError(f"no recovery after the blank frame: {s_blank.stats}")
     return dict(reads_sync=steady(reads_s), reads_pipe=steady(reads_p))
+
+
+# ------------------------------------------------------------- the graphs
+
+def _cloned(x, where="x"):
+    """``x`` (a tensor, or tuples, lists or NamedTuples of them) with every
+    tensor cloned."""
+    from eorb_slam_tpu_torch import _graphs
+
+    leaves = []
+    spec = _graphs._flatten(x, leaves, where)
+    return _graphs._unflatten(spec, (t.clone() for t in leaves))
+
+
+def _call_of(unit, a, k) -> dict:
+    """The call ``unit(*a, **k)``'s arguments by name, every tensor outside
+    the runner's static arguments cloned."""
+    bound = unit._sig.bind(*a, **k)
+    bound.apply_defaults()
+    return {n: v if n in unit.static else _cloned(v, n) for n, v in bound.arguments.items()}
+
+
+def _pool_mb(pool):
+    """MB of the card's memory in the segments of graph pool ``pool``, or
+    None where the allocator's snapshot does not name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == tuple(pool)) / 2**20
+
+
+def _step_cost(fn, reps=3):
+    """(host-issued launches and copies, device kernels, device ms, of which
+    device copies) of one ``fn()`` under the profiler, and its wall ms by the
+    host clock (mean of ``reps`` calls, each ending in
+    torch.cuda.synchronize())."""
+    _, per = _profile(fn)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    # copies and fills are not kernels, also where a graph runs them as
+    # kernels of their own (memcpy32_post, memset32)
+    kernels = sum(c for k, (c, _) in per.items()
+                  if not k.lower().startswith(("memcpy", "memset")))
+    return dict(host=per.launches, copies=per.copies, kernels=kernels,
+                dev_ms=sum(us for _, us in per.values()) / 1e3,
+                copy_dev_ms=_matching(per, "Memcpy")[1] / 1e3,
+                wall_ms=float(np.mean(walls)), apis=dict(per.host)), per
+
+
+def _copy_in_cost(unit, kw, reps=20):
+    """(tensors, MB, host us) of one copy-in of the call ``unit(**kw)``:
+    each tensor outside the static arguments copied into a buffer of its
+    shape and strides, as a replay copies it into its static input (no
+    copy skipped)."""
+    from eorb_slam_tpu_torch import _graphs
+
+    leaves = []
+    for n, v in kw.items():
+        if n not in unit.static:
+            _graphs._flatten(v, leaves, n)
+    bufs = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+            for t in leaves]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for b, t in zip(bufs, leaves):
+            b.copy_(t)
+    host_us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return len(leaves), sum(t.numel() * t.element_size() for t in leaves) / 2**20, host_us
+
+
+def _replayed(kind, unit, calls):
+    """Each recorded eager call of ``unit`` (arguments by name, outputs)
+    again eagerly and through a fresh GraphRunner of the same function:
+    raise unless every output of every call is the recorded one, bit for
+    bit. Returns the fresh runner."""
+    from eorb_slam_tpu_torch import _graphs
+
+    g = _graphs.GraphRunner(unit.fn, static=unit.static)
+    eager_off, graph_off = [], []
+    for i, (kw, want) in enumerate(calls):
+        if not _bits_equal(unit.fn(**kw), want):
+            eager_off.append(i)
+        if not _bits_equal(g(**kw), want):
+            graph_off.append(i)
+    torch.cuda.synchronize()
+    _log(f"graphs {kind}: {len(calls)} calls, {g.captures} captures of {g.keys} keys, "
+         f"{g.replays} replays; eager again differs at calls {eager_off}, the graphs "
+         f"at {graph_off}")
+    if eager_off:
+        raise RuntimeError(f"{kind}: the eager step does not repeat at calls {eager_off}")
+    if graph_off:
+        raise RuntimeError(f"{kind}: a replay differs from the eager step at {graph_off}")
+    return g
+
+
+def _report_costs(kind, g, kw):
+    """Print one step's cost eagerly and replayed (the call ``g(**kw)``);
+    returns both."""
+    eager, per_e = _step_cost(lambda: g.fn(**kw))
+    graph, per_g = _step_cost(lambda: g(**kw))
+    n, mb, host_us = _copy_in_cost(g, kw)
+    # the device activities whose counts differ, eager against replayed
+    differ = {k[:60]: (per_e.get(k, (0, 0))[0], per_g.get(k, (0, 0))[0])
+              for k in set(per_e) | set(per_g)
+              if per_e.get(k, (0, 0))[0] != per_g.get(k, (0, 0))[0]}
+    _log(f"graphs {kind} per step, eager -> replay: host-issued launches "
+         f"{eager['host']} -> {graph['host']}, device kernels {eager['kernels']} -> "
+         f"{graph['kernels']}, device ms {eager['dev_ms']:.3f} -> {graph['dev_ms']:.3f}, "
+         f"wall ms {eager['wall_ms']:.3f} -> {graph['wall_ms']:.3f}; replay's launch calls "
+         f"{graph['apis']}, host-issued copies {graph['copies']} ({graph['copy_dev_ms']:.4f} "
+         f"device ms); copy-in of its {n} input tensors ({mb:.3f} MB) {host_us:.1f} us of "
+         f"host time; {g.captures} captures in {1e3 * g.capture_s:.1f} ms, graph pool "
+         f"{_pool_mb(g.pool)} MB; device activities counted apart (eager, replay): "
+         f"{dict(sorted(differ.items())[:12])}")
+    return dict(eager=eager, graph=graph, copy_in=dict(tensors=n, mb=mb, host_us=host_us))
+
+
+def check_graphs_small():
+    """The graph runner against the eager steps on the card. Each of the
+    three units (the L1 window, the tracked image frame, local BA's LM loop)
+    is recorded eagerly through its user entry point, then every recorded
+    call runs eagerly again and through a fresh GraphRunner: every output
+    bit-equal. The window sequence changes its chunk bucket and then gains
+    the L2 pose prior (have_dpose), each a new key; the frames and the BAs
+    cross keyframes (a map the runner copies in anew), and a float64 BA is
+    a key of its own. Per kind of step: host-issued launches, device
+    kernels, device ms and wall ms, eager against replayed; the replayed
+    window's splat counts against the profiler's kernels; the host time of
+    a replay's copy-in (every input tensor copied, none skipped). Then MonoSlam
+    with speculation, through the module's runners: host-issued launches
+    per tracked frame within GRAPH_LAUNCH_MAX."""
+    from eorb_slam_tpu_torch.event import builder as eb
+    from eorb_slam_tpu_torch.geometry import lie
+    from eorb_slam_tpu_torch.optim import schur_ba
+    from eorb_slam_tpu_torch.slam import system, tracking
+
+    units = _runners()
+
+    def recorder(unit, calls):
+        def rec(*a, **k):
+            out = unit.fn(*a, **k)
+            calls.append((_call_of(unit, a, k), _cloned(out)))
+            return out
+        return rec
+
+    # L1 windows at the EventSlam width, eagerly through step_window
+    w_calls = []
+    bld = eb.EventWindowBuilder(eb.BuilderConfig(**SLICE_CFG), _cam())
+    bld.feed(synth_stream(GRAPH_STREAM_S, RATE, seed=21))
+    eb.window_step = recorder(units["L1 window"], w_calls)
+    try:
+        for i in range(GRAPH_WINDOWS):
+            bld._resolve_window_meta(block=True)
+            if i == GRAPH_WINDOWS // 3:
+                bld.chunk_size = SLICE_CFG["l1_chunk_size"] // 2    # a smaller bucket
+            if i == 2 * GRAPH_WINDOWS // 3:
+                T1 = lie.se3_exp(torch.tensor([0.01, 0.0, 0.02, 0.0, 0.01, 0.0],
+                                              device="cuda"))
+                bld.set_pose_prior(torch.eye(4, device="cuda"), T1,
+                                   torch.tensor(4.0, device="cuda"))
+            if bld.step_window() is None:
+                raise RuntimeError(f"the stream ran out after {i} windows")
+    finally:
+        eb.window_step = units["L1 window"]
+    buckets = [(kw["chunks"].shape[1], kw["have_dpose"]) for kw, _ in w_calls]
+    _log(f"graphs L1 window: (chunk bucket, have_dpose) of each window {buckets}")
+    if len({b for b, _ in buckets}) < 2 or not (not buckets[0][1] and buckets[-1][1]):
+        raise RuntimeError(f"the window sequence changed no key: {buckets}")
+    g = _replayed("L1 window", units["L1 window"], w_calls)
+    kw = w_calls[-1][0]
+    _, per = _profile_pure(lambda: g(**kw))
+    counted = _counts()
+    seen = _seen(per)[:3]
+    windows = _report_costs("L1 window", g, kw)
+    _log(f"graphs L1 window: one replay counted {counted} forward, VJP and ascent "
+         f"launches; the profiler saw {seen} such kernels")
+    if counted != seen or counted != _window_launches(SLICE_CFG["l1_num_loop"]):
+        raise RuntimeError(f"a replayed window counted {counted}, ran {seen}")
+    del w_calls, bld
+
+    # MonoSlam on the rendered corridor, synchronous: its tracked frames
+    # and its keyframes' local BAs
+    f_calls, b_calls = [], []
+    frames = _pipe_frames(GRAPH_FRAMES)
+    cam = np.asarray([PIPE_FX, PIPE_FX, PIPE_W / 2, PIPE_H / 2, 0, 0, 0, 0, 0], np.float32)
+    slam = system.MonoSlam(cam, pipelined=False, **PIPE_KW)
+    tracking.track_image_frame = recorder(units["tracked frame"], f_calls)
+    schur_ba.bundle_adjust = recorder(units["local BA"], b_calls)
+    try:
+        for ts, img, _ in frames:
+            slam.process_image(img, ts)
+    finally:
+        tracking.track_image_frame = units["tracked frame"]
+        schur_ba.bundle_adjust = units["local BA"]
+    maps = 1 + sum(not _bits_equal(f_calls[i - 1][0]["m"], f_calls[i][0]["m"])
+                   for i in range(1, len(f_calls)))
+    _log(f"graphs tracked frame: {len(f_calls)} frames over {maps} maps "
+         f"({slam.stats['kf']} keyframes)")
+    if maps < 2 or len(b_calls) < 2:
+        raise RuntimeError(f"{maps} maps and {len(b_calls)} BAs: no map change to replay")
+    # a float64 problem: a key of its own, twice
+    p64 = schur_ba.BAProblem(*[torch.from_numpy(x).to("cuda")
+                               for x in _ba_problem_np(np.float64)])
+    for _ in range(3):
+        b_calls.append((_call_of(units["local BA"], (p64,), dict(iters=4)),
+                        schur_ba._bundle_adjust(p64, iters=4)))
+    out = {"L1 window": windows}
+    for kind, calls in (("tracked frame", f_calls), ("local BA", b_calls)):
+        g = _replayed(kind, units[kind], calls)
+        out[kind] = _report_costs(kind, g, calls[-4 if kind == "local BA" else -1][0])
+
+    # the module's runners on a speculating MonoSlam: tracked frames
+    slam = system.MonoSlam(cam, pipelined=True, **PIPE_KW)
+    kinds, costs = [], []
+    for i, (ts, img, _) in enumerate(frames):
+        c0 = _captures()
+        if i < len(frames) - GRAPH_PROFILED:
+            res = slam.process_image(img, ts)
+        else:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res, per = _profile(lambda: slam.process_image(img, ts))
+            costs.append((per.launches, 1e3 * (time.perf_counter() - t)))
+        kinds.append("capture" if _captures() != c0 else _frame_kind(res))
+    slam.flush_pipeline()
+    tracked = [c for c, kd in zip(costs, kinds[-GRAPH_PROFILED:]) if kd == "track"]
+    _log(f"graphs MonoSlam {PIPE_W}x{PIPE_H} speculative, the last {GRAPH_PROFILED} frames "
+         f"under torch.profiler (kind, host-issued launches, wall ms with the profiler): "
+         f"{list(zip(kinds[-GRAPH_PROFILED:], costs))}")
+    if not tracked:
+        raise RuntimeError(f"no profiled frame was a tracked frame: {kinds}")
+    if max(c for c, _ in tracked) > GRAPH_LAUNCH_MAX["frame"]:
+        raise RuntimeError(f"host-issued launches per tracked frame {tracked}, above "
+                           f"{GRAPH_LAUNCH_MAX['frame']}")
+    if windows["graph"]["host"] > GRAPH_LAUNCH_MAX["window"]:
+        raise RuntimeError(f"host-issued launches per replayed window "
+                           f"{windows['graph']['host']}, above {GRAPH_LAUNCH_MAX['window']}")
+    return out
+
+
+def _kernel_nodes(raw_graph: int) -> list:
+    """The function names of the kernel nodes of the cudaGraph_t
+    ``raw_graph`` (CUDA driver API: cuGraphGetNodes, cuGraphNodeGetType,
+    cuGraphKernelNodeGetParams_v2, cuFuncGetName or cuKernelGetName)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what}: CUresult {rc}")
+
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(vp(raw_graph), None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(cu.cuGraphGetNodes(vp(raw_graph), nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:         # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func, grid and block dims, shared
+        # bytes, kernelParams, extra, kern, ctx
+        params = (ctypes.c_byte * 128)()
+        ok(cu.cuGraphKernelNodeGetParams_v2(vp(node), params), "cuGraphKernelNodeGetParams")
+        func = vp.from_buffer(params, 0).value
+        kern = vp.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)), "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def check_graph_nodes():
+    """Every graph the module's runners captured in this run. Each replay
+    on the main path and the app paths launched one of them and added its
+    capture-time counts to the hand kernels' launches; raise unless the
+    kernel nodes of each graph hold exactly the hand kernels its counts
+    say (by name, sym_eig summed over n)."""
+    from eorb_slam_tpu_torch import _graphs
+
+    held, off = {}, []
+    for kind, runner in _runners().items():
+        for entry in runner._entries.values():
+            by = {a: d for (_, a), d in zip(_graphs._COUNTERS, entry.counts)}
+            counted = (by["launches"], by["vjp_launches"], by["ascent_launches"],
+                       sum(by["by_n"].values()))
+            names = _kernel_nodes(entry.graph.raw_graph())
+            nodes = tuple(sum(k in nm for nm in names) for k in HAND_KERNELS)
+            held.setdefault(kind, []).append((counted, len(names)))
+            if nodes != counted:
+                off.append((kind, counted, nodes))
+    _log(f"graph nodes: every captured graph's kernel nodes hold the hand kernels "
+         f"{HAND_KERNELS} its replays count: by kind, (count, kernel nodes) of each graph "
+         f"{held}")
+    if off:
+        raise RuntimeError(f"graphs whose kernel nodes differ from their counts (kind, "
+                           f"counted, nodes): {off}")
 
 
 # ------------------------------------------------------------- the IMU stack
@@ -2700,7 +3168,7 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         else:
             _, per = _profile(lambda: step(slam, sq, i))
             per_frame.append((sum(c for c, _ in per.values()),
-                              sum(us for _, us in per.values()) / 1e3))
+                              sum(us for _, us in per.values()) / 1e3, per.launches))
     states = [s for s, *_ in rec]
     not_ok = [i for i, s in enumerate(states) if s != OK]
     new_maps = [i for i, (_, _, nm, _) in enumerate(rec) if nm]
@@ -2719,8 +3187,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         ate_scale=ev.get("ate_scale"), ate_sim3=sim3.get("ate_rmse"),
         sim3_scale=sim3.get("ate_scale"), path=path, reads=float(np.mean(reads)),
         app_reads=app_reads,
-        launches_frame=float(np.mean([c for c, _ in per_frame])),
-        device_ms=float(np.mean([t for _, t in per_frame])), splat=launches,
+        launches_frame=float(np.mean([c for c, _, _ in per_frame])),
+        device_ms=float(np.mean([t for _, t, _ in per_frame])), splat=launches,
         loop_lines=loop_log.lines, device=out["device"], stats=out["stats"])
     _log(f"run_slam {tag} {slam.img_w}x{slam.img_h}, N={slam.map.N}, K={slam.map.K}, "
          f"M={slam.map.M}, on {out['device']}: {seq}, {n} frames in {out['wall_s']:.3f} s "
@@ -2737,8 +3205,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         app_reads.at_most(tag, READS_APP_MAX[tag])
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
-         f"launches and {r['device_ms']:.2f} ms of device time (each: "
-         f"{[(c, round(t, 2)) for c, t in per_frame]})")
+         f"launches and {r['device_ms']:.2f} ms of device time (each, with the host-issued "
+         f"launches: {[(c, round(t, 2), h) for c, t, h in per_frame]})")
     _log(f"run_slam {tag} accuracy: ATE --eval {r['ate']} m (scale {r['ate_scale']}) over "
          f"{ev.get('ate_n')} poses; Sim3 {r['ate_sim3']} m, fitted scale {r['sim3_scale']}; "
          f"path {path:.4f} m; stats {out['stats']}")
@@ -3380,7 +3848,7 @@ def check_ev_image_small():
     b.set_pose_prior(*(torch.from_numpy(im_np["kf_T"][k]).cuda() for k in (0, 1)),
                      torch.tensor(2.0, device="cuda"))
     again = b.build_mci(win).img
-    if not _same_bits(again, mcis["cuda"]):
+    if not _bits_equal(again, mcis["cuda"]):
         raise RuntimeError("build_mci on the card: two builders' MCIs differ")
     _log(f"build_mci cuda vs cpu, {len(win)} events into {cap} slots, {CM_ITERS} ascent "
          f"steps: " + (f"the ascents agree at every step (max rel {asc_err:.2e}, tol "
@@ -4168,6 +4636,7 @@ def check_dist(work: str):
 
 
 def main() -> int:
+    faulthandler.enable()   # a crash in native code prints where Python was
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -4230,6 +4699,7 @@ def main() -> int:
     check_slice_small()
     run_slice()
     check_l2_small()
+    timed("check_graphs_small", check_graphs_small)
     res = path("EventSlam", run_event_slam)
     path("pipelined MonoSlam", check_pipelined_small)
     check_vi_small()
@@ -4262,6 +4732,9 @@ def main() -> int:
         path("MONOCULAR+loop", run_app_loop, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    _log(f"graph runners over the whole run (captures, keys, replays, capture s): "
+         f"{_graph_stats()}")
+    check_graph_nodes()
     _log(f"sym_eig launches by n per path: {eig_paths}")
     for name, ns in EIG_PATHS_NEED.items():
         missing = [n for n in ns if not eig_paths[name].get(n)]

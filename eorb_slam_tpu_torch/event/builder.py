@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch._host import HostCopy, constant, resolve_device
 from eorb_slam_tpu_torch.event import contrast_max, klt, tensorize
 from eorb_slam_tpu_torch.geometry import lie
@@ -246,6 +247,13 @@ def _window_step(
     return best_img, meta, img_p, pts_p, ok_p
 
 
+# the L1 window as one dispatch, as the reference's jit with static H, W,
+# sigma, cm_iters, cm_stride: on the card one CUDA graph per key (the chunk
+# bucket and count are shapes; have_dpose and cm_stride are static too)
+window_step = _graphs.GraphRunner(
+    _window_step, static=("have_dpose", "H", "W", "sigma", "cm_iters", "cm_stride"))
+
+
 class EventWindowBuilder:
     """Host orchestrator for the L1 window state machine on one device:
     the card (``device=None`` is ``cuda``; without one it raises), or the CPU
@@ -424,7 +432,7 @@ class EventWindowBuilder:
             depth, have_dpose = 1.0, False
         cm_stride = max(1, int(np.ceil(L * C / max(cfg.cm_sample, 1))))
 
-        best_img, meta, img_l, pts_l, ok_l = _window_step(
+        best_img, meta, img_l, pts_l, ok_l = window_step(
             self._to_dev(chunks), self._to_dev(cvalid, torch.bool),
             self._to_dev(np.float32(t1 - t0)), self._to_dev(dts),
             carry[0], carry[1], carry[2],

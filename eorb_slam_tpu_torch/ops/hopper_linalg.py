@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
+
 _LIB = "sym_eig"
 MAX_N = 16
 
@@ -99,3 +101,4 @@ def sym_eig(A: torch.Tensor):
 
 
 sym_eig.by_n = {}     # kernel launches by matrix size n
+_graphs.counted(sym_eig, "by_n")

@@ -53,6 +53,7 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch._host import constant
 
 _LIB = "splat"
@@ -411,3 +412,4 @@ def splat_ascent_se2(xy: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
 splat.launches = 0
 splat.vjp_launches = 0
 splat.ascent_launches = 0
+_graphs.counted(splat, "launches", "vjp_launches", "ascent_launches")

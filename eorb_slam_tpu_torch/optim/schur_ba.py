@@ -25,8 +25,8 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.geometry import camera as cam
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.optim import linalg, robust
@@ -181,8 +181,9 @@ def _schur_pieces(p: BAProblem, kf_T, lm_pos, lam, use_huber: bool):
     Vinv = _inv3x3_cols(V_d) * lm_free[None, None, :]
 
     # camera blocks: one product against the one-hot assignment — each
-    # residual row has support on exactly one 6-wide pose block
-    O2 = F.one_hot(obs_kf_f, K).to(dtype)                        # (MP,K)
+    # residual row has support on exactly one 6-wide pose block (a
+    # comparison, where F.one_hot reads its classes' range on the CPU)
+    O2 = (obs_kf_f[:, None] == torch.arange(K, device=obs_kf_f.device)).to(dtype)  # (MP,K)
     Up = w * (JpA[:, None] * JpA[None] + JpB[:, None] * JpB[None])   # (6,6,MP)
     U = (Up.reshape(36, MP) @ O2).T.reshape(K, 6, 6)
     bj = -(w * (JpA * rA + JpB * rB))                             # (6,MP)
@@ -299,6 +300,13 @@ def _lm_loop(p: BAProblem, iters: int, lam0: float, group=None) -> BAResult:
     return BAResult(kf_T, lm_pos, inlier, cost0, cost)
 
 
-def bundle_adjust(p: BAProblem, iters: int = 10, lam0: float = 1e-4) -> BAResult:
+def _bundle_adjust(p: BAProblem, iters: int = 10, lam0: float = 1e-4) -> BAResult:
     """Single-device Levenberg-Marquardt BA (see `_lm_loop`)."""
     return _lm_loop(p, iters, lam0)
+
+
+# single-device BA as one dispatch, as the reference's jit with static
+# iters: on the card one CUDA graph per key (the problem's shapes). The
+# sharded loop (parallel/dist_ba) all-reduces through its group and stays
+# eager
+bundle_adjust = _graphs.GraphRunner(_bundle_adjust, static=("iters", "lam0"))

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch._host import constant
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie
@@ -204,7 +205,7 @@ def track_flags(res: TrackResult) -> torch.Tensor:
                         torch.isfinite(res.Tcw).all().to(torch.float32)])
 
 
-def track_image_frame(
+def _track_image_frame(
     img: torch.Tensor,          # (H,W) uint8/float
     cam_params: torch.Tensor,
     m: MapState,
@@ -229,6 +230,14 @@ def track_image_frame(
     vel_new = res.Tcw @ lie.se3_inv(T_last)
     T_rel = res.Tcw @ lie.se3_inv(ref_T)
     return res, feats, xy_ud, track_flags(res), vel_new, T_rel
+
+
+# the tracked image frame as one dispatch, as the reference's jit with
+# static max_kp, img_w, img_h: on the card one CUDA graph per key (the image
+# and the map's shapes), whose map inputs are copied in again whenever the
+# map tensors were replaced
+track_image_frame = _graphs.GraphRunner(
+    _track_image_frame, static=("max_kp", "img_w", "img_h"))
 
 
 def match_for_initialization(

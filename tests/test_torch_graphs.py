@@ -1,0 +1,372 @@
+"""The graph runner (``eorb_slam_tpu_torch/_graphs.py``), the port's
+counterpart of ``jax.jit``, on the CPU.
+
+On the card ``GraphRunner`` captures a step once per key into a CUDA graph
+and replays it; a CPU call runs the eager function. Here the runner is
+driven with a stand-in graph class that captures on CPU tensors: its
+capture runs the step on the runner's static buffers and keeps the call,
+and its replay runs that call again on the same buffers (with the launch
+counters held, as a replay runs no Python) and writes the results into the
+captured outputs. That exercises everything the runner does around a graph:
+keys, warm-up, static buffers and their copies, outputs cloned out, the
+counters. The three units of the main path go through it: the L1 window,
+the tracked image frame and local BA's LM loop, each against its eager
+function. Whether a real capture gives the eager bits is the card's
+question (``chip_smoke.check_graphs_small``). No JAX here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import _bits_equal
+from eorb_slam_tpu_torch import _graphs, _host
+from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.io import synth_dataset as tsd
+from eorb_slam_tpu_torch.ops import hopper_linalg, hopper_splat
+from eorb_slam_tpu_torch.optim import schur_ba
+from eorb_slam_tpu_torch.slam import local_mapping
+from eorb_slam_tpu_torch.slam import system as tsys
+from eorb_slam_tpu_torch.slam import tracking
+
+W, H, FX, FPS = 240, 180, 146.25, 20.0
+KW = dict(img_w=W, img_h=H, K=8, M=1024, N=256, max_frames_between_kf=3)
+
+
+class CpuGraph:
+    """A stand-in for ``_graphs.CudaGraph`` on CPU tensors."""
+
+    device_type = "cpu"
+
+    @staticmethod
+    def new_pool():
+        return None
+
+    def capture(self, fn, pool):
+        self.fn = fn
+        self.out = fn()
+        return self.out
+
+    def replay(self):
+        held = _graphs._snapshot()
+        new = self.fn()
+        _graphs._restore(held)
+        dst, src = [], []
+        _graphs._flatten(self.out, dst, "out")
+        _graphs._flatten(new, src, "out")
+        for d, s in zip(dst, src):
+            d.copy_(s)
+
+
+def _runner(unit):
+    """``unit``'s eager function behind a runner with the stand-in graph."""
+    return _graphs.GraphRunner(unit.fn, static=unit.static, graph_cls=CpuGraph)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------ the runner
+
+class Toy(NamedTuple):
+    a: torch.Tensor
+    b: torch.Tensor
+
+
+def _toy(x, m, scale: float, n: int):
+    """A step with a static number, a NamedTuple input and a counted
+    "launch" of each hand kernel."""
+    hopper_splat.splat.launches += 1
+    hopper_splat.splat.ascent_launches += 2
+    hopper_linalg.sym_eig.by_n[4] = hopper_linalg.sym_eig.by_n.get(4, 0) + 1
+    return (x * scale + m.b, (m.a.sum() * n)[None]), m.a + 1
+
+
+def _toy_runner():
+    return _graphs.GraphRunner(_toy, static=("scale", "n"), graph_cls=CpuGraph)
+
+
+def test_captures_once_per_key():
+    r = _toy_runner()
+    x, m = torch.arange(4.0), Toy(torch.ones(3), torch.zeros(4))
+    for _ in range(4):
+        r(x, m, 2.0, 3)
+    assert (r.captures, r.replays, r.keys) == (1, 3, 1)
+    # a static value, an input shape and a map field's shape: each a key
+    r(x, m, 3.0, 3)
+    r(x, m, 3.0, 3)
+    r(torch.arange(5.0), Toy(torch.ones(3), torch.zeros(5)), 3.0, 3)
+    r(torch.arange(5.0), Toy(torch.ones(3), torch.zeros(5)), 3.0, 3)
+    r(x, Toy(torch.ones(6), torch.zeros(4)), 3.0, 3)
+    r(x, Toy(torch.ones(6), torch.zeros(4)), 3.0, 3)
+    assert (r.captures, r.keys) == (4, 4)
+    # a dtype is a key too
+    r(x.double(), Toy(torch.ones(3), torch.zeros(4)), 3.0, 3)
+    assert r.captures == 4
+
+
+def test_python_number_outside_the_key_raises():
+    r = _toy_runner()
+    with pytest.raises(TypeError, match="Python number"):
+        r(2.0, Toy(torch.ones(3), torch.zeros(4)), 2.0, 3)
+    with pytest.raises(TypeError, match="Python number"):
+        r(torch.ones(4), Toy(torch.ones(3), 0.0), 2.0, 3)
+    # the real L1 window: a median depth given as a float
+    a = list(_window_args(1024, False, 0))
+    a[9] = 1.0
+    with pytest.raises(TypeError, match="med_depth"):
+        tb.window_step(*a)
+
+
+def test_outputs_are_not_static_buffers():
+    r = _toy_runner()
+    m = Toy(torch.ones(3), torch.zeros(4))
+    outs = [r(torch.full((4,), float(i)), m, 2.0, 3) for i in range(4)]
+    for i, (d, a) in enumerate(outs):
+        assert torch.equal(d[0], torch.full((4,), 2.0 * i))
+        assert torch.equal(a, torch.full((3,), 2.0))
+    # every call handed out its own tensors
+    ptrs = {t.data_ptr() for d, a in outs for t in (d[0], d[1], a)}
+    assert len(ptrs) == 12
+
+
+def test_replaced_and_written_inputs_are_seen():
+    r = _toy_runner()
+    x = torch.arange(4.0)
+    m = Toy(torch.ones(3), torch.zeros(4))
+    r(x, m, 2.0, 3)
+    r(x, m, 2.0, 3)
+    # a map replaced functionally, as a keyframe replaces it
+    m2 = m._replace(b=torch.full((4,), 5.0), a=torch.full((3,), 2.0))
+    d, a = r(x, m2, 2.0, 3)
+    assert torch.equal(d[0], x * 2.0 + 5.0) and torch.equal(a, torch.full((3,), 3.0))
+    assert torch.equal(d[1], torch.tensor([18.0]))
+    # the same tensor object written in place since the last call
+    x.add_(1.0)
+    d, _ = r(x, m2, 2.0, 3)
+    assert torch.equal(d[0], x * 2.0 + 5.0)
+    # a view of a written base
+    base = torch.zeros(8)
+    v = base[2:6]
+    r(v, m2, 2.0, 3)
+    base[3] = 7.0
+    d, _ = r(v, m2, 2.0, 3)
+    assert d[0][1].item() == 19.0
+
+
+def _writes_its_input(x, m):
+    x.mul_(2.0)
+    return x + m.a
+
+
+def test_a_step_that_writes_its_input_raises():
+    """A replay would write the static buffer, not the caller's tensor: the
+    capture refuses such a step."""
+    r = _graphs.GraphRunner(_writes_its_input, graph_cls=CpuGraph)
+    x, m = torch.ones(3), Toy(torch.ones(3), torch.zeros(4))
+    r(x, m)
+    assert torch.equal(x, torch.full((3,), 2.0))
+    with pytest.raises(ValueError, match="in place"):
+        r(x, m)
+    assert r.captures == 0
+
+
+def test_counters_advance_by_the_capture_time_counts():
+    r = _toy_runner()
+    m = Toy(torch.ones(3), torch.zeros(4))
+    hopper_splat.splat.launches = hopper_splat.splat.ascent_launches = 0
+    hopper_linalg.sym_eig.by_n = {}
+    for i in range(1, 5):     # eager, capture + replay, replay, replay
+        r(torch.ones(4), m, 2.0, 3)
+        assert (hopper_splat.splat.launches, hopper_splat.splat.ascent_launches,
+                hopper_linalg.sym_eig.by_n) == (i, 2 * i, {4: i})
+    assert r.captures == 1
+    hopper_splat.splat.launches = hopper_splat.splat.ascent_launches = 0
+    hopper_linalg.sym_eig.by_n = {}
+
+
+def test_cpu_tensors_run_the_eager_function():
+    """The module's runners run CPU calls eagerly: no capture, the eager
+    function's values."""
+    prob = _ba_problem()
+    before = schur_ba.bundle_adjust.captures
+    for _ in range(3):
+        got = schur_ba.bundle_adjust(prob, iters=3)
+    assert schur_ba.bundle_adjust.captures == before
+    assert _bits_equal(got, schur_ba._bundle_adjust(prob, iters=3))
+
+
+# ------------------------------------------------------- the three units
+
+def _window_args(C, have_dpose, seed, L=3):
+    """One L1 window's inputs at chunk bucket ``C``: events of a moving
+    point cloud, a KLT carry and the L2 pose prior."""
+    rng = np.random.default_rng(seed)
+    n = C - 100
+    chunks = np.zeros((L, C, 4), np.float32)
+    cvalid = np.zeros((L, C), bool)
+    pts = np.stack([rng.uniform(20, W - 20, 60), rng.uniform(20, H - 20, 60)], 1)
+    for i in range(L):
+        k = rng.integers(0, len(pts), n)
+        t = np.sort(rng.uniform(i * 0.002, (i + 1) * 0.002, n))
+        chunks[i, :n, 0] = t
+        chunks[i, :n, 1] = pts[k, 0] + 400.0 * t + rng.normal(0, 0.3, n)
+        chunks[i, :n, 2] = pts[k, 1] + rng.normal(0, 0.3, n)
+        chunks[i, :n, 3] = rng.choice([-1.0, 1.0], n)
+        cvalid[i, :n] = True
+    T = np.eye(4, dtype=np.float32)
+    T1 = T.copy()
+    T1[0, 3] = 0.01
+    f = torch.from_numpy
+    return (f(chunks), f(cvalid), torch.tensor(0.002 * L), torch.full((L,), 0.002),
+            torch.zeros(H, W), torch.zeros(16, 2), torch.zeros(16, dtype=torch.bool),
+            f(T), f(T1), torch.tensor(3.0), have_dpose,
+            torch.tensor([199.0, 199.0, 120.0, 90.0, 0, 0, 0, 0]),
+            H, W, 1.0, 3, 2)
+
+
+def test_window_step_replays_the_eager_window():
+    """A window sequence through the runner and eagerly: the chunk bucket
+    and have_dpose change on the way, the KLT carry feeds each next window;
+    every output bit-equal."""
+    r = _runner(tb.window_step)
+    plan = [(1024, False)] * 3 + [(2048, False)] * 2 + [(1024, True)] * 2
+    carry = None
+    for i, (C, dpose) in enumerate(plan):
+        a = list(_window_args(C, dpose, i))
+        if carry is not None:
+            a[4:7] = carry
+        got = r(*a)
+        want = tb._window_step(*a)
+        assert _bits_equal(got, want), i
+        carry = got[2:]
+    assert (r.captures, r.keys, r.replays) == (3, 3, 4)
+
+
+def test_window_step_second_call_builds_no_constant():
+    a = _window_args(1024, True, 0)
+    tb._window_step(*a)
+    misses = _host.constant.cache_info().misses
+    tb._window_step(*a)
+    assert _host.constant.cache_info().misses == misses
+
+
+@pytest.fixture(scope="module")
+def tracked():
+    """A MonoSlam past its initialisation on the corridor at 240x180, its
+    next frames, and the map after one more keyframe."""
+    render = tsd.make_box_renderer("corridor", W, H, FX, device="cpu")
+    pose = tsd.make_trajectory("corridor", 10.0)
+    frames = [(i / FPS, (render(np.asarray(pose(i / FPS), np.float32)) * 255.0)
+               .to(torch.uint8)) for i in range(8)]
+    cam = np.asarray([FX, FX, W / 2.0, H / 2.0, 0, 0, 0, 0, 0], np.float32)
+    slam = tsys.MonoSlam(cam, pipelined=False, device="cpu", **KW)
+    for i, (ts, img) in enumerate(frames):
+        slam.process_image(img, ts)
+        if slam.state == tsys.OK:
+            break
+    else:
+        pytest.fail("the corridor did not initialise")
+    m0 = slam.map
+    kf0 = slam.stats["kf"]
+    rest = frames[i + 1:]
+    for ts, img in rest:
+        slam.process_image(img, ts)
+        if slam.stats["kf"] != kf0:
+            break
+    assert slam.map is not m0
+    return slam, m0, slam.map, [img for _, img in rest]
+
+
+def test_track_image_frame_replays_the_eager_frame(tracked):
+    """Frames through the runner and eagerly, against the map after the
+    initialisation and then against the map a keyframe replaced: every
+    output bit-equal, one capture (the map's shapes stay)."""
+    slam, m0, m1, imgs = tracked
+    r = _runner(tracking.track_image_frame)
+    kw = dict(max_kp=slam.map.N, img_w=W, img_h=H)
+    for m in (m0, m0, m0, m1, m1):
+        for img in imgs[:2]:
+            a = (img, slam.cam, m, slam.velocity, slam.T_last, m.kf_T[0])
+            got = r(*a, **kw)
+            assert _bits_equal(got, tracking._track_image_frame(*a, **kw))
+    assert (r.captures, r.keys, r.replays) == (1, 1, 9)
+    # outputs of the map change differ from those before it
+    a0 = (imgs[0], slam.cam, m0, slam.velocity, slam.T_last, m0.kf_T[0])
+    a1 = (imgs[0], slam.cam, m1, slam.velocity, slam.T_last, m1.kf_T[0])
+    assert not _bits_equal(r(*a0, **kw), r(*a1, **kw))
+
+
+def test_track_image_frame_second_call_builds_no_constant(tracked):
+    slam, m0, _, imgs = tracked
+    a = (imgs[0], slam.cam, m0, slam.velocity, slam.T_last, m0.kf_T[0])
+    kw = dict(max_kp=slam.map.N, img_w=W, img_h=H)
+    tracking._track_image_frame(*a, **kw)
+    misses = _host.constant.cache_info().misses
+    tracking._track_image_frame(*a, **kw)
+    assert _host.constant.cache_info().misses == misses
+
+
+def _ba_problem(K=6, M=96, P=4, seed=0, dtype=np.float32):
+    """A landmark-major BA problem (BAProblem order): K poses on a line,
+    two fixed, M points 4-8 m away, P noisy observations each, the
+    landmarks perturbed by 2 cm."""
+    rng = np.random.default_rng(seed)
+    lm = np.concatenate([rng.uniform(-2, 2, (M, 2)), rng.uniform(4, 8, (M, 1))], 1)
+    Ts = np.tile(np.eye(4), (K, 1, 1))
+    Ts[:, 0, 3] = -0.25 * np.arange(K)
+    obs_kf = rng.integers(0, K, (M, P)).astype(np.int32)
+    pc = np.einsum("mpij,mj->mpi", Ts[obs_kf][..., :3, :3], lm) + Ts[obs_kf][..., :3, 3]
+    uv = np.stack([FX * pc[..., 0] / pc[..., 2] + W / 2.0,
+                   FX * pc[..., 1] / pc[..., 2] + H / 2.0], -1)
+    uv += rng.normal(0, 0.3, uv.shape)
+    cam = np.asarray([FX, FX, W / 2.0, H / 2.0, 0, 0, 0, 0, 0])
+    return schur_ba.BAProblem(*(torch.from_numpy(np.asarray(x)) for x in (
+        cam.astype(dtype), Ts.astype(dtype), np.asarray([True, True] + [False] * (K - 2)),
+        np.ones(K, bool), (lm + rng.normal(0, 0.02, lm.shape)).astype(dtype),
+        np.ones(M, bool), obs_kf, uv.astype(dtype), np.ones((M, P), dtype),
+        pc[..., 2] > 0.1)))
+
+
+def test_bundle_adjust_replays_the_eager_solve(tracked):
+    """Problems through the runner and eagerly: a new seed (same shapes),
+    a new iteration count and float64 (new keys), and local BA over the
+    corridor maps; every output bit-equal."""
+    slam, m0, m1, _ = tracked
+    r = _runner(schur_ba.bundle_adjust)
+    for seed, iters, dtype in ((0, 4, np.float32), (1, 4, np.float32), (2, 4, np.float32),
+                               (2, 2, np.float32), (3, 2, np.float32),
+                               (3, 2, np.float64), (4, 2, np.float64)):
+        p = _ba_problem(seed=seed, dtype=dtype)
+        assert _bits_equal(r(p, iters=iters), schur_ba._bundle_adjust(p, iters=iters))
+    assert (r.captures, r.keys, r.replays) == (3, 3, 4)
+    # the keyframe path's problem: local_ba with its BA swapped for the runner
+    free = m1.kf_valid.clone()
+    free[0] = False
+    want = local_mapping.local_ba(m1, slam.cam, free)
+    orig = schur_ba.bundle_adjust
+    schur_ba.bundle_adjust = r
+    try:
+        # eager, captured at m0, replayed at the map a keyframe replaced
+        got = [local_mapping.local_ba(m, slam.cam, free) for m in (m0, m0, m1)]
+    finally:
+        schur_ba.bundle_adjust = orig
+    assert r.captures == 4
+    assert _bits_equal(got[2], want) and not _bits_equal(got[1], want)
+
+
+def test_bundle_adjust_second_call_builds_no_constant():
+    p = _ba_problem()
+    schur_ba._bundle_adjust(p, iters=2)
+    misses = _host.constant.cache_info().misses
+    schur_ba._bundle_adjust(p, iters=2)
+    assert _host.constant.cache_info().misses == misses

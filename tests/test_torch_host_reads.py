@@ -12,7 +12,8 @@ copies pageable memory to the card with a synchronising memcpy unless
 port that made it. Every check warms up once first, so that constants cached
 per device are built.
 
-Cases: the pose-only GN, ``track_image_frame``, ``MonoSlam.process_image``
+Cases: the pose-only GN, local BA's LM loop (``schur_ba.bundle_adjust``),
+``track_image_frame``, ``MonoSlam.process_image``
 on tracked frames that insert no keyframe (synchronous and speculative),
 ``EventWindowBuilder.step_window`` (host data staged only by the named
 helpers), one keyframe insertion (a stated small count), and the inertial
@@ -41,9 +42,10 @@ from eorb_slam_tpu_torch.event import builder as tb
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
-from eorb_slam_tpu_torch.optim import marginalize, pose_only
+from eorb_slam_tpu_torch.optim import marginalize, pose_only, schur_ba
 from eorb_slam_tpu_torch.slam import system as tsys
 from eorb_slam_tpu_torch.slam import tracking, vi_system
+from tests.test_torch_graphs import _ba_problem
 
 PKG = os.path.dirname(os.path.abspath(tsys.__file__)).rsplit(os.sep, 1)[0]
 aten = torch.ops.aten
@@ -144,6 +146,17 @@ def test_pose_optimization_reads_nothing():
     assert torch.isfinite(Tcw).all() and int(n_inl) > 0
 
 
+def test_bundle_adjust_reads_nothing():
+    """Local BA's LM loop (accept and reject on the device) reads nothing
+    and lifts no host data once warmed up."""
+    prob = _ba_problem()
+    schur_ba.bundle_adjust(prob, iters=4)
+    with HostReads() as hr:
+        res = schur_ba.bundle_adjust(prob, iters=4)
+    assert not hr.reads and not hr.lifts, (hr.reads, hr.lifts)
+    assert float(res.cost) < float(res.cost0)
+
+
 def test_se3_copies_its_bottom_row_once():
     """``lie.se3`` lifts no constant once its cached row exists, and keeps
     its values."""
@@ -216,9 +229,9 @@ def test_keyframe_insertion_reads_a_few(runs, pipelined):
         assert _where(hr.lifts) <= KF_LIFTS, hr.lifts
 
 
-# F.one_hot checks its classes' range with two reads on the CPU only (on
-# the card a device assert does it), once per LM iteration of the local BA
-KF_READS = {"optim/schur_ba.py _schur_pieces"}
+# none: the local BA's one-hot camera assignment is a comparison (F.one_hot
+# read its classes' range twice per LM iteration on the CPU)
+KF_READS: set = set()
 # the BA window's (K,) mask: host data, staged without blocking
 KF_LIFTS = {"slam/system.py _ba_window"}
 
