@@ -52,14 +52,16 @@ float64 landmark-sharded BA. Beside the splat kernels it builds the
 status-free eigensolver (csrc/sym_eig.cu, one nvcc of its own, started
 with the others) and holds it against torch.linalg.eigh on the card at
 every call site's (n, batch), float32 and float64 (check_kernel_sym_eig),
-and counts its launches per path and per step. The three one-dispatch
-steps of the main path (the L1 window, the tracked image frame, local BA's
-LM loop) run on the card as CUDA-graph replays (eorb_slam_tpu_torch/
-_graphs.py); check_graphs_small holds each replay against its eager step
-bit for bit across a key change and a map change and prints, eager against
-replayed, the host-issued launches, device kernels, device ms and wall ms
-per step, and EventSlam, MONOCULAR and that phase gate the host-issued
-launches per tracked frame or MCI and per L1 window (GRAPH_LAUNCH_MAX). A
+and counts its launches per path and per step. The six one-dispatch
+steps (the L1 window, the tracked image frame, local BA's LM loop, the
+keyframe mapping step, the tracked inertial frame, VI-BA's LM loop) run on
+the card as CUDA-graph replays (eorb_slam_tpu_torch/_graphs.py);
+check_graphs_small holds each replay against its eager step bit for bit
+across a key change and a map change and prints, eager against replayed,
+the host-issued launches, device kernels, device ms and wall ms per step,
+and EventSlam, MONOCULAR, IMU_MONOCULAR and that phase gate the
+host-issued launches per tracked frame or MCI, per keyframe frame or MCI,
+per tracked inertial frame and per L1 window (GRAPH_LAUNCH_MAX). A
 replay runs no Python, so it adds the hand kernels' launches counted at
 capture: EventSlam holds each profiled step's counts against the kernels
 the profiler saw run, and check_graph_nodes, at the end, holds every
@@ -162,7 +164,8 @@ MONO_FRAMES, MONO_PROFILED = 40, 2
 # tools/vi_init_check.py); the port's own RANSAC draws initialize earlier on
 # the card (PERF.md). VI_FRAMES are timed, then VI_EXTRA frames run under
 # the sync counter and the profiler.
-VI_GEN_FRAMES, VI_FRAMES, VI_EXTRA, VI_INIT_REF, VI_ROOM_S = 84, 60, 2, 71, 10.0
+VI_GEN_FRAMES, VI_FRAMES, VI_EXTRA, VI_INIT_REF, VI_ROOM_S = 84, 60, 6, 71, 10.0
+VI_READ_FRAMES = 1         # of the VI_EXTRA frames, under the blocking-read counter
 # STEREO, RGBD and IMU_STEREO at the configs/synth_euroc_{stereo,rgbd,
 # imu_stereo}.yaml width share one generated corridor_st_01 (cam1 at
 # bf / fx = 0.11 m, depth0); each runs its frames through run_slam, then
@@ -192,10 +195,21 @@ PIPE_KW = dict(img_w=PIPE_W, img_h=PIPE_H, K=8, M=1024, N=256, max_frames_betwee
 PIPE_PROFILED = 2          # its last frames, under the profiler
 # the graph runner (eorb_slam_tpu_torch/_graphs.py): host-issued launches
 # (HOST_LAUNCH_APIS, by the profiler) per steady step, a tracked frame or
-# L2 MCI and an L1 window; check_graphs_small's recorded sequences
-GRAPH_LAUNCH_MAX = {"frame": 100, "window": 50}
+# L2 MCI, an L1 window, a keyframe frame or MCI (the tracked frame's replay,
+# the mapping step's replay and the eager culling) and a tracked inertial
+# frame; check_graphs_small's recorded sequences
+GRAPH_LAUNCH_MAX = {"frame": 100, "window": 50, "keyframe": 100, "vi frame": 100}
 GRAPH_WINDOWS, GRAPH_STREAM_S = 9, 0.12     # L1 windows from this much stream
 GRAPH_FRAMES, GRAPH_PROFILED = 20, 4        # corridor frames, the last profiled
+# the keyframe mapping step at a second map capacity (landmarks), a key of
+# its own: a MonoSlam run until it has made this many mapping steps
+GRAPH_M2, GRAPH_KF2 = 2048, 3
+# the inertial frame step: IMU windows of these sample counts (200 Hz at
+# 20 and 40 fps: buckets of 16 and 8), each against the last keyframe and
+# against a PoseImuPrior; VI-BA at the keyframe path's iterations (8 per
+# keyframe, 24 after an init or a scale refinement) on a problem of
+# GRAPH_VIBA (K, M)
+GRAPH_IMU_S, GRAPH_VIBA_ITERS, GRAPH_VIBA = (10, 5), (8, 24), (16, 1024)
 # blocking host reads (_Syncs): a tracked frame or MCI reads at most its
 # (2,) flags, whether or not it inserts a keyframe (the keyframe's
 # triangulations and the inertial frame's prior decompose through the
@@ -317,11 +331,13 @@ def _runners() -> dict:
     """The port's graph runners (the reference's one-dispatch steps) by
     kind of step."""
     from eorb_slam_tpu_torch.event import builder
-    from eorb_slam_tpu_torch.optim import schur_ba
-    from eorb_slam_tpu_torch.slam import tracking
+    from eorb_slam_tpu_torch.optim import schur_ba, vi_ba
+    from eorb_slam_tpu_torch.slam import local_mapping, tracking, vi_system
 
     return {"L1 window": builder.window_step, "tracked frame": tracking.track_image_frame,
-            "local BA": schur_ba.bundle_adjust}
+            "local BA": schur_ba.bundle_adjust,
+            "keyframe mapping": local_mapping.keyframe_mapping_step,
+            "VI frame": vi_system.vi_frame_step, "VI-BA": vi_ba.vi_bundle_adjust}
 
 
 def _captures() -> int:
@@ -1442,11 +1458,13 @@ def run_event_slam():
     reads.at_most("EventSlam", {"L1": READS_L1_MAX, "L2 track": READS_TRACK_MAX,
                                 "L2 KF": READS_KF_MAX})
     over = [(kd, c) for kd, c in host
-            if c > {"L1": GRAPH_LAUNCH_MAX["window"], "L2 track": GRAPH_LAUNCH_MAX["frame"]}
-            .get(kd, c)]
+            if c > {"L1": GRAPH_LAUNCH_MAX["window"], "L2 track": GRAPH_LAUNCH_MAX["frame"],
+                    "L2 KF": GRAPH_LAUNCH_MAX["keyframe"]}.get(kd, c)]
+    kf_host = [c for kd, c in host if kd == "L2 KF"]
+    _log(f"EventSlam under torch.profiler: host-issued launches per keyframe MCI {kf_host}")
     if over:
         raise RuntimeError(f"EventSlam: host-issued launches above {GRAPH_LAUNCH_MAX} "
-                           f"(window, tracked MCI): {over}")
+                           f"(window, tracked MCI, keyframe MCI): {over}")
     _log(f"EventSlam map: {l2.n_kf} keyframes, {n_lm} landmarks, "
          f"{l2.stats['lost']} lost windows, {l2.kf_culled} KFs culled, "
          f"{len(traj)} trajectory poses; stats {slam.stats}")
@@ -1754,6 +1772,9 @@ def run_app_monocular(work: str):
     if any(kd == "track" and c > GRAPH_LAUNCH_MAX["frame"] for kd, c in host):
         raise RuntimeError(f"host-issued launches per tracked frame above "
                            f"{GRAPH_LAUNCH_MAX['frame']}: {host}")
+    if any(kd == "KF" and c > GRAPH_LAUNCH_MAX["keyframe"] for kd, c in host):
+        raise RuntimeError(f"host-issued launches per keyframe frame above "
+                           f"{GRAPH_LAUNCH_MAX['keyframe']}: {host}")
     if stats.get("fuse_steps", 0) < 1 or stats.get("refresh_steps", 0) < 1:
         raise RuntimeError(f"no mapping step ran fusion and the refresh: {stats}")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and ev["ate_n"] >= 0.8 * len(after)):
@@ -2120,10 +2141,10 @@ def _replayed(kind, unit, calls):
     return g
 
 
-def _report_costs(kind, g, kw):
-    """Print one step's cost eagerly and replayed (the call ``g(**kw)``);
-    returns both."""
-    eager, per_e = _step_cost(lambda: g.fn(**kw))
+def _report_costs(kind, g, kw, eager_reps=3):
+    """Print one step's cost eagerly and replayed (the call ``g(**kw)``;
+    the eager wall ms a mean of ``eager_reps`` calls); returns both."""
+    eager, per_e = _step_cost(lambda: g.fn(**kw), reps=eager_reps)
     graph, per_g = _step_cost(lambda: g(**kw))
     n, mb, host_us = _copy_in_cost(g, kw)
     # the device activities whose counts differ, eager against replayed
@@ -2142,24 +2163,91 @@ def _report_costs(kind, g, kw):
     return dict(eager=eager, graph=graph, copy_in=dict(tensors=n, mb=mb, host_us=host_us))
 
 
+def _vi_frame_calls(unit, slam, m_old, imgs) -> list:
+    """Calls of the inertial frame step on ``slam``'s corridor (its map and
+    the earlier ``m_old``, its last frames ``imgs``), each with its eager
+    outputs: IMU windows of GRAPH_IMU_S samples (a bucket each, as
+    MonoInertialSlam pads them), against the last keyframe and against the
+    PoseImuPrior that a step against the keyframe emitted (three keys, each
+    captured on its second call, the first replayed once more on another
+    map)."""
+    from eorb_slam_tpu_torch.imu import preintegration as pre_mod
+    from eorb_slam_tpu_torch.slam import vi_system
+
+    dev = slam.cam.device
+    calib = pre_mod.make_calib(device=dev)
+    z3 = torch.zeros(3, device=dev)
+    rng = np.random.default_rng(7)
+    m_new = slam.map
+    calls, prior = [], None
+    # (samples, against the prior, map, image): each key's first call is
+    # eager, its second captures and replays on another map or image; the
+    # first key's third call replays on inputs other than the capture's
+    big, small = GRAPH_IMU_S
+    plan = [(big, False, m_new, 0), (big, False, m_old, 1), (big, False, m_new, 1),
+            (big, True, m_new, 0), (big, True, m_old, 1),
+            (small, True, m_new, 1), (small, True, m_new, 0)]
+    for S, use_prior, m, k in plan:
+        chunk = vi_system.ImuChunk(
+            gyro=rng.normal(0, 0.05, (S, 3)).astype(np.float32),
+            acc=(rng.normal(0, 0.2, (S, 3)) + [0, 0, 9.81]).astype(np.float32),
+            dts=np.full(S, 1.0 / 200.0, np.float32))
+        kfs = torch.nonzero(m.kf_valid).flatten().tolist()
+        kw = dict(img=imgs[k], cam_params=slam.cam, m=m,
+                  **dict(zip(("gyro", "acc", "dts", "imu_ok"),
+                             vi_system._chunk_tensors(chunk, dev, pad=True))),
+                  T_last=slam.T_last, vel=z3, bg=z3, ba=z3,
+                  pre_since_kf=pre_mod.identity_preintegrated(device=dev),
+                  T_kf=m.kf_T[kfs[-1]], vel_kf=z3, prior=prior if use_prior else None,
+                  ref_T=m.kf_T[kfs[0]], calib=calib, min_inl_retry=slam.min_track_inliers,
+                  max_kp=m.N, img_w=PIPE_W, img_h=PIPE_H)
+        out = unit.fn(**kw)
+        if not use_prior:
+            prior = _cloned(out[12])
+        calls.append((_call_of(unit, (), kw), _cloned(out)))
+    buckets = sorted({(kw["gyro"].shape[0], kw["prior"] is not None) for kw, _ in calls})
+    _log(f"graphs VI frame: {len(calls)} steps, (IMU bucket, prior) keys {buckets}")
+    return calls
+
+
+def _vi_ba_calls(unit) -> list:
+    """VI-BA calls at each of GRAPH_VIBA_ITERS iterations on problems of
+    GRAPH_VIBA (K, M), new states each, each with its eager outputs; every
+    key replayed once, the first twice."""
+    K, M = GRAPH_VIBA
+    calls = []
+    for i, iters in enumerate(GRAPH_VIBA_ITERS):
+        for seed in range(3 if i == 0 else 2):
+            p = _vi_ba_problem(K, M, 10 * i + seed, "cuda", torch.float32)
+            calls.append((_call_of(unit, (p,), dict(iters=iters)), unit.fn(p, iters=iters)))
+    return calls
+
+
 def check_graphs_small():
     """The graph runner against the eager steps on the card. Each of the
-    three units (the L1 window, the tracked image frame, local BA's LM loop)
-    is recorded eagerly through its user entry point, then every recorded
-    call runs eagerly again and through a fresh GraphRunner: every output
-    bit-equal. The window sequence changes its chunk bucket and then gains
-    the L2 pose prior (have_dpose), each a new key; the frames and the BAs
-    cross keyframes (a map the runner copies in anew), and a float64 BA is
-    a key of its own. Per kind of step: host-issued launches, device
-    kernels, device ms and wall ms, eager against replayed; the replayed
-    window's splat counts against the profiler's kernels; the host time of
-    a replay's copy-in (every input tensor copied, none skipped). Then MonoSlam
-    with speculation, through the module's runners: host-issued launches
-    per tracked frame within GRAPH_LAUNCH_MAX."""
+    six units (the L1 window, the tracked image frame, local BA's LM loop,
+    the keyframe mapping step, the tracked inertial frame, VI-BA's LM loop)
+    is recorded eagerly, then every recorded call runs eagerly again and
+    through a fresh GraphRunner: every output bit-equal. The window
+    sequence changes its chunk bucket and then gains the L2 pose prior
+    (have_dpose), each a new key; the frames, the BAs and the mapping steps
+    cross keyframes (a map the runner copies in anew), a float64 BA is a key
+    of its own and so is the mapping step at a second map capacity. The
+    frames, the BAs and the mapping steps come through MonoSlam's entry
+    point, the windows through step_window; the inertial frame
+    runs on that MonoSlam's maps and frames with IMU windows of two buckets,
+    against the last keyframe and against the PoseImuPrior its own step
+    emitted (each a key); VI-BA at 8 and 24 iterations. Per kind of step:
+    host-issued launches, device kernels, device ms and wall ms, eager
+    against replayed; the replayed window's splat counts against the
+    profiler's kernels; the host time of a replay's copy-in (every input
+    tensor copied, none skipped). Then MonoSlam with speculation, through
+    the module's runners: host-issued launches per tracked frame and per
+    keyframe frame within GRAPH_LAUNCH_MAX."""
     from eorb_slam_tpu_torch.event import builder as eb
     from eorb_slam_tpu_torch.geometry import lie
     from eorb_slam_tpu_torch.optim import schur_ba
-    from eorb_slam_tpu_torch.slam import system, tracking
+    from eorb_slam_tpu_torch.slam import local_mapping, system, tracking
 
     units = _runners()
 
@@ -2205,36 +2293,62 @@ def check_graphs_small():
         raise RuntimeError(f"a replayed window counted {counted}, ran {seen}")
     del w_calls, bld
 
-    # MonoSlam on the rendered corridor, synchronous: its tracked frames
-    # and its keyframes' local BAs
-    f_calls, b_calls = [], []
+    # MonoSlam on the rendered corridor, synchronous: its tracked frames,
+    # its keyframes' mapping steps and their local BAs
+    f_calls, b_calls, k_calls = [], [], []
     frames = _pipe_frames(GRAPH_FRAMES)
     cam = np.asarray([PIPE_FX, PIPE_FX, PIPE_W / 2, PIPE_H / 2, 0, 0, 0, 0, 0], np.float32)
     slam = system.MonoSlam(cam, pipelined=False, **PIPE_KW)
     tracking.track_image_frame = recorder(units["tracked frame"], f_calls)
     schur_ba.bundle_adjust = recorder(units["local BA"], b_calls)
+    local_mapping.keyframe_mapping_step = recorder(units["keyframe mapping"], k_calls)
     try:
         for ts, img, _ in frames:
             slam.process_image(img, ts)
+        # the mapping step at a second map capacity: a key of its own (its
+        # frames and BAs go through the module's runners, unrecorded)
+        tracking.track_image_frame = units["tracked frame"]
+        schur_ba.bundle_adjust = units["local BA"]
+        slam2 = system.MonoSlam(cam, pipelined=False, **dict(PIPE_KW, M=GRAPH_M2))
+        n1 = len(k_calls)
+        for ts, img, _ in frames:
+            slam2.process_image(img, ts)
+            if len(k_calls) - n1 >= GRAPH_KF2:
+                break
     finally:
         tracking.track_image_frame = units["tracked frame"]
         schur_ba.bundle_adjust = units["local BA"]
+        local_mapping.keyframe_mapping_step = units["keyframe mapping"]
     maps = 1 + sum(not _bits_equal(f_calls[i - 1][0]["m"], f_calls[i][0]["m"])
                    for i in range(1, len(f_calls)))
+    caps = sorted({kw["m"].M for kw, _ in k_calls})
     _log(f"graphs tracked frame: {len(f_calls)} frames over {maps} maps "
-         f"({slam.stats['kf']} keyframes)")
+         f"({slam.stats['kf']} keyframes); keyframe mapping: {len(k_calls)} steps at map "
+         f"capacities {caps}")
     if maps < 2 or len(b_calls) < 2:
         raise RuntimeError(f"{maps} maps and {len(b_calls)} BAs: no map change to replay")
+    if len(caps) < 2 or n1 < 3 or len(k_calls) - n1 < 2:
+        raise RuntimeError(f"keyframe mapping steps {n1} and {len(k_calls) - n1} at map "
+                           f"capacities {caps}: no replay at two capacities")
     # a float64 problem: a key of its own, twice
     p64 = schur_ba.BAProblem(*[torch.from_numpy(x).to("cuda")
                                for x in _ba_problem_np(np.float64)])
     for _ in range(3):
         b_calls.append((_call_of(units["local BA"], (p64,), dict(iters=4)),
                         schur_ba._bundle_adjust(p64, iters=4)))
+    vi_calls = _vi_frame_calls(units["VI frame"], slam, f_calls[0][0]["m"],
+                               [img for _, img, _ in frames[-2:]])
+    viba_calls = _vi_ba_calls(units["VI-BA"])
     out = {"L1 window": windows}
-    for kind, calls in (("tracked frame", f_calls), ("local BA", b_calls)):
+    for kind, calls in (("tracked frame", f_calls), ("local BA", b_calls),
+                        ("keyframe mapping", k_calls), ("VI frame", vi_calls),
+                        ("VI-BA", viba_calls)):
         g = _replayed(kind, units[kind], calls)
-        out[kind] = _report_costs(kind, g, calls[-4 if kind == "local BA" else -1][0])
+        # the inertial steps take ~1 s eagerly: one timed eager call, and
+        # VI-BA's at the per-keyframe 8 iterations
+        at = {"local BA": -4, "VI-BA": 2}.get(kind, -1)
+        out[kind] = _report_costs(kind, g, calls[at][0],
+                                  eager_reps=1 if kind.startswith("VI") else 3)
 
     # the module's runners on a speculating MonoSlam: tracked frames
     slam = system.MonoSlam(cam, pipelined=True, **PIPE_KW)
@@ -2251,6 +2365,7 @@ def check_graphs_small():
         kinds.append("capture" if _captures() != c0 else _frame_kind(res))
     slam.flush_pipeline()
     tracked = [c for c, kd in zip(costs, kinds[-GRAPH_PROFILED:]) if kd == "track"]
+    kf = [c for c, kd in zip(costs, kinds[-GRAPH_PROFILED:]) if kd == "KF"]
     _log(f"graphs MonoSlam {PIPE_W}x{PIPE_H} speculative, the last {GRAPH_PROFILED} frames "
          f"under torch.profiler (kind, host-issued launches, wall ms with the profiler): "
          f"{list(zip(kinds[-GRAPH_PROFILED:], costs))}")
@@ -2259,6 +2374,9 @@ def check_graphs_small():
     if max(c for c, _ in tracked) > GRAPH_LAUNCH_MAX["frame"]:
         raise RuntimeError(f"host-issued launches per tracked frame {tracked}, above "
                            f"{GRAPH_LAUNCH_MAX['frame']}")
+    if kf and max(c for c, _ in kf) > GRAPH_LAUNCH_MAX["keyframe"]:
+        raise RuntimeError(f"host-issued launches per keyframe frame {kf}, above "
+                           f"{GRAPH_LAUNCH_MAX['keyframe']}")
     if windows["graph"]["host"] > GRAPH_LAUNCH_MAX["window"]:
         raise RuntimeError(f"host-issued launches per replayed window "
                            f"{windows['graph']['host']}, above {GRAPH_LAUNCH_MAX['window']}")
@@ -2308,7 +2426,9 @@ def check_graph_nodes():
     on the main path and the app paths launched one of them and added its
     capture-time counts to the hand kernels' launches; raise unless the
     kernel nodes of each graph hold exactly the hand kernels its counts
-    say (by name, sym_eig summed over n)."""
+    say (by name, sym_eig summed over n), every keyframe mapping graph
+    holds its triangulations' sym_eig nodes, and the app paths captured a
+    mapping, an inertial frame and a VI-BA graph."""
     from eorb_slam_tpu_torch import _graphs
 
     held, off = {}, []
@@ -2322,12 +2442,20 @@ def check_graph_nodes():
             held.setdefault(kind, []).append((counted, len(names)))
             if nodes != counted:
                 off.append((kind, counted, nodes))
+            # the mapping step triangulates against its 4 partners, each
+            # through the sym_eig kernel, inside its one graph
+            if kind == "keyframe mapping" and nodes[3] < 4:
+                off.append((kind, counted, nodes))
     _log(f"graph nodes: every captured graph's kernel nodes hold the hand kernels "
          f"{HAND_KERNELS} its replays count: by kind, (count, kernel nodes) of each graph "
          f"{held}")
     if off:
-        raise RuntimeError(f"graphs whose kernel nodes differ from their counts (kind, "
+        raise RuntimeError(f"graphs whose kernel nodes differ from their counts, or a "
+                           f"mapping graph without its triangulations' sym_eig nodes (kind, "
                            f"counted, nodes): {off}")
+    missing = [k for k in ("keyframe mapping", "VI frame", "VI-BA") if k not in held]
+    if missing:
+        raise RuntimeError(f"no path captured a graph of {missing}")
 
 
 # ------------------------------------------------------------- the IMU stack
@@ -2605,20 +2733,24 @@ def run_app_imu_monocular(work: str):
     ms_map = 1e3 * sum(t_map) / max(n, 1)
     # blocking reads, then launches and device time, per frame
     dt_frame = float(np.median(np.diff(seq.image_ts)))
-    reads, per_frame = [], []
+    reads, per_frame, host = [], [], []
     for k, i in enumerate(range(VI_FRAMES, VI_FRAMES + VI_EXTRA)):
         img = to_device((seq.image(i) * 255.0).astype(np.uint8), slam.device)
         t, t_prev = float(seq.image_ts[i]), float(seq.image_ts[i - 1])
         chunk = run_slam._imu_chunk(seq, t_prev, t)
-        if k < VI_EXTRA // 2:
+        if k < VI_READ_FRAMES:
             with _Syncs() as sy:
                 slam.process_image_imu(img, t, chunk)
                 sy.mark()
             reads.append(sy.steps[0])
         else:
-            _, per = _profile(lambda: slam.process_image_imu(img, t, chunk))
+            c0 = _captures()
+            r, per = _profile(lambda: slam.process_image_imu(img, t, chunk))
             per_frame.append((sum(c for c, _ in per.values()),
                               sum(us for _, us in per.values()) / 1e3))
+            host.append(("capture" if _captures() != c0 else
+                         _frame_kind(r) + (" VI" if slam.imu_initialized else ""),
+                         per.launches))
     data_s = n * dt_frame
     path_len = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
     _log(f"run_slam IMU_MONOCULAR {slam.img_w}x{slam.img_h}, N={slam.map.N}, K={slam.map.K}, "
@@ -2637,7 +2769,9 @@ def run_app_imu_monocular(work: str):
     _log(f"run_slam IMU_MONOCULAR per frame after the init: {np.mean(reads):.1f} blocking "
          f"reads (each frame: {reads}); under torch.profiler "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
-         f"{np.mean([t for _, t in per_frame]):.2f} ms of device time")
+         f"{np.mean([t for _, t in per_frame]):.2f} ms of device time (per frame: "
+         f"{[(c, round(t, 2)) for c, t in per_frame]}); host-issued launches per frame "
+         f"(kind, launches): {host}")
     _log(f"run_slam IMU_MONOCULAR accuracy: ATE SE3 (scale fixed at 1) {ev.get('ate_rmse')} m "
          f"over {ev.get('ate_n')} poses; Sim3 {sim3.get('ate_rmse')} m, fitted scale "
          f"{sim3.get('ate_scale')}; path {path_len:.4f} m; stats {out['stats']}")
@@ -2650,6 +2784,10 @@ def run_app_imu_monocular(work: str):
         raise RuntimeError("the IMU did not initialize")
     if not (np.isfinite(ev.get("ate_rmse", np.inf)) and np.isfinite(sim3.get("ate_rmse", np.inf))):
         raise RuntimeError(f"evaluate gave {ev} / {sim3}")
+    vi_host = [c for kd, c in host if kd == "track VI"]
+    if not vi_host or max(vi_host) > GRAPH_LAUNCH_MAX["vi frame"]:
+        raise RuntimeError(f"host-issued launches per tracked inertial frame {vi_host}: none "
+                           f"profiled, or above {GRAPH_LAUNCH_MAX['vi frame']} ({host})")
     return dict(frames=n, wall_s=out["wall_s"], reads=app_reads)
 
 
@@ -3166,9 +3304,12 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
                 sy.mark()
             reads.append(sy.steps[0])
         else:
-            _, per = _profile(lambda: step(slam, sq, i))
+            c0 = _captures()
+            res, per = _profile(lambda: step(slam, sq, i))
+            kind = "capture" if _captures() != c0 else (
+                _frame_kind(res) + (" VI" if getattr(slam, "imu_initialized", False) else ""))
             per_frame.append((sum(c for c, _ in per.values()),
-                              sum(us for _, us in per.values()) / 1e3, per.launches))
+                              sum(us for _, us in per.values()) / 1e3, per.launches, kind))
     states = [s for s, *_ in rec]
     not_ok = [i for i, s in enumerate(states) if s != OK]
     new_maps = [i for i, (_, _, nm, _) in enumerate(rec) if nm]
@@ -3187,8 +3328,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         ate_scale=ev.get("ate_scale"), ate_sim3=sim3.get("ate_rmse"),
         sim3_scale=sim3.get("ate_scale"), path=path, reads=float(np.mean(reads)),
         app_reads=app_reads,
-        launches_frame=float(np.mean([c for c, _, _ in per_frame])),
-        device_ms=float(np.mean([t for _, t, _ in per_frame])), splat=launches,
+        launches_frame=float(np.mean([c for c, _, _, _ in per_frame])),
+        device_ms=float(np.mean([t for _, t, _, _ in per_frame])), splat=launches,
         loop_lines=loop_log.lines, device=out["device"], stats=out["stats"])
     _log(f"run_slam {tag} {slam.img_w}x{slam.img_h}, N={slam.map.N}, K={slam.map.K}, "
          f"M={slam.map.M}, on {out['device']}: {seq}, {n} frames in {out['wall_s']:.3f} s "
@@ -3206,7 +3347,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
          f"launches and {r['device_ms']:.2f} ms of device time (each, with the host-issued "
-         f"launches: {[(c, round(t, 2), h) for c, t, h in per_frame]})")
+         f"launches and the kind of step: "
+         f"{[(c, round(t, 2), h, kd) for c, t, h, kd in per_frame]})")
     _log(f"run_slam {tag} accuracy: ATE --eval {r['ate']} m (scale {r['ate_scale']}) over "
          f"{ev.get('ate_n')} poses; Sim3 {r['ate_sim3']} m, fitted scale {r['sim3_scale']}; "
          f"path {path:.4f} m; stats {out['stats']}")
@@ -3287,7 +3429,8 @@ def run_app_imu_stereo(work: str, root: str):
 
     def step(s, q, i):
         img_l, img_r, t = _frame_args(s, q, i, right=True)
-        s.process_stereo_imu(img_l, img_r, t, run_slam._imu_chunk(q, float(q.image_ts[i - 1]), t))
+        return s.process_stereo_imu(img_l, img_r, t,
+                                    run_slam._imu_chunk(q, float(q.image_ts[i - 1]), t))
 
     # keyframes whose right image was extracted and matched in the keyframe
     # step (the deferral), and the landmarks their stereo depth founded

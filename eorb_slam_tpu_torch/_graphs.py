@@ -2,8 +2,9 @@
 CUDA graph and replayed, one dispatch per call.
 
 The JAX package compiles each per-step unit of its main path (the L1
-window, the tracked image frame, local BA's LM loop) into one executable
-per key of static arguments and runs it as one dispatch. Run eagerly, the
+window, the tracked image frame, local BA's LM loop, the keyframe mapping
+step, the tracked inertial frame, VI-BA's LM loop) into one executable per
+key of static arguments and runs it as one dispatch. Run eagerly, the
 same step is thousands of kernel launches, each costing the host more time
 than the card spends on it. :class:`GraphRunner` wraps such a step: on the
 card it captures the step once per key into a CUDA graph and then replays
@@ -29,6 +30,12 @@ For each key the runner keeps:
   replay runs no Python, so each replay adds the counts seen at capture and
   the capture itself counts nothing.
 
+A runner called while another runner captures (local BA's LM loop inside
+the keyframe mapping step) runs its function inline, as a jitted function
+called inside a jitted one is inlined: it warms nothing up, copies into no
+buffer of its own and neither captures nor replays, and its kernels'
+launches count once, in the outer graph's counts.
+
 A key is captured only on its second call: the first runs eagerly, which
 builds every per-device constant and table cache the step uses (a cached
 constant first made inside a capture would be copied from host memory freed
@@ -40,6 +47,7 @@ falls back to the eager path on the card.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import numbers
 import time
@@ -85,6 +93,28 @@ def _advance(delta: list) -> None:
                 cur[k] = cur.get(k, 0) + c
         elif d:
             setattr(o, a, getattr(o, a) + d)
+
+
+# captures in progress: a runner called inside one runs its function inline
+_capturing = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """The span of a capture: every runner called inside it runs inline."""
+    global _capturing
+    _capturing += 1
+    try:
+        yield
+    finally:
+        _capturing -= 1
+
+
+def _nested() -> bool:
+    """Is a capture in progress (a runner's, or any on the current CUDA
+    stream)?"""
+    return _capturing > 0 or (torch.cuda.is_initialized()
+                              and torch.cuda.is_current_stream_capturing())
 
 
 # ------------------------------------------------------------- input trees
@@ -163,7 +193,8 @@ class _Entry:
 class GraphRunner:
     """``fn`` captured once per key and replayed (see the module notes).
     ``static`` names ``fn``'s arguments that belong to the key; the others
-    must hold only tensors. ``graph_cls`` makes the graphs (``CudaGraph``:
+    must hold only tensors. Called inside another runner's capture, it
+    runs ``fn`` inline. ``graph_cls`` makes the graphs (``CudaGraph``:
     ``torch.cuda.CUDAGraph``); calls whose tensors lie on another device
     type than its ``device_type`` run ``fn`` eagerly. ``fn`` stays callable
     as ``runner.fn``."""
@@ -198,6 +229,8 @@ class GraphRunner:
         return len(self._entries)
 
     def __call__(self, *args, **kwargs):
+        if _nested():
+            return self.fn(*args, **kwargs)
         bound = self._sig.bind(*args, **kwargs)
         bound.apply_defaults()
         arguments = bound.arguments
@@ -240,7 +273,8 @@ class GraphRunner:
         before = _snapshot()
         vers = [b._version for b in bufs]
         t0 = time.perf_counter()
-        out = graph.capture(lambda: self.fn(**call), self._pool)
+        with capturing():
+            out = graph.capture(lambda: self.fn(**call), self._pool)
         self.capture_s += time.perf_counter() - t0
         counts = _delta(before, _snapshot())
         _restore(before)

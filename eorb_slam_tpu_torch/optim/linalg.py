@@ -35,7 +35,15 @@ def solve_spd_jacobi(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Hs = H * s[..., :, None] * s[..., None, :]
     bs = b * s
     L, info = torch.linalg.cholesky_ex(Hs)
-    x = torch.cholesky_solve(bs[..., None], L)[..., 0]
+    if L.is_cuda:
+        # two triangular solves (cuBLAS), as the reference's cho_solve: a
+        # batched cholesky_solve, also one batched by vmap, goes to MAGMA,
+        # which allocates device memory per call and so cannot run inside
+        # a CUDA-graph capture
+        y = torch.linalg.solve_triangular(L, bs[..., None], upper=False)
+        x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    else:
+        x = torch.cholesky_solve(bs[..., None], L)[..., 0]
     x = torch.where((info != 0)[..., None], torch.nan, x)
     return x * s
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
@@ -172,8 +173,8 @@ def _vi_cost(p: VIBAProblem, e: _Edges, kf_T, kf_vel, kf_bg, kf_ba, lm_pos):
     return torch.sum(c * valid_static) + _inertial_cost(p, e, kf_T, kf_vel, kf_bg, kf_ba)
 
 
-def vi_bundle_adjust(p: VIBAProblem, iters: int = 8,
-                     lam0: float = 1e-4) -> VIBAResult:
+def _vi_bundle_adjust(p: VIBAProblem, iters: int = 8,
+                      lam0: float = 1e-4) -> VIBAResult:
     """Levenberg-Marquardt over poses, velocities, biases and (Schur-
     eliminated) landmarks; accept/reject and damping stay on the device."""
     kf_T = p.visual.kf_T
@@ -229,6 +230,11 @@ def vi_bundle_adjust(p: VIBAProblem, iters: int = 8,
     _, _, chi2f, validf, _ = schur_ba._residuals_and_weights(p.visual, kf_T, lm_pos, True)
     inlier = validf & (chi2f <= robust.CHI2_MONO)
     return VIBAResult(kf_T, kf_vel, kf_bg, kf_ba, lm_pos, inlier, cost0, cost)
+
+
+# VI-BA as one dispatch, as the reference's jit with static iters: on the
+# card one CUDA graph per key (the problem's shapes and the iterations)
+vi_bundle_adjust = _graphs.GraphRunner(_vi_bundle_adjust, static=("iters", "lam0"))
 
 
 def pose_inertial_optimization(

@@ -12,10 +12,9 @@ LocalMapping::ProcessNewKeyFrame -> MapPointCulling -> CreateNewMapPoints
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie, triangulation
 from eorb_slam_tpu_torch.ops import frontend, matching
@@ -37,12 +36,12 @@ def create_new_landmarks(
     parallax/reprojection checks, then prefix-sum allocate.
 
     Returns (MapState, n_new () int32)."""
-    Ta = m.kf_T[kf_a]
-    Tb = m.kf_T[kf_b]
-    free_a = m.kf_feat_valid[kf_a] & (m.kf_feat_lm[kf_a] < 0)
-    free_b = m.kf_feat_valid[kf_b] & (m.kf_feat_lm[kf_b] < 0)
-    ray_a = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[kf_a])
-    ray_b = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[kf_b])
+    Ta = ms.row(m.kf_T, kf_a)
+    Tb = ms.row(m.kf_T, kf_b)
+    free_a = ms.row(m.kf_feat_valid, kf_a) & (ms.row(m.kf_feat_lm, kf_a) < 0)
+    free_b = ms.row(m.kf_feat_valid, kf_b) & (ms.row(m.kf_feat_lm, kf_b) < 0)
+    ray_a = cam_mod.pinhole_unproject_linear(cam_params, ms.row(m.kf_xy, kf_a))
+    ray_b = cam_mod.pinhole_unproject_linear(cam_params, ms.row(m.kf_xy, kf_b))
 
     # epipolar gate from the known relative pose: x_b^T E x_a = 0
     Tba = Tb @ lie.se3_inv(Ta)
@@ -54,15 +53,15 @@ def create_new_landmarks(
     pair = d2 <= max_epipolar_px**2
 
     match_ab, _ = matching.match_nnratio(
-        m.kf_desc_pm1[kf_a], free_a, m.kf_desc_pm1[kf_b], free_b,
+        ms.row(m.kf_desc_pm1, kf_a), free_a, ms.row(m.kf_desc_pm1, kf_b), free_b,
         pair_mask=pair, max_dist=matching.TH_LOW, nn_ratio=0.8, mutual=True,
     )
     okm = match_ab >= 0
     idx_b = torch.where(okm, match_ab, 0).long()
 
     pts = triangulation.triangulate_dlt(Ta[None], Tb[None], ray_a, ray_b[idx_b])
-    inv_s_a = cam_params[0] * frontend.inv_sigma(m.kf_octave[kf_a])
-    inv_s_b = cam_params[0] * frontend.inv_sigma(m.kf_octave[kf_b][idx_b])
+    inv_s_a = cam_params[0] * frontend.inv_sigma(ms.row(m.kf_octave, kf_a))
+    inv_s_b = cam_params[0] * frontend.inv_sigma(ms.row(m.kf_octave, kf_b)[idx_b])
     ok_tri, _ = triangulation.triangulation_checks(
         Ta[None], Tb[None], ray_a, ray_b[idx_b], pts,
         min_parallax_cos=min_parallax_cos,
@@ -70,7 +69,7 @@ def create_new_landmarks(
     )
     ok = okm & ok_tri
     m, lm_ids = ms.alloc_landmarks(
-        m, pts, m.kf_desc_pm1[kf_a], ok, kf_a,
+        m, pts, ms.row(m.kf_desc_pm1, kf_a), ok, kf_a,
         torch.arange(m.N, dtype=torch.int32, device=pts.device), kf_b, idx_b,
     )
     return m, (lm_ids >= 0).sum(dtype=torch.int32)
@@ -89,22 +88,22 @@ def create_new_landmarks_aligned(
     row, event/feature_tracks.py). The correspondence is the row index, no
     descriptor matching (the track-driven CreateNewMapPoints of
     EvLocalMapping). Returns (MapState, lm_ids (N,) int32, -1 = none)."""
-    Ta = m.kf_T[kf_a]
-    Tb = m.kf_T[kf_b]
-    ray_a = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[kf_a])
-    ray_b = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[kf_b])
-    ok_in = (slot_ok & m.kf_feat_valid[kf_a] & m.kf_feat_valid[kf_b]
-             & (m.kf_feat_lm[kf_a] < 0))
+    Ta = ms.row(m.kf_T, kf_a)
+    Tb = ms.row(m.kf_T, kf_b)
+    ray_a = cam_mod.pinhole_unproject_linear(cam_params, ms.row(m.kf_xy, kf_a))
+    ray_b = cam_mod.pinhole_unproject_linear(cam_params, ms.row(m.kf_xy, kf_b))
+    ok_in = (slot_ok & ms.row(m.kf_feat_valid, kf_a) & ms.row(m.kf_feat_valid, kf_b)
+             & (ms.row(m.kf_feat_lm, kf_a) < 0))
     pts = triangulation.triangulate_dlt(Ta[None], Tb[None], ray_a, ray_b)
     ok_tri, _ = triangulation.triangulation_checks(
         Ta[None], Tb[None], ray_a, ray_b, pts,
         min_parallax_cos=min_parallax_cos,
-        inv_sigma1=cam_params[0] * frontend.inv_sigma(m.kf_octave[kf_a]),
-        inv_sigma2=cam_params[0] * frontend.inv_sigma(m.kf_octave[kf_b]),
+        inv_sigma1=cam_params[0] * frontend.inv_sigma(ms.row(m.kf_octave, kf_a)),
+        inv_sigma2=cam_params[0] * frontend.inv_sigma(ms.row(m.kf_octave, kf_b)),
     )
     ok = ok_in & ok_tri & torch.isfinite(pts).all(dim=-1)
     feat_ids = torch.arange(m.N, dtype=torch.int32, device=pts.device)
-    return ms.alloc_landmarks(m, pts, m.kf_desc_pm1[kf_a], ok, kf_a, feat_ids,
+    return ms.alloc_landmarks(m, pts, ms.row(m.kf_desc_pm1, kf_a), ok, kf_a, feat_ids,
                               kf_b, feat_ids)
 
 
@@ -123,14 +122,14 @@ def create_depth_landmarks(
     min-two-observations culling rule.
 
     Returns (MapState, n_new () int32)."""
-    T = m.kf_T[slot]
-    rays = cam_mod.pinhole_unproject_linear(cam_params, m.kf_xy[slot])  # (N,3)
+    T = ms.row(m.kf_T, slot)
+    rays = cam_mod.pinhole_unproject_linear(cam_params, ms.row(m.kf_xy, slot))  # (N,3)
     pts_w = lie.se3_apply(lie.se3_inv(T), rays * depth[:, None])
-    ok = (m.kf_feat_valid[slot] & (m.kf_feat_lm[slot] < 0) & (depth > 0)
+    ok = (ms.row(m.kf_feat_valid, slot) & (ms.row(m.kf_feat_lm, slot) < 0) & (depth > 0)
           & torch.isfinite(depth) & torch.isfinite(pts_w).all(dim=-1))
     feat_ids = torch.arange(m.N, dtype=torch.int32, device=depth.device)
     m, lm_ids = ms.alloc_landmarks(
-        m, pts_w, m.kf_desc_pm1[slot], ok, slot, feat_ids, slot, feat_ids)
+        m, pts_w, ms.row(m.kf_desc_pm1, slot), ok, slot, feat_ids, slot, feat_ids)
     return m, (lm_ids >= 0).sum(dtype=torch.int32)
 
 
@@ -157,24 +156,24 @@ def fuse_duplicates(
     Returns (MapState, n_fused () int32)."""
     M, P = m.obs_kf.shape
     dev = m.obs_kf.device
-    Ta = m.kf_T[kf_a]
-    la = m.kf_feat_lm[kf_a]
-    lb = m.kf_feat_lm[kf_b]
+    Ta = ms.row(m.kf_T, kf_a)
+    la = ms.row(m.kf_feat_lm, kf_a)
+    lb = ms.row(m.kf_feat_lm, kf_b)
     la_c = torch.clamp(la, min=0).long()
     lb_c = torch.clamp(lb, min=0).long()
-    va = m.kf_feat_valid[kf_a] & (la >= 0) & m.lm_valid[la_c]
-    vb = m.kf_feat_valid[kf_b] & (lb >= 0) & m.lm_valid[lb_c]
+    va = ms.row(m.kf_feat_valid, kf_a) & (la >= 0) & m.lm_valid[la_c]
+    vb = ms.row(m.kf_feat_valid, kf_b) & (lb >= 0) & m.lm_valid[lb_c]
 
     # project B's landmarks into A's image; gate candidate pairs by pixel
     # distance to A's features
     pc = lie.se3_apply(Ta, m.lm_pos[lb_c])
     uv = cam_mod.pinhole_project_linear(cam_params, pc)
     vb = vb & (pc[:, 2] > 0.05) & torch.isfinite(uv).all(dim=-1)
-    d2 = ((m.kf_xy[kf_a][:, None, :] - uv[None, :, :]) ** 2).sum(-1)
+    d2 = ((ms.row(m.kf_xy, kf_a)[:, None, :] - uv[None, :, :]) ** 2).sum(-1)
     pair = d2 <= search_px**2
 
     j, dist = matching.match_nnratio(
-        m.kf_desc_pm1[kf_a], va, m.kf_desc_pm1[kf_b], vb,
+        ms.row(m.kf_desc_pm1, kf_a), va, ms.row(m.kf_desc_pm1, kf_b), vb,
         pair_mask=pair, max_dist=matching.TH_LOW, nn_ratio=0.8, mutual=True,
     )
     lb_j = lb[torch.clamp(j, min=0).long()]
@@ -242,20 +241,20 @@ def fuse_duplicates(
     return m, keep.sum(dtype=torch.int32)
 
 
-def keyframe_mapping_step(
+def _keyframe_mapping_step(
     m: ms.MapState,
     cam_params: torch.Tensor,
-    slot,                          # new keyframe slot
+    slot,                          # () int64 new keyframe slot
     Tcw: torch.Tensor,
-    ts,
+    ts,                            # () timestamp, kf_ts's dtype
     xy: torch.Tensor,
     octave: torch.Tensor,
     angle: torch.Tensor,
     desc_pm1: torch.Tensor,
     feat_valid: torch.Tensor,
     feat_lm: torch.Tensor,
-    tri_partners: Sequence[int],   # older KF slots (padding = `slot`)
-    fuse_partners: Sequence[int],  # covisible neighbors (fusion only)
+    tri_partners,                  # (4,) int64 older KF slots (padding = `slot`)
+    fuse_partners,                 # (3,) int64 covisible neighbors (fusion only)
     kf_free: torch.Tensor,         # (K,) bool local-BA window
     iters: int = 8,
     do_fuse: bool = True,
@@ -266,7 +265,10 @@ def keyframe_mapping_step(
     descriptor refresh (LocalMapping::Run minus KeyFrameCulling, which is
     host policy).
 
-    Returns (MapState, Tcw_optimized, stats (7,) float32 =
+    The slots and the timestamp are device tensors, as the reference's
+    are, and every row of a slot is gathered without a host read; eagerly
+    (what CPU tensors run) they may also be ints, sequences of ints and a
+    float. Returns (MapState, Tcw_optimized, stats (7,) float32 =
     [n_lm, n_fused, cost0, cost, opt_kf, fixed_kf, edges]). Padded partners
     equal to `slot` are no-ops (zero baseline fails the parallax gate;
     self-fusion only merges genuine in-frame duplicates)."""
@@ -282,6 +284,7 @@ def keyframe_mapping_step(
             m, nf = fuse_duplicates(m, cam_params, slot, nb)
             n_fused = n_fused + nf
 
+    # local BA's own runner runs inline inside this step's capture
     m, c0, c1 = local_ba(m, cam_params, kf_free, iters=iters,
                          refresh_desc=refresh_desc)
     # BA telemetry (the reference's Local*BA out-params), packed into the
@@ -295,7 +298,14 @@ def keyframe_mapping_step(
         (~kf_free & m.kf_valid).sum().to(f32),
         n_edges.to(f32),
     ])
-    return m, m.kf_T[slot], stats
+    return m, ms.row(m.kf_T, slot), stats
+
+
+# the keyframe mapping step as one dispatch, as the reference's jit with
+# static iters, do_fuse and refresh_desc: on the card one CUDA graph per key
+# (the map's and the frame's shapes), local BA's LM loop captured inside it
+keyframe_mapping_step = _graphs.GraphRunner(
+    _keyframe_mapping_step, static=("iters", "do_fuse", "refresh_desc"))
 
 
 def update_landmark_descriptors(m: ms.MapState) -> ms.MapState:

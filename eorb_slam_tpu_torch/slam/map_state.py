@@ -4,7 +4,10 @@ PyTorch port of ``eorb_slam_tpu/slam/map_state.py``: keyframes, landmarks and
 a landmark-major observation table in pre-allocated tensors with validity
 masks. Capacities (static): K keyframes, M landmarks, N features/frame, P
 observations/landmark. Every function is functional: it returns new tensors
-and leaves its inputs as they were.
+and leaves its inputs as they were. A keyframe slot is an int or a 0-d
+int64 tensor (what the keyframe mapping step's graph takes): a tensor slot
+is read and written by ``index_select`` / ``index_copy`` (:func:`row`),
+never by indexing with it, which would read it on the host.
 
 Scatters with repeated indices. The JAX functions write "no-op" updates
 (the old value back) to a dummy index, slot 0, for every masked-out entry,
@@ -117,7 +120,23 @@ def _flat_set_last(target: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     return scatter_set_last(target.reshape(-1), flat, values).view(target.shape)
 
 
-def _set_row(t: torch.Tensor, slot: int, value) -> torch.Tensor:
+def row(t: torch.Tensor, slot) -> torch.Tensor:
+    """``t[slot]`` for a keyframe slot given as an int or as a 0-d int64
+    tensor. A tensor slot is gathered with ``index_select``: torch's
+    indexing would read a 0-d tensor's value on the host."""
+    if isinstance(slot, torch.Tensor):
+        return t.index_select(0, slot.reshape(1))[0]
+    return t[slot]
+
+
+def _set_row(t: torch.Tensor, slot, value) -> torch.Tensor:
+    """A copy of ``t`` with row ``slot`` (an int or a 0-d int64 tensor) set
+    to ``value`` (a tensor or a Python number)."""
+    if isinstance(slot, torch.Tensor):
+        idx = slot.reshape(1)
+        if isinstance(value, torch.Tensor):
+            return t.index_copy(0, idx, value.to(t.dtype).expand(t.shape[1:])[None])
+        return t.index_fill(0, idx, value)
     out = t.clone()
     if isinstance(value, torch.Tensor):
         out[slot] = value

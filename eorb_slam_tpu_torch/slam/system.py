@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from eorb_slam_tpu_torch._host import HostCopy, resolve_device
+from eorb_slam_tpu_torch._host import HostCopy, resolve_device, to_device
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie, sim3_solver, twoview
 from eorb_slam_tpu_torch.ops import frontend, matching
@@ -705,6 +705,21 @@ class MonoSlam:
             kf_free[s] = True
         return torch.from_numpy(kf_free).to(self.device, non_blocking=True)
 
+    def _mapping_slots(self, slot: int, tri, fuse_nb, ts: float):
+        """The keyframe mapping step's slot () and its triangulation (4,)
+        and fusion (3,) partners as int64, and the timestamp () in
+        kf_ts's dtype, on the device in one copy that does not wait for the
+        device queue (the reference passes them as device arrays)."""
+        ts_dtype = torch.empty(0, dtype=self.map.kf_ts.dtype).numpy().dtype
+        ints = np.asarray([slot, *tri, *fuse_nb], np.int64)
+        t = to_device(np.concatenate([ints.view(np.uint8),
+                                      np.asarray([ts], ts_dtype).view(np.uint8)]),
+                      self.device)
+        n = ints.nbytes
+        idx = t[:n].view(torch.int64)
+        return idx[0], idx[1:1 + len(tri)], idx[1 + len(tri):], \
+            t[n:].view(self.map.kf_ts.dtype)[0]
+
     # -------------------------------------------------------------- mapping
 
     def _drain_mapping(self):
@@ -748,9 +763,10 @@ class MonoSlam:
         # an n_inl from flags already on the host saves a device read
         self.n_inliers_ref = int(res.n_inliers) if n_inl is None else int(n_inl)
 
+        slot_t, tri_t, fuse_t, ts_t = self._mapping_slots(slot, tri, fuse_nb, f.ts)
         self.map, T_new, stats = local_mapping.keyframe_mapping_step(
-            self.map, self.cam, slot, res.Tcw, f.ts, f.xy_ud, f.octave,
-            f.angle, f.desc_pm1, f.valid, res.feat_lm, tri, fuse_nb,
+            self.map, self.cam, slot_t, res.Tcw, ts_t, f.xy_ud, f.octave,
+            f.angle, f.desc_pm1, f.valid, res.feat_lm, tri_t, fuse_t,
             self._ba_window(), do_fuse=self.fuse_enabled,
             refresh_desc=self.desc_refresh,
         )

@@ -17,9 +17,13 @@ The per-frame step once the IMU is initialized (``_vi_frame_step``) is one
 fused jitted dispatch in the JAX package, with the wide re-search under
 ``lax.cond``. Here both searches run as one batch of two settings and the
 re-search is selected on the device (``tracking.track_frame_with_retry``),
-so the step's one blocking read is its packed flags. The IMU window goes in
-unpadded (the JAX package pads it to a power-of-two bucket for a stable
-trace; padded samples change nothing).
+so the step's one blocking read is its packed flags, and on the card the
+step is one CUDA-graph replay (``vi_frame_step``). Its IMU window is padded
+to a power-of-two bucket of at least 8 samples with the pad masked off, as
+the JAX package pads it: the window's length is part of the graph's key,
+and the bucket keeps the keys few. A masked sample integrates with dt = 0
+and keeps the rotation, so a padded window gives the unpadded window's
+bits.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch._host import to_device
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
 from eorb_slam_tpu_torch.geometry import lie
@@ -75,23 +80,34 @@ def _imu_predict(T_last, vel, pre_last, bg, ba, Tbc):
     return T_pred, T_pred @ lie.se3_inv(T_last), v2
 
 
-def _chunk_tensors(imu: ImuChunk, device):
+def imu_bucket(S: int) -> int:
+    """The padded length of an ``S``-sample IMU window: the least power of
+    two >= ``S``, and at least 8 (the JAX package's buckets)."""
+    cap = 8
+    while cap < S:
+        cap *= 2
+    return cap
+
+
+def _chunk_tensors(imu: ImuChunk, device, pad: bool = False):
     """(gyro, acc, dts, valid) on ``device``, in one host-to-device copy
-    that does not wait for the device queue."""
+    that does not wait for the device queue; with ``pad``, padded to
+    :func:`imu_bucket` samples, the pad masked off."""
     S = int(imu.gyro.shape[0])
-    packed = np.concatenate([np.asarray(imu.gyro, np.float32).reshape(S, 3),
-                             np.asarray(imu.acc, np.float32).reshape(S, 3),
-                             np.asarray(imu.dts, np.float32).reshape(S, 1)], 1)
+    packed = np.zeros((imu_bucket(S) if pad else S, 8), np.float32)
+    packed[:S, 0:3] = np.asarray(imu.gyro, np.float32).reshape(S, 3)
+    packed[:S, 3:6] = np.asarray(imu.acc, np.float32).reshape(S, 3)
+    packed[:S, 6] = np.asarray(imu.dts, np.float32).reshape(S)
+    packed[:S, 7] = 1.0
     t = to_device(packed, device)
-    return (t[:, 0:3], t[:, 3:6], t[:, 6],
-            torch.ones(S, dtype=torch.bool, device=device))
+    return t[:, 0:3], t[:, 3:6], t[:, 6], t[:, 7] > 0
 
 
 def _vi_frame_step(
     img: torch.Tensor,           # (H,W) uint8/float
     cam_params: torch.Tensor,
     m,
-    gyro, acc, dts, imu_ok,      # the IMU window since the last frame
+    gyro, acc, dts, imu_ok,      # the IMU window since the last frame (padded)
     T_last: torch.Tensor,        # (4,4) last frame pose
     vel, bg, ba,
     pre_since_kf: pre_mod.Preintegrated,   # KF -> last frame window
@@ -162,6 +178,14 @@ def _vi_frame_step(
     T_rel = Tcw @ lie.se3_inv(ref_T)
     return (res, feats, xy_ud, flags, vel_mm, T_rel, T_pred,
             pre, pre_since2, vel_o, bg_o, ba_o, next_prior)
+
+
+# the tracked inertial frame as one dispatch, as the reference's jit with
+# static max_kp, img_w, img_h and use_prior: on the card one CUDA graph per
+# key. ``prior`` None or a PoseImuPrior is the input structure (the
+# reference's use_prior), so each IMU bucket has up to two keys
+vi_frame_step = _graphs.GraphRunner(
+    _vi_frame_step, static=("min_inl_retry", "max_kp", "img_w", "img_h"))
 
 
 def _gravity_rotation(g_est: np.ndarray) -> np.ndarray:
@@ -243,8 +267,8 @@ class MonoInertialSlam(MonoSlam):
         last = self._kf_order[-1]
         ref = self._kf_ref()
         (res, feats, xy_ud, flags, vel_mm, T_rel, T_pred, pre, pre_since2,
-         vel_o, bg_o, ba_o, next_prior) = _vi_frame_step(
-            img, self.cam, self.map, *_chunk_tensors(imu, self.device),
+         vel_o, bg_o, ba_o, next_prior) = vi_frame_step(
+            img, self.cam, self.map, *_chunk_tensors(imu, self.device, pad=True),
             self.T_last, self.vel, self.bg, self.ba,
             self.pre_since_kf, self.map.kf_T[last], self.kf_vel[last],
             self._prior, self.map.kf_T[ref], self.calib, self.min_track_inliers,

@@ -141,9 +141,12 @@ def test_keyframe_mapping_step_with_fusion_and_refresh(jax_run):
         slam.map, CAM, jnp.asarray(slot), jres.Tcw, *args,
         jnp.asarray(tri, jnp.int32), jnp.asarray(fuse_nb, jnp.int32),
         jnp.asarray(kf_free), do_fuse=True, refresh_desc=True)
+    i64 = torch.int64
     tm, tT, tst = tlm.keyframe_mapping_step(
-        tmap, _t(CAM), slot, _t(jres.Tcw), f.ts, *map(_t, args[1:]), tri,
-        fuse_nb, _t(kf_free), do_fuse=True, refresh_desc=True)
+        tmap, _t(CAM), torch.tensor(slot, dtype=i64), _t(jres.Tcw),
+        torch.tensor(f.ts, dtype=torch.float32), *map(_t, args[1:]),
+        torch.tensor(tri, dtype=i64), torch.tensor(fuse_nb, dtype=i64), _t(kf_free),
+        do_fuse=True, refresh_desc=True)
     ref = _np_map(jm)
     got = convert.map_state_to_numpy(tm)
     _assert_maps_equal(tm, ref, INT_FIELDS)

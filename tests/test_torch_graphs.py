@@ -9,10 +9,13 @@ and its replay runs that call again on the same buffers (with the launch
 counters held, as a replay runs no Python) and writes the results into the
 captured outputs. That exercises everything the runner does around a graph:
 keys, warm-up, static buffers and their copies, outputs cloned out, the
-counters. The three units of the main path go through it: the L1 window,
-the tracked image frame and local BA's LM loop, each against its eager
-function. Whether a real capture gives the eager bits is the card's
-question (``chip_smoke.check_graphs_small``). No JAX here.
+counters, a runner nested in another's capture. The six units go through
+it, each against its eager function: the L1 window, the tracked image
+frame, local BA's LM loop, the keyframe mapping step (local BA inline in
+it), the tracked inertial frame (its IMU window padded to a bucket, with
+and without the marginal prior) and VI-BA's LM loop. Whether a real
+capture gives the eager bits is the card's question
+(``chip_smoke.check_graphs_small``). No JAX here.
 """
 
 from __future__ import annotations
@@ -25,13 +28,16 @@ import torch
 
 from chip_smoke import _bits_equal
 from eorb_slam_tpu_torch import _graphs, _host
+from chip_smoke import _vi_ba_problem
 from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
 from eorb_slam_tpu_torch.ops import hopper_linalg, hopper_splat
-from eorb_slam_tpu_torch.optim import schur_ba
+from eorb_slam_tpu_torch.optim import marginalize, schur_ba, vi_ba
 from eorb_slam_tpu_torch.slam import local_mapping
+from eorb_slam_tpu_torch.slam import map_state as ms
 from eorb_slam_tpu_torch.slam import system as tsys
-from eorb_slam_tpu_torch.slam import tracking
+from eorb_slam_tpu_torch.slam import tracking, vi_system
 
 W, H, FX, FPS = 240, 180, 146.25, 20.0
 KW = dict(img_w=W, img_h=H, K=8, M=1024, N=256, max_frames_between_kf=3)
@@ -52,8 +58,11 @@ class CpuGraph:
         return self.out
 
     def replay(self):
+        # a replay runs no Python: the counters hold, and a runner the step
+        # calls runs inline, as it did at capture
         held = _graphs._snapshot()
-        new = self.fn()
+        with _graphs.capturing():
+            new = self.fn()
         _graphs._restore(held)
         dst, src = [], []
         _graphs._flatten(self.out, dst, "out")
@@ -369,4 +378,242 @@ def test_bundle_adjust_second_call_builds_no_constant():
     schur_ba._bundle_adjust(p, iters=2)
     misses = _host.constant.cache_info().misses
     schur_ba._bundle_adjust(p, iters=2)
+    assert _host.constant.cache_info().misses == misses
+
+
+# ----------------------------------------------------- nesting, the keyframe
+
+def _inner(x):
+    hopper_splat.splat.launches += 1
+    return x * 2.0
+
+
+def test_a_runner_inside_a_capture_runs_inline_and_counts_once():
+    """A runner called by a step that another runner captures warms up,
+    captures and replays nothing of its own: its launches count once, in
+    the outer graph's counts, as a jitted function inlined in another."""
+    inner = _graphs.GraphRunner(_inner, graph_cls=CpuGraph)
+
+    def outer_fn(x):
+        hopper_splat.splat.launches += 1
+        return inner(x) + 1.0
+
+    outer = _graphs.GraphRunner(outer_fn, graph_cls=CpuGraph)
+    hopper_splat.splat.launches = 0
+    x = torch.arange(3.0)
+    for i in range(1, 6):      # eager, capture + replay, replays
+        assert torch.equal(outer(x + i), (x + i) * 2.0 + 1.0)
+        assert hopper_splat.splat.launches == 2 * i
+    assert (outer.captures, outer.replays) == (1, 4)
+    # the outer's eager first call met the inner runner outside a capture
+    # (a warm-up); inside the capture and the replays it ran inline
+    assert (inner.captures, inner.replays, inner.keys, len(inner._warm)) == (0, 0, 0, 1)
+    counts = next(iter(outer._entries.values())).counts
+    at = [(o, a) for o, a in _graphs._COUNTERS].index((hopper_splat.splat, "launches"))
+    assert counts[at] == 2
+    # outside a capture the inner runner is a runner of its own again: its
+    # key is warm, so the next call captures and replays
+    inner(x)
+    inner(x)
+    assert (inner.captures, inner.replays) == (1, 2)
+    hopper_splat.splat.launches = 0
+
+
+def _mapping_call(slam, m, img, fuse=True):
+    """The keyframe mapping step's arguments as MonoSlam._insert_keyframe
+    makes them for the frame ``img`` tracked against ``m``: the slots, the
+    partners and the timestamp as device tensors."""
+    kw = dict(max_kp=m.N, img_w=W, img_h=H)
+    res, feats, xy_ud, *_ = tracking._track_image_frame(
+        img, slam.cam, m, slam.velocity, slam.T_last, m.kf_T[0], **kw)
+    order = [int(k) for k in np.flatnonzero(m.kf_valid.numpy())]
+    slot = int(np.flatnonzero(~m.kf_valid.numpy())[0])
+    tri = [order[-k] if k <= len(order) else slot for k in range(1, 5)]
+    nb = (order[-4:-1] if fuse else []) + [slot] * 3
+    kf_free = torch.zeros(m.K, dtype=torch.bool)
+    kf_free[order[2:] + [slot]] = True
+    i64 = torch.int64
+    return dict(m=m, cam_params=slam.cam, slot=torch.tensor(slot, dtype=i64), Tcw=res.Tcw,
+                ts=torch.tensor(0.55, dtype=m.kf_ts.dtype), xy=xy_ud, octave=feats.octave,
+                angle=feats.angle, desc_pm1=feats.desc_pm1, feat_valid=feats.valid,
+                feat_lm=res.feat_lm, tri_partners=torch.tensor(tri, dtype=i64),
+                fuse_partners=torch.tensor(nb[:3], dtype=i64), kf_free=kf_free,
+                do_fuse=fuse, refresh_desc=fuse)
+
+
+def test_keyframe_mapping_step_replays_the_eager_step(tracked):
+    """Keyframe steps through the runner and eagerly, with local BA's own
+    runner swapped for one with the stand-in graph: fusion and the
+    descriptor refresh on (three frames, the map a keyframe replaced on the
+    third), then off (a key of its own); every output bit-equal, and the
+    inner BA runner ran inline in the captures and replays."""
+    slam, m0, m1, imgs = tracked
+    calls = [_mapping_call(slam, m, img, fuse)
+             for m, img, fuse in ((m1, imgs[0], True), (m1, imgs[1], True),
+                                  (m0, imgs[1], True), (m1, imgs[0], False),
+                                  (m1, imgs[1], False), (m1, imgs[1], False))]
+    want = [local_mapping._keyframe_mapping_step(**kw) for kw in calls]
+    r = _runner(local_mapping.keyframe_mapping_step)
+    inner = _runner(schur_ba.bundle_adjust)
+    orig = schur_ba.bundle_adjust
+    schur_ba.bundle_adjust = inner
+    try:
+        got = [r(**kw) for kw in calls]
+    finally:
+        schur_ba.bundle_adjust = orig
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _bits_equal(g, w), i
+    assert (r.captures, r.keys, r.replays) == (2, 2, 4)
+    # the BA runner met outside a capture only the two eager first calls
+    # (a warm-up, then a capture and its replay); in the outer captures and
+    # replays it ran inline
+    assert (inner.captures, inner.replays) == (1, 1)
+    # the fused step found landmarks to triangulate and the map changed
+    assert bool((want[0][0].lm_valid.sum() > m1.lm_valid.sum()).item())
+    assert not _bits_equal(want[1][0], want[2][0])
+
+
+def test_keyframe_mapping_step_takes_int_and_tensor_slots_alike(tracked):
+    """The eager step on ints, lists and a float (the other callers' form)
+    and on device tensors (the graph's form): the same bits, and the map's
+    own functions likewise on a tensor slot."""
+    slam, _, m1, imgs = tracked
+    kw = _mapping_call(slam, m1, imgs[0])
+    as_ints = dict(kw, slot=int(kw["slot"]), ts=float(kw["ts"]),
+                   tri_partners=kw["tri_partners"].tolist(),
+                   fuse_partners=kw["fuse_partners"].tolist())
+    assert _bits_equal(local_mapping._keyframe_mapping_step(**as_ints),
+                       local_mapping._keyframe_mapping_step(**kw))
+    a, b = (int(k) for k in np.flatnonzero(m1.kf_valid.numpy())[-2:])
+    ta, tb_ = (torch.tensor(k) for k in (a, b))
+    depth = torch.linspace(0.5, 4.0, m1.N)
+    for fn, args_int, args_t in (
+            (local_mapping.create_new_landmarks, (a, b), (ta, tb_)),
+            (local_mapping.fuse_duplicates, (a, b), (ta, tb_)),
+            (local_mapping.create_depth_landmarks, (a, depth), (ta, depth))):
+        assert _bits_equal(fn(m1, slam.cam, *args_int), fn(m1, slam.cam, *args_t)), fn
+    assert _bits_equal(ms.remove_keyframe(m1, a), ms.remove_keyframe(m1, ta))
+    assert _bits_equal(ms.row(m1.kf_T, a), ms.row(m1.kf_T, ta))
+
+
+def test_keyframe_mapping_step_second_call_builds_no_constant(tracked):
+    slam, _, m1, imgs = tracked
+    kw = _mapping_call(slam, m1, imgs[0])
+    local_mapping._keyframe_mapping_step(**kw)
+    misses = _host.constant.cache_info().misses
+    local_mapping._keyframe_mapping_step(**kw)
+    assert _host.constant.cache_info().misses == misses
+
+
+def test_mapping_slots_stage_the_step_inputs(tracked):
+    """MonoSlam stages the slot, the partners and the timestamp in one
+    copy: int64 slots and a timestamp in kf_ts's dtype, with their values."""
+    slam = tracked[0]
+    slot, tri, fuse, ts = slam._mapping_slots(5, [4, 3, 5, 5], [2, 5, 5], 0.7)
+    assert (slot.dtype, tri.dtype, fuse.dtype, ts.dtype) == (
+        torch.int64, torch.int64, torch.int64, slam.map.kf_ts.dtype)
+    assert (slot.shape, tri.shape, fuse.shape, ts.shape) == ((), (4,), (3,), ())
+    assert (int(slot), tri.tolist(), fuse.tolist()) == (5, [4, 3, 5, 5], [2, 5, 5])
+    assert float(ts) == float(np.float32(0.7))
+
+
+# ------------------------------------------------------ the inertial units
+
+def _imu_chunk(S, seed):
+    rng = np.random.default_rng(seed)
+    acc = rng.normal(0, 0.2, (S, 3)) + [0.0, 0.0, pre_mod.GRAVITY]
+    return vi_system.ImuChunk(gyro=rng.normal(0, 0.05, (S, 3)).astype(np.float32),
+                              acc=acc.astype(np.float32),
+                              dts=np.full(S, 1.0 / 200.0, np.float32))
+
+
+def _vi_call(slam, m, img, S, prior, pad=True, seed=0):
+    """The inertial frame step's arguments, as MonoInertialSlam makes them,
+    on the corridor map ``m``: an S-sample IMU window (padded to its
+    bucket), against the last keyframe or a PoseImuPrior."""
+    z3 = torch.zeros(3)
+    kf = int(np.flatnonzero(m.kf_valid.numpy())[-1])
+    window = vi_system._chunk_tensors(_imu_chunk(S, seed), torch.device("cpu"), pad=pad)
+    pri = marginalize.identity_prior(slam.T_last, z3, z3, z3) if prior else None
+    return dict(img=img, cam_params=slam.cam, m=m, gyro=window[0], acc=window[1],
+                dts=window[2], imu_ok=window[3], T_last=slam.T_last, vel=z3, bg=z3, ba=z3,
+                pre_since_kf=pre_mod.identity_preintegrated(device="cpu"), T_kf=m.kf_T[kf],
+                vel_kf=z3, prior=pri, ref_T=m.kf_T[0], calib=pre_mod.make_calib(),
+                min_inl_retry=slam.min_track_inliers, max_kp=m.N, img_w=W, img_h=H)
+
+
+def test_vi_frame_step_replays_the_eager_step(tracked):
+    """Inertial frames through the runner and eagerly: against the last
+    keyframe (replayed across a map change) and against a PoseImuPrior
+    (a key of its own), at two IMU buckets (10 samples in 16, 5 in 8);
+    every captured or replayed output bit-equal to the eager step's (a
+    key's first call is the eager step itself)."""
+    slam, m0, m1, imgs = tracked
+    plan = [(m0, 0, 10, False), (m0, 1, 10, False), (m1, 1, 10, False),
+            (m1, 0, 10, True), (m1, 1, 10, True), (m1, 0, 5, True), (m1, 1, 5, True)]
+    r = _runner(vi_system.vi_frame_step)
+    for i, (m, k, S, prior) in enumerate(plan):
+        kw = _vi_call(slam, m, imgs[k], S, prior, seed=i)
+        replays = r.replays
+        got = r(**kw)
+        if r.replays != replays:
+            assert _bits_equal(got, vi_system._vi_frame_step(**kw)), i
+    assert (r.captures, r.keys, r.replays) == (3, 3, 4)
+
+
+def test_padded_imu_window_gives_the_unpadded_bits(tracked):
+    """A window padded to its bucket, the pad masked off, gives the
+    unpadded window's bits: through the preintegration (empty, short,
+    exact and long windows) and through the whole inertial frame step."""
+    z3 = torch.zeros(3)
+    calib = pre_mod.make_calib()
+    cpu = torch.device("cpu")
+    for S in (0, 3, 8, 10, 17):
+        chunk = _imu_chunk(S, S)
+        plain = vi_system._chunk_tensors(chunk, cpu)
+        padded = vi_system._chunk_tensors(chunk, cpu, pad=True)
+        assert padded[0].shape[0] == vi_system.imu_bucket(S) == max(8, 1 << (S - 1).bit_length())
+        assert int(padded[3].sum()) == S
+        assert _bits_equal(pre_mod.integrate(*plain, z3, z3, calib),
+                           pre_mod.integrate(*padded, z3, z3, calib)), S
+    slam, _, m1, imgs = tracked
+    got = vi_system._vi_frame_step(**_vi_call(slam, m1, imgs[0], 10, False))
+    want = vi_system._vi_frame_step(**_vi_call(slam, m1, imgs[0], 10, False, pad=False))
+    assert _bits_equal(got, want)
+
+
+def test_vi_frame_step_second_call_builds_no_constant(tracked):
+    slam, _, m1, imgs = tracked
+    kw = _vi_call(slam, m1, imgs[0], 10, True)
+    vi_system._vi_frame_step(**kw)
+    misses = _host.constant.cache_info().misses
+    vi_system._vi_frame_step(**kw)
+    assert _host.constant.cache_info().misses == misses
+
+
+def test_vi_bundle_adjust_replays_the_eager_solve():
+    """VI-BA problems through the runner and eagerly at the keyframe
+    path's 8 iterations: new states (the same key), then a reused-slot
+    chain (an input of its own: a key); every captured or replayed output
+    bit-equal to the eager solve's."""
+    r = _runner(vi_ba.vi_bundle_adjust)
+    p = _vi_ba_problem(6, 48, 0, "cpu", torch.float32)
+    chain = p._replace(prev=torch.tensor([2, -1, 1, 0, 3, 4]),
+                       edge_valid=torch.tensor([True, False, True, True, False, True]))
+    probs = [p, p._replace(kf_vel=p.kf_vel + 0.01),
+             p._replace(visual=p.visual._replace(lm_pos=p.visual.lm_pos + 0.02)),
+             chain, chain._replace(kf_vel=chain.kf_vel - 0.01)]
+    for i, q in enumerate(probs):
+        replays = r.replays
+        got = r(q, iters=8)
+        if r.replays != replays:
+            assert _bits_equal(got, vi_ba._vi_bundle_adjust(q, iters=8)), i
+    assert (r.captures, r.keys, r.replays) == (2, 2, 3)
+
+
+def test_vi_bundle_adjust_second_call_builds_no_constant():
+    p = _vi_ba_problem(6, 48, 0, "cpu", torch.float32)
+    vi_ba._vi_bundle_adjust(p, iters=2)
+    misses = _host.constant.cache_info().misses
+    vi_ba._vi_bundle_adjust(p, iters=2)
     assert _host.constant.cache_info().misses == misses

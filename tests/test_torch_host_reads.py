@@ -221,19 +221,24 @@ def test_process_image_tracked_frames_read_only_the_flags(runs, pipelined):
 def test_keyframe_insertion_reads_a_few(runs, pipelined):
     """A frame that inserts a keyframe (the mapping step, the culling pass,
     the BA window; the initialisation warmed the caches up): reads only at
-    KF_READS, and host data lifted only for the BA window's mask."""
+    KF_READS, and host data lifted only for the BA window's mask and, in
+    one staging copy, the mapping step's slots and timestamp."""
     kf_steps = [hr for res, _, hr in runs[pipelined] if res.get("kf")]
     assert kf_steps
     for hr in kf_steps:
         assert _where(hr.reads) <= KF_READS and sum(hr.reads.values()) <= 16, hr.reads
         assert _where(hr.lifts) <= KF_LIFTS, hr.lifts
+        staged = sum(n for site, n in hr.lifts.items() if site.startswith("_host.py"))
+        assert staged == 1, hr.lifts
 
 
 # none: the local BA's one-hot camera assignment is a comparison (F.one_hot
 # read its classes' range twice per LM iteration on the CPU)
 KF_READS: set = set()
-# the BA window's (K,) mask: host data, staged without blocking
-KF_LIFTS = {"slam/system.py _ba_window"}
+# the BA window's (K,) mask, and the mapping step's slot, partners and
+# timestamp (MonoSlam._mapping_slots, one to_device): host data, staged
+# without blocking
+KF_LIFTS = {"slam/system.py _ba_window", "_host.py to_device"}
 
 
 def _stream(seconds=0.04, rate=600_000, seed=5):

@@ -87,6 +87,26 @@ def test_masked_samples_change_nothing():
     _close_pre(p2, pj2, 1e-5)
 
 
+@pytest.mark.parametrize("t1", [0.33, 0.45])
+def test_bucket_padded_window_matches_jax(t1):
+    """The inertial frame step's window as the port pads it (to a
+    power-of-two bucket of at least 8, zeros masked off, as the JAX
+    package's frame step pads it), fed to both packages: within 1e-5 of
+    JAX, and the port's bits those of the unpadded window."""
+    from eorb_slam_tpu_torch.slam import vi_system as tvs
+
+    g, a, d, _ = imu_samples(0.3, t1)
+    chunk = tvs.ImuChunk(gyro=np.asarray(g), acc=np.asarray(a), dts=np.asarray(d))
+    cpu = torch.device("cpu")
+    padded = tvs._chunk_tensors(chunk, cpu, pad=True)
+    assert padded[0].shape[0] == tvs.imu_bucket(len(d)) > len(d)
+    pt, pj = _integrate_both(*(x.numpy() for x in padded))
+    _close_pre(pt, pj, 1e-5)
+    plain, _ = _integrate_both(*(x.numpy() for x in tvs._chunk_tensors(chunk, cpu)))
+    for name, x, y in zip(tpre.Preintegrated._fields, pt, plain):
+        assert torch.equal(x.view(-1).view(torch.uint8), y.view(-1).view(torch.uint8)), name
+
+
 def test_bias_jacobian_and_delta_corrected():
     bg = np.asarray([0.02, -0.01, 0.015], np.float32)
     ba = np.asarray([0.1, 0.05, -0.08], np.float32)

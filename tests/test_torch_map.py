@@ -45,6 +45,16 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+def _slot(x):
+    """Keyframe slots as the mapping step takes them: int64 tensors."""
+    return torch.as_tensor(x, dtype=torch.int64)
+
+
+def _ts(x):
+    """A timestamp as the mapping step takes it: a () float32 tensor."""
+    return torch.tensor(x, dtype=torch.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_run():
     """A JAX MonoSlam after 10 SynthWorld frames (several keyframes, full
@@ -192,8 +202,8 @@ def test_keyframe_mapping_step_from_jax_map(jax_run):
         jnp.asarray(tri, jnp.int32), jnp.full(3, slot, jnp.int32),
         jnp.asarray(kf_free), do_fuse=False, refresh_desc=False)
     tm, tT, tst = tlm.keyframe_mapping_step(
-        tmap, _t(CAM), slot, _t(jres.Tcw), f.ts, *map(_t, args[1:]), tri,
-        [slot] * 3, _t(kf_free), do_fuse=False, refresh_desc=False)
+        tmap, _t(CAM), _slot(slot), _t(jres.Tcw), _ts(f.ts), *map(_t, args[1:]),
+        _slot(tri), _slot([slot] * 3), _t(kf_free), do_fuse=False, refresh_desc=False)
     ref = _np_map(jm)
     got = convert.map_state_to_numpy(tm)
     assert ref["lm_valid"].sum() > np.asarray(slam.map.lm_valid).sum()  # new points
@@ -218,8 +228,8 @@ def test_unported_mapping_options_raise(jax_run):
     m, c0, c1 = tlm.local_ba(tmap, _t(CAM), free, refresh_desc=True)
     assert m.lm_desc_pm1.shape == tmap.lm_desc_pm1.shape and torch.isfinite(c1)
     m, T, stats = tlm.keyframe_mapping_step(
-        tmap, _t(CAM), 7, torch.eye(4), 0.0, _t(f.xy_ud), _t(f.octave),
+        tmap, _t(CAM), _slot(7), torch.eye(4), _ts(0.0), _t(f.xy_ud), _t(f.octave),
         _t(f.angle), _t(f.desc_pm1), _t(f.valid),
-        torch.full((N_SLOTS,), -1, dtype=torch.int32), [7] * 4, [7] * 3,
+        torch.full((N_SLOTS,), -1, dtype=torch.int32), _slot([7] * 4), _slot([7] * 3),
         free, do_fuse=True, refresh_desc=False)
     assert bool(m.kf_valid[7]) and stats.shape == (7,) and stats[1] >= 0
