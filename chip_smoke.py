@@ -61,7 +61,15 @@ across a key change and a map change and prints, eager against replayed,
 the host-issued launches, device kernels, device ms and wall ms per step,
 and EventSlam, MONOCULAR, IMU_MONOCULAR and that phase gate the
 host-issued launches per tracked frame or MCI, per keyframe frame or MCI,
-per tracked inertial frame and per L1 window (GRAPH_LAUNCH_MAX). A
+per tracked inertial frame and per L1 window (GRAPH_LAUNCH_MAX). The
+event-image and continuous units (build_mci's candidates, the per-chunk
+step, track advance and top-up, the pose-only solve, EVENT_MONO's five
+joint steps) replay too: check_graphs_small records them through
+EvImageSlam, EventSlamContinuous and EventWindowBuilder.step and holds each
+replay against its eager step bit for bit, check_ev_image_small holds
+build_mci's capture and replay at 65,536 events against the card's first
+MCI, and the continuous app and EVENT_MONO gate their host-issued launches
+per window and per paired tracked image. A
 replay runs no Python, so it adds the hand kernels' launches counted at
 capture: EventSlam holds each profiled step's counts against the kernels
 the profiler saw run, and check_graph_nodes, at the end, holds every
@@ -198,7 +206,8 @@ PIPE_PROFILED = 2          # its last frames, under the profiler
 # L2 MCI, an L1 window, a keyframe frame or MCI (the tracked frame's replay,
 # the mapping step's replay and the eager culling) and a tracked inertial
 # frame; check_graphs_small's recorded sequences
-GRAPH_LAUNCH_MAX = {"frame": 100, "window": 50, "keyframe": 100, "vi frame": 100}
+GRAPH_LAUNCH_MAX = {"frame": 100, "window": 50, "keyframe": 100, "vi frame": 100,
+                    "continuous window": 150, "event-image frame": 150}
 GRAPH_WINDOWS, GRAPH_STREAM_S = 9, 0.12     # L1 windows from this much stream
 GRAPH_FRAMES, GRAPH_PROFILED = 20, 4        # corridor frames, the last profiled
 # the keyframe mapping step at a second map capacity (landmarks), a key of
@@ -210,6 +219,15 @@ GRAPH_M2, GRAPH_KF2 = 2048, 3
 # keyframe, 24 after an init or a scale refinement) on a problem of
 # GRAPH_VIBA (K, M)
 GRAPH_IMU_S, GRAPH_VIBA_ITERS, GRAPH_VIBA = (10, 5), (8, 24), (16, 1024)
+# the event-image and continuous units: build_mci's candidates and the
+# per-chunk step through EventWindowBuilder.step on this much stream at the
+# synth_ev_only width, twice (each builder's first chunk has no previous
+# image; the second posts the pose prior after GRAPH_PRIOR_AFTER windows)
+GRAPH_STEP_S, GRAPH_PRIOR_AFTER = 0.04, 1
+# the profiled steps of EVENT_MONO's second run, every key met in the first
+# (its images from this one on), and of the continuous app (the windows
+# after CONT_PROFILED full images)
+EV_STEADY_FROM, CONT_APP_PROFILED = 6, 3
 # blocking host reads (_Syncs): a tracked frame or MCI reads at most its
 # (2,) flags, whether or not it inserts a keyframe (the keyframe's
 # triangulations and the inertial frame's prior decompose through the
@@ -330,19 +348,31 @@ def _eig_counts() -> dict:
 def _runners() -> dict:
     """The port's graph runners (the reference's one-dispatch steps) by
     kind of step."""
-    from eorb_slam_tpu_torch.event import builder
-    from eorb_slam_tpu_torch.optim import schur_ba, vi_ba
+    from eorb_slam_tpu_torch.event import builder, feature_tracks
+    from eorb_slam_tpu_torch.optim import pose_only, schur_ba, vi_ba
+    from eorb_slam_tpu_torch.slam import ev_image_system as evi
     from eorb_slam_tpu_torch.slam import local_mapping, tracking, vi_system
 
     return {"L1 window": builder.window_step, "tracked frame": tracking.track_image_frame,
             "local BA": schur_ba.bundle_adjust,
             "keyframe mapping": local_mapping.keyframe_mapping_step,
-            "VI frame": vi_system.vi_frame_step, "VI-BA": vi_ba.vi_bundle_adjust}
+            "VI frame": vi_system.vi_frame_step, "VI-BA": vi_ba.vi_bundle_adjust,
+            "MCI candidates": builder.make_candidates, "chunk step": builder.chunk_step,
+            "track advance": feature_tracks.advance, "track top-up": feature_tracks.top_up,
+            "pose-only": pose_only.pose_optimization, "joint local BA": evi.joint_local_ba,
+            "loop propagation": evi.propagate_loop, "init triangulation": evi.init_triangulate,
+            "joint pose": evi.joint_pose, "joint write-back": evi.joint_writeback}
 
 
 def _captures() -> int:
     """Graph captures so far, all runners."""
     return sum(r.captures for r in _runners().values())
+
+
+def _first_calls() -> int:
+    """Keys met so far, all runners: a step that met a new key ran it
+    eagerly (its warm-up call)."""
+    return sum(len(r._warm) for r in _runners().values())
 
 
 def _graph_stats() -> dict:
@@ -2072,10 +2102,15 @@ def _pool_mb(pool):
 
 def _step_cost(fn, reps=3):
     """(host-issued launches and copies, device kernels, device ms, of which
-    device copies) of one ``fn()`` under the profiler, and its wall ms by the
-    host clock (mean of ``reps`` calls, each ending in
+    device copies) of one ``fn()`` under the profiler (again, up to three
+    tries, while the profiler recorded no device activity at all: a replay
+    of the track top-up once recorded none), and its wall ms by the host
+    clock (mean of ``reps`` calls, each ending in
     torch.cuda.synchronize())."""
-    _, per = _profile(fn)
+    for _ in range(3):
+        _, per = _profile(fn)
+        if per:
+            break
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -2141,10 +2176,20 @@ def _replayed(kind, unit, calls):
     return g
 
 
+def _eager(fn, kw):
+    """``fn(**kw)`` with every runner it calls inline, as in a capture: the
+    whole step eager."""
+    from eorb_slam_tpu_torch import _graphs
+
+    with _graphs.capturing():
+        return fn(**kw)
+
+
 def _report_costs(kind, g, kw, eager_reps=3):
-    """Print one step's cost eagerly and replayed (the call ``g(**kw)``;
-    the eager wall ms a mean of ``eager_reps`` calls); returns both."""
-    eager, per_e = _step_cost(lambda: g.fn(**kw), reps=eager_reps)
+    """Print one step's cost eagerly (the runners it calls inline too) and
+    replayed (the call ``g(**kw)``; the eager wall ms a mean of
+    ``eager_reps`` calls); returns both."""
+    eager, per_e = _step_cost(lambda: _eager(g.fn, kw), reps=eager_reps)
     graph, per_g = _step_cost(lambda: g(**kw))
     n, mb, host_us = _copy_in_cost(g, kw)
     # the device activities whose counts differ, eager against replayed
@@ -2223,6 +2268,120 @@ def _vi_ba_calls(unit) -> list:
     return calls
 
 
+def _recorder(unit, calls):
+    """``unit``'s eager function, each call's arguments (by name, tensors
+    cloned) and its outputs appended to ``calls``. Inside another runner's
+    capture it runs inline and records nothing (a capture computes no
+    values)."""
+    from eorb_slam_tpu_torch import _graphs
+
+    def rec(*a, **k):
+        out = unit.fn(*a, **k)
+        if not _graphs._nested():
+            calls.append((_call_of(unit, a, k), _cloned(out)))
+        return out
+    return rec
+
+
+EVENT_UNITS = ("joint pose", "joint write-back", "joint local BA", "init triangulation",
+               "loop propagation", "track advance", "track top-up", "pose-only",
+               "MCI candidates", "chunk step")
+
+
+def _event_unit_calls(units) -> dict:
+    """Recorded eager calls of the event-image and continuous units on the
+    card, each with its outputs, by kind (EVENT_UNITS): the joint pose
+    step, its write-back, the joint local BA and the known-pose init
+    triangulation through EvImageSlam on check_ev_image_small's event world
+    (one more joint local BA on its final maps, each init call again with
+    its two frames swapped), and the loop
+    propagation, which none of its frames reaches, on its maps under three
+    corrections; track advance, top-up and the pose-only solve through
+    EventSlamContinuous on check_continuous_small's stream; then build_mci's
+    candidates and the per-chunk step through EventWindowBuilder.step at
+    the synth_ev_only width, with two builders (each one's first chunk has
+    no previous image; the second posts the L2 pose prior after
+    GRAPH_PRIOR_AFTER windows). Both event paths' builders record the
+    candidates and chunk steps at their own widths (keys of their own)."""
+    from eorb_slam_tpu_torch.event import builder as eb
+    from eorb_slam_tpu_torch.event import feature_tracks as ft
+    from eorb_slam_tpu_torch.geometry import lie
+    from eorb_slam_tpu_torch.optim import pose_only
+    from eorb_slam_tpu_torch.slam import ev_image_system as evi
+    from eorb_slam_tpu_torch.slam import event_continuous as ec
+
+    calls = {k: [] for k in EVENT_UNITS}
+    sites = [(eb, "make_candidates", "MCI candidates"), (eb, "chunk_step", "chunk step"),
+             (ft, "advance", "track advance"), (ft, "top_up", "track top-up"),
+             (pose_only, "pose_optimization", "pose-only"),
+             (evi, "joint_local_ba", "joint local BA"),
+             (evi, "init_triangulate", "init triangulation"), (evi, "joint_pose", "joint pose"),
+             (evi, "joint_writeback", "joint write-back")]
+    for mod, name, kind in sites:
+        setattr(mod, name, _recorder(units[kind], calls[kind]))
+    cam = np.asarray([*EVW_CAM, 0, 0, 0, 0, 0], np.float32)
+    try:
+        world = _EvWorld(seed=5)
+        slam = evi.EvImageSlam(cam, eb.BuilderConfig(**EVW_CFG), device="cuda", **EVI_KW)
+        ev = world.events(0.0, EVI_FRAMES / EVI_FPS, int(EVI_RATE * EVI_FRAMES / EVI_FPS))
+        last = 0.0
+        for t in np.arange(EVI_FRAMES) / EVI_FPS:
+            slam.track_ev_mono(ev[(ev[:, 0] > last) & (ev[:, 0] <= t)],
+                               world.frame(float(t), "cuda"), float(t))
+            last = t
+        # one more joint local BA over the final maps, as a keyframe runs it
+        evi._joint_local_ba_step(slam.im.map, slam.ev.map, slam.cam, *slam._last_gauge[1:],
+                                 slam._last_gauge[0], slam.im._ba_window(),
+                                 slam.ev._ba_window())
+        undo = _fixed_twoview(seed=7)
+        try:
+            cont = ec.EventSlamContinuous(cam, eb.BuilderConfig(**EVW_CFG), device="cuda",
+                                          **CONT_KW)
+            stream = _EvWorld(seed=5).events(0.0, 2.4, 160000)[:CONT_EVENTS]
+            for k in range(0, len(stream), CONT_PACKET):
+                cont.track_events(stream[k:k + CONT_PACKET])
+        finally:
+            undo()
+        stream = synth_stream(GRAPH_STEP_S, RATE, seed=27)
+        for with_prior in (False, True):
+            bld = eb.EventWindowBuilder(eb.BuilderConfig(**SLICE_CFG), _cam())
+            bld.feed(stream)
+            while bld.step() is not None:
+                if with_prior and bld.stats["windows"] == GRAPH_PRIOR_AFTER \
+                        and bld.pose_prior is None:
+                    T1 = lie.se3_exp(torch.tensor([0.01, 0.0, 0.02, 0.0, 0.01, 0.0],
+                                                  device="cuda"))
+                    bld.set_pose_prior(torch.eye(4, device="cuda"), T1,
+                                       torch.tensor(4.0, device="cuda"))
+    finally:
+        for mod, name, kind in sites:
+            setattr(mod, name, units[kind])
+    st = slam.stats
+    _log(f"graphs event units: EvImageSlam {EVI_FRAMES} frames (joint inits "
+         f"{st['joint_inits']}, joint frames {st['joint_frames']}, joint BAs "
+         f"{st['joint_bas']}), EventSlamContinuous {cont.l2.n_kf} keyframes, "
+         f"{cont.stats['windows']} windows; the builders {bld.stats}")
+    unit = units["init triangulation"]
+    for kw, _ in list(calls["init triangulation"][:2]):
+        kw = dict(kw, d1=kw["d2"], v1=kw["v2"], xy1=kw["xy2"], T1=kw["T2"], d2=kw["d1"],
+                  v2=kw["v1"], xy2=kw["xy1"], T2=kw["T1"])
+        calls["init triangulation"].append((kw, _cloned(unit.fn(**kw))))
+    unit = units["loop propagation"]
+    im, ev_m = slam.im.map, slam.ev.map
+    c, s_ = np.cos(0.1), np.sin(0.1)
+    bridge = evi._bridge(np.asarray([[c, -s_, 0], [s_, c, 0], [0, 0, 1]]),
+                         np.asarray([0.05, -0.02, 0.1]), 1.3, ev_m.kf_T)
+    for a in (0.1, 0.2, 0.3):
+        G = lie.se3_exp(torch.tensor([0.5 * a, -0.2, 0.1, 0.0, a, 0.0], device="cuda"))
+        kw = dict(ev_map=ev_m, im_kf_ts=im.kf_ts, im_kf_valid=im.kf_valid, T_before=im.kf_T,
+                  T_after=im.kf_T @ G, Rm=bridge[0], tm=bridge[1], sm=bridge[2])
+        calls["loop propagation"].append((_call_of(unit, (), kw), _cloned(unit.fn(**kw))))
+    short = {k: len(v) for k, v in calls.items() if len(v) < 3}
+    if short:
+        raise RuntimeError(f"event units with fewer than 3 calls to replay: {short}")
+    return calls
+
+
 def check_graphs_small():
     """The graph runner against the eager steps on the card. Each of the
     six units (the L1 window, the tracked image frame, local BA's LM loop,
@@ -2251,18 +2410,11 @@ def check_graphs_small():
 
     units = _runners()
 
-    def recorder(unit, calls):
-        def rec(*a, **k):
-            out = unit.fn(*a, **k)
-            calls.append((_call_of(unit, a, k), _cloned(out)))
-            return out
-        return rec
-
     # L1 windows at the EventSlam width, eagerly through step_window
     w_calls = []
     bld = eb.EventWindowBuilder(eb.BuilderConfig(**SLICE_CFG), _cam())
     bld.feed(synth_stream(GRAPH_STREAM_S, RATE, seed=21))
-    eb.window_step = recorder(units["L1 window"], w_calls)
+    eb.window_step = _recorder(units["L1 window"], w_calls)
     try:
         for i in range(GRAPH_WINDOWS):
             bld._resolve_window_meta(block=True)
@@ -2299,9 +2451,9 @@ def check_graphs_small():
     frames = _pipe_frames(GRAPH_FRAMES)
     cam = np.asarray([PIPE_FX, PIPE_FX, PIPE_W / 2, PIPE_H / 2, 0, 0, 0, 0, 0], np.float32)
     slam = system.MonoSlam(cam, pipelined=False, **PIPE_KW)
-    tracking.track_image_frame = recorder(units["tracked frame"], f_calls)
-    schur_ba.bundle_adjust = recorder(units["local BA"], b_calls)
-    local_mapping.keyframe_mapping_step = recorder(units["keyframe mapping"], k_calls)
+    tracking.track_image_frame = _recorder(units["tracked frame"], f_calls)
+    schur_ba.bundle_adjust = _recorder(units["local BA"], b_calls)
+    local_mapping.keyframe_mapping_step = _recorder(units["keyframe mapping"], k_calls)
     try:
         for ts, img, _ in frames:
             slam.process_image(img, ts)
@@ -2349,6 +2501,29 @@ def check_graphs_small():
         at = {"local BA": -4, "VI-BA": 2}.get(kind, -1)
         out[kind] = _report_costs(kind, g, calls[at][0],
                                   eager_reps=1 if kind.startswith("VI") else 3)
+    del f_calls, b_calls, k_calls, vi_calls, viba_calls
+
+    # the event-image and continuous units, each step's last recorded call
+    # timed: the joint steps at EvImageSlam's sizes, the track units and
+    # the pose-only solve at the continuous tracker's, the candidates and
+    # the chunk step at the synth_ev_only width
+    for kind, calls in _event_unit_calls(units).items():
+        g = _replayed(kind, units[kind], calls)
+        out[kind] = _report_costs(kind, g, calls[-1][0])
+    # a continuous window, eagerly, by unit: l1_num_loop chunk steps and
+    # track advances, the window's candidates, a top-up and one or two
+    # pose-only solves, against the replays that take their place
+    L = SLICE_CFG["l1_num_loop"]
+    per = {k: (out[k]["eager"]["host"], out[k]["graph"]["host"]) for k in
+           ("chunk step", "track advance", "MCI candidates", "track top-up", "pose-only")}
+    n = {"chunk step": L, "track advance": L, "MCI candidates": 1, "track top-up": 1,
+         "pose-only": 2}
+    _log(f"graphs continuous window by unit, host-issued launches eager -> replay "
+         f"(count x per call): " + ", ".join(
+             f"{k} {n[k]} x ({e} -> {r})" for k, (e, r) in per.items())
+         + f"; in all {sum(n[k] * e for k, (e, _) in per.items())} -> "
+         f"{sum(n[k] * r for k, (_, r) in per.items())} with two pose-only solves, the "
+         f"glue between them apart")
 
     # the module's runners on a speculating MonoSlam: tracked frames
     slam = system.MonoSlam(cam, pipelined=True, **PIPE_KW)
@@ -2427,8 +2602,10 @@ def check_graph_nodes():
     capture-time counts to the hand kernels' launches; raise unless the
     kernel nodes of each graph hold exactly the hand kernels its counts
     say (by name, sym_eig summed over n), every keyframe mapping graph
-    holds its triangulations' sym_eig nodes, and the app paths captured a
-    mapping, an inertial frame and a VI-BA graph."""
+    holds its triangulations' sym_eig nodes, and the main and app paths
+    captured a mapping, an inertial frame, a VI-BA, an MCI candidates, a
+    chunk step, a track advance and top-up, a pose-only, a joint pose and a
+    joint write-back graph."""
     from eorb_slam_tpu_torch import _graphs
 
     held, off = {}, []
@@ -2453,7 +2630,9 @@ def check_graph_nodes():
         raise RuntimeError(f"graphs whose kernel nodes differ from their counts, or a "
                            f"mapping graph without its triangulations' sym_eig nodes (kind, "
                            f"counted, nodes): {off}")
-    missing = [k for k in ("keyframe mapping", "VI frame", "VI-BA") if k not in held]
+    missing = [k for k in ("keyframe mapping", "VI frame", "VI-BA", "MCI candidates",
+                           "chunk step", "track advance", "track top-up", "pose-only",
+                           "joint pose", "joint write-back") if k not in held]
     if missing:
         raise RuntimeError(f"no path captured a graph of {missing}")
 
@@ -3802,14 +3981,14 @@ def check_ev_image_small():
     world = _EvWorld(seed=5)
     cam_np = np.asarray([*EVW_CAM, 0, 0, 0, 0, 0], np.float32)
     tri_calls = []
-    tri = evi._init_triangulate_known_poses
+    tri = evi.init_triangulate
 
     def rec_tri(*a):
         r = tri(*a)
         tri_calls.append(([x.cpu().numpy() for x in a], int(r[-1])))
         return r
 
-    evi._init_triangulate_known_poses = rec_tri
+    evi.init_triangulate = rec_tri
     try:
         slam = evi.EvImageSlam(cam_np, eb.BuilderConfig(**EVW_CFG), device="cuda", **EVI_KW)
         ev = world.events(0.0, EVI_FRAMES / EVI_FPS, int(EVI_RATE * EVI_FRAMES / EVI_FPS))
@@ -3819,7 +3998,7 @@ def check_ev_image_small():
                                world.frame(float(t), "cuda"), float(t))
             last = t
     finally:
-        evi._init_triangulate_known_poses = tri
+        evi.init_triangulate = tri
     torch.cuda.synchronize()
     st = slam.stats
     _log(f"EvImageSlam on the card, {EVI_FRAMES} frames of the event world: image KFs "
@@ -3911,12 +4090,14 @@ def check_ev_image_small():
 
     win = synth_stream(0.03, RATE, seed=23)
     scores, mcis, kinds, se2, calls, steps = {}, {}, {}, {}, [], {}
-    make = eb._make_candidates
+    # the candidates eagerly (the module's runner would replay them without
+    # calling the splats and the ascent that this check records)
+    make = eb.make_candidates
     ascents = (contrast_max._ascent_kernel, contrast_max._ascent_loop)
     splats = (tensorize.splat_gauss, tensorize.splat_gauss_se2)
 
     def rec_make(*a, **kw):
-        out = make(*a, **kw)
+        out = make.fn(*a, **kw)
         scores[a[0].device.type] = out[2].cpu().numpy()
         return out
 
@@ -3937,7 +4118,7 @@ def check_ev_image_small():
             return out
         return rec
 
-    eb._make_candidates = rec_make
+    eb.make_candidates = rec_make
     contrast_max._ascent_kernel, contrast_max._ascent_loop = (traced(f) for f in ascents)
     tensorize.splat_gauss, tensorize.splat_gauss_se2 = (recorder(f) for f in splats)
     try:
@@ -3952,7 +4133,7 @@ def check_ev_image_small():
             if b.stats["ev_truncated"] != len(win) - cap:
                 raise RuntimeError(f"build_mci kept {b.stats} of {len(win)} events")
     finally:
-        eb._make_candidates = make
+        eb.make_candidates = make
         contrast_max._ascent_kernel, contrast_max._ascent_loop = ascents
         tensorize.splat_gauss, tensorize.splat_gauss_se2 = splats
 
@@ -3985,14 +4166,18 @@ def check_ev_image_small():
         rel_se2 = abs(scores["cuda"][se2_k] - se2_cpu) / abs(se2_cpu)
         rel_held = max(rel_se2, max((r for k, r in zip(np.flatnonzero(fin), rel)
                                      if k != se2_k), default=0.0))
-    # the card's build_mci is the same bits on a second builder
+    # the card's build_mci is the same bits on a second builder, through the
+    # module's candidates runner: its key's eager call, capture and replay
     b = eb.EventWindowBuilder(eb.BuilderConfig(**SLICE_CFG), torch.tensor(
         [*CAM, 0, 0, 0, 0, 0]), device="cuda")
     b.set_pose_prior(*(torch.from_numpy(im_np["kf_T"][k]).cuda() for k in (0, 1)),
                      torch.tensor(2.0, device="cuda"))
-    again = b.build_mci(win).img
-    if not _bits_equal(again, mcis["cuda"]):
-        raise RuntimeError("build_mci on the card: two builders' MCIs differ")
+    r0 = eb.make_candidates.replays
+    again = [b.build_mci(win).img for _ in range(3)]
+    replayed = eb.make_candidates.replays - r0
+    if not all(_bits_equal(a, mcis["cuda"]) for a in again) or replayed < 2:
+        raise RuntimeError(f"build_mci on the card: a second builder's MCIs differ, or "
+                           f"{replayed} of its 3 calls replayed")
     _log(f"build_mci cuda vs cpu, {len(win)} events into {cap} slots, {CM_ITERS} ascent "
          f"steps: " + (f"the ascents agree at every step (max rel {asc_err:.2e}, tol "
                        f"{ASCENT_TOL}); the MCI cuda vs cpu max abs {dev_err:.2e} (tol "
@@ -4005,7 +4190,8 @@ def check_ev_image_small():
          f"; best {kinds['cuda']} / {kinds['cpu']}, scores {scores['cuda'].tolist()} / "
          f"{scores['cpu'].tolist()}, max rel {rel_held:.2e} (tol 1e-5"
          + ("" if part is None else ", SE2 against the plain score of the card's image")
-         + f"); bit-equal on a second builder on the card; the four candidate splats "
+         + f"); bit-equal on a second builder on the card, eagerly, captured and "
+         f"replayed ({replayed} replays of 3 calls); the four candidate splats "
          f"against their plain versions on the card's inputs, max abs "
          f"{[f'{e:.2e}' for e in raw_err]}, the MCI {mci_err:.2e}; SE2 params "
          f"{se2['cuda'].tolist()} / {se2['cpu'].tolist()}")
@@ -4117,13 +4303,19 @@ def check_continuous_small():
 def _run_app_event_image(work, root, config, tag):
     """run_slam.main with configs/<config> (only DS.Paths.root differs) on
     the generated shakes_01, no --device (the card), --eval, with the
-    blocking reads counted per image and the last image under the profiler.
+    blocking reads counted per image and the last image under the profiler;
+    for EVENT_MONO then the same run again, its images from EV_STEADY_FROM
+    on under the profiler (_event_image_steady; tools/ab_event.py profiles
+    both modes' images in turns against another checkout).
     Gates: cuda; the image map with >= 2 keyframes and the tracked share
     after its init; the Sim3 ATE; no fusion error, and the fused file
     written when fusion found a chain; the splat launches MCI_FWD, MCI_VJP
     and MCI_ASCENT per synch MCI; the event map born (>= 2 keyframes) and a joint frame
-    after it. The image tracker's generator is seeded with EV_IMAGE_SEED
-    (see there)."""
+    after it; in EVENT_MONO's second run a paired tracked image (both
+    trackers tracked without a keyframe, the joint solve accepted, no new
+    key) at most GRAPH_LAUNCH_MAX["event-image frame"] host-issued launches
+    each, and at least one. The image tracker's generator is seeded with
+    EV_IMAGE_SEED (see there)."""
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.slam import ev_image_system as evi
     from eorb_slam_tpu_torch.slam.system import OK
@@ -4201,7 +4393,7 @@ def _run_app_event_image(work, root, config, tag):
          f"ascent; blocking "
          f"reads per image after the init {r['reads']:.1f} (each: {reads}); the last image "
          f"under torch.profiler (event state after it {ev_state_prof}): {prof[0]} device "
-         f"launches, {prof[1]:.2f} ms of device time")
+         f"kernels, {prof[1]:.2f} ms of device time")
     app_reads.log(f"run_slam {tag}", "image")
     app_reads.not_above(tag, "image")
     _log(f"run_slam {tag} result: image KFs {st['im']['kf']}, event KFs {st['ev']['kf']}, "
@@ -4225,7 +4417,71 @@ def _run_app_event_image(work, root, config, tag):
         raise RuntimeError(f"{tag}: {launches} splat launches for {windows} synch MCIs, "
                            f"expected {(MCI_FWD, MCI_VJP, MCI_ASCENT)} each")
 
+    if tag == "EVENT_MONO":
+        r["host_launches_frame"] = _event_image_steady(settings, work, tag)
     return slam, r
+
+
+def _event_image_steady(settings, work, tag):
+    """The image-clock app run again on the same data (every key met and
+    captured in the first run), its images from EV_STEADY_FROM on under the
+    profiler. Prints (image, kind, host-issued launches) of each: "paired"
+    where both trackers tracked without a keyframe from a tracked state and
+    the joint solve was accepted, "capture" where the image met a new key,
+    else the image tracker's kind (_frame_kind) or "KF". Returns the paired
+    images' launches, gated at GRAPH_LAUNCH_MAX["event-image frame"]; at
+    least one must be seen. (EVENT_IMU_MONO's image side runs the inertial
+    tracker's eager path until its IMU initializes: not gated, and profiled
+    by tools/ab_event.py only.)"""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.slam import ev_image_system as evi
+    from eorb_slam_tpu_torch.slam.system import OK
+
+    track, build = evi.EvImageSlam.track_ev_mono, run_slam.build_system
+    host = []
+
+    def seeded(*a, **kw):
+        slam = build(*a, **kw)
+        slam.im.generator.manual_seed(EV_IMAGE_SEED)
+        return slam
+
+    def profiled(self, *a, **kw):
+        i = profiled.n
+        profiled.n += 1
+        if i < EV_STEADY_FROM:
+            return track(self, *a, **kw)
+        keys, ev_ok = (_captures(), _first_calls()), self.ev.state == OK
+        res, per = _profile(lambda: track(self, *a, **kw))
+        im, evr, joint = res["image"] or {}, res["event"] or {}, res["joint"]
+        if (_captures(), _first_calls()) != keys:
+            kind = "capture"
+        elif im.get("kf") or evr.get("kf"):
+            kind = "KF"
+        elif (ev_ok and _frame_kind(im) == _frame_kind(evr) == "track" and joint is not None
+              and not joint.get("rejected")):
+            kind = "paired"
+        else:
+            kind = _frame_kind(im)
+        host.append((i, kind, per.launches))
+        return res
+
+    profiled.n = 0
+    evi.EvImageSlam.track_ev_mono = profiled
+    run_slam.build_system = seeded
+    try:
+        run_slam.main([settings, "--sequence", "shakes_01",
+                       "--out", os.path.join(work, f"results_{tag}_steady")])
+        torch.cuda.synchronize()
+    finally:
+        evi.EvImageSlam.track_ev_mono, run_slam.build_system = track, build
+    paired = [c for _, kind, c in host if kind == "paired"]
+    limit = GRAPH_LAUNCH_MAX["event-image frame"]
+    _log(f"run_slam {tag} again, images {EV_STEADY_FROM}- under torch.profiler (image, kind, "
+         f"host-issued launches): {host}; paired tracked images {paired} (gate {limit})")
+    if not paired or max(paired) > limit:
+        raise RuntimeError(f"{tag}: host-issued launches per paired tracked image {paired}, "
+                           f"none or above {limit}: {host}")
+    return paired
 
 
 def run_app_event_mono(work: str, root: str):
@@ -4257,7 +4513,9 @@ def run_app_event_continuous(work: str, root: str):
     gate plus MCI_FWD forward and MCI_ASCENT ascent per window. Accuracy is printed, not gated (the
     reference's tracker does not initialize on this data). Blocking reads
     are counted per window (from one full image to the next), and the
-    window after CONT_PROFILED full images runs under the profiler."""
+    CONT_APP_PROFILED windows after CONT_PROFILED full images run under the
+    profiler: a window that inserts no keyframe and captures no graph issues
+    at most GRAPH_LAUNCH_MAX["continuous window"] launches from the host."""
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.slam import event_continuous as tec
     from torch.profiler import ProfilerActivity, profile
@@ -4272,18 +4530,29 @@ def run_app_event_continuous(work: str, root: str):
     with open(settings, "w") as f:
         f.write(text)
     process = tec.ContinuousEventTracker.process_event_image
-    prof = profile(activities=[ProfilerActivity.CUDA])
+    # the windows after CONT_PROFILED full images, each under a profiler of
+    # its own: (window, kind, device activity); a window runs from one full
+    # image's L2 step to the next one's, the builder's chunk steps and MCI
+    # between them
+    profs, cur = [], {}
     with _Syncs() as sy:
         def windowed(self, img, ts, full=True):
             r = process(self, img, ts, full=full)
             if full:
                 sy.mark()
-                if len(sy.steps) == CONT_PROFILED:
+                k = len(sy.steps)
+                if cur:
                     torch.cuda.synchronize()
-                    prof.start()
-                elif len(sy.steps) == CONT_PROFILED + 1:
+                    cur["prof"].stop()
+                    kind = ("KF" if r.get("kf") else "capture"
+                            if (_captures(), _first_calls()) != cur["keys"] else "window")
+                    profs.append((k, kind, _activity(cur.pop("prof"))))
+                    cur.clear()
+                if CONT_PROFILED <= k < CONT_PROFILED + CONT_APP_PROFILED:
                     torch.cuda.synchronize()
-                    prof.stop()
+                    cur.update(prof=profile(activities=[ProfilerActivity.CUDA]),
+                               keys=(_captures(), _first_calls()))
+                    cur["prof"].start()
             return r
 
         tec.ContinuousEventTracker.process_event_image = windowed
@@ -4296,10 +4565,13 @@ def run_app_event_continuous(work: str, root: str):
             tec.ContinuousEventTracker.process_event_image = process
     launches = _counts()
     st, ev = out["stats"], out.get("eval", {})
-    if st["windows"] <= CONT_PROFILED + 1:
-        raise RuntimeError(f"continuous: {st['windows']} windows, none profiled")
-    per = _activity(prof)
-    win_prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3)
+    if st["windows"] <= CONT_PROFILED + CONT_APP_PROFILED:
+        raise RuntimeError(f"continuous: {st['windows']} windows, not all profiled")
+    # device kernels and ms, and host-issued launches, of each profiled window
+    wins = [(k, kind, sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3,
+             per.launches, dict(per.host)) for k, kind, per in profs]
+    win_prof = (float(np.mean([w[2] for w in wins])), float(np.mean([w[3] for w in wins])))
+    gated = [w[4] for w in wins if w[1] == "window"]
     reads = sy.steps[1:]
     want = (st["chunks"] - st["idle"] + MCI_FWD * st["windows"], MCI_VJP * st["windows"],
             MCI_ASCENT * st["windows"])
@@ -4313,9 +4585,11 @@ def run_app_event_continuous(work: str, root: str):
          f"keyframes {st['l2_kf']}, tracked poses {out['tracked_poses']}, lost "
          f"{st['l2_lost']}; {ate}; splat launches (forward, VJP, ascent) {launches} (expected "
          f"{want}); blocking reads per window {float(np.mean(reads)):.1f} "
-         f"(each: {reads}); window {CONT_PROFILED + 1} under torch.profiler: {win_prof[0]} "
-         f"device launches, {win_prof[1]:.2f} ms of device time; "
-         f"{time.perf_counter() - t0:.1f} s")
+         f"(each: {reads}); windows {CONT_PROFILED + 1}-{CONT_PROFILED + CONT_APP_PROFILED} "
+         f"under torch.profiler: {win_prof[0]:.0f} device kernels and {win_prof[1]:.2f} ms of "
+         f"device time per window; {time.perf_counter() - t0:.1f} s")
+    _log(f"run_slam EVENT_ONLY continuous under torch.profiler, per window (window, kind, "
+         f"device kernels, device ms, host-issued launches, launch calls): {wins}")
     _log(f"run_slam EVENT_ONLY continuous sites per window: "
          f"{sy.top(range(1, len(sy.steps)))}")
     _Reads(sy, [None] + ["window"] * len(reads)).not_above("EVENT_ONLY continuous", "window")
@@ -4325,10 +4599,15 @@ def run_app_event_continuous(work: str, root: str):
         raise RuntimeError(f"continuous: stats {st}")
     if launches != want:
         raise RuntimeError(f"continuous: {launches} splat launches, expected {want}")
-    if not win_prof[0]:
-        raise RuntimeError(f"continuous: the profiled window launched nothing: {per}")
+    if not all(w[2] for w in wins):
+        raise RuntimeError(f"continuous: a profiled window launched nothing: {wins}")
+    limit = GRAPH_LAUNCH_MAX["continuous window"]
+    if not gated or max(gated) > limit:
+        raise RuntimeError(f"continuous: host-issued launches per window without a "
+                           f"keyframe or a capture {gated}, none or above {limit}: {wins}")
     return dict(launches=launches, windows=st["windows"], reads=float(np.mean(reads)),
-                launches_window=win_prof[0], device_ms_window=win_prof[1], stats=st)
+                launches_window=win_prof[0], device_ms_window=win_prof[1],
+                host_launches_window=gated, stats=st)
 
 
 # ------------------------------------- mixed features, checkpoint, rosbag, scale-out
@@ -4779,6 +5058,7 @@ def check_dist(work: str):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     faulthandler.enable()   # a crash in native code prints where Python was
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4899,7 +5179,8 @@ def main() -> int:
     # (one identity forward per chunk, 12,000: the measured forward
     # launches less MCI_FWD per window) and dist_splat's shapes (one per
     # rank per call, at N / world).
-    _log(f"new phases, wall s: {phase_s}")
+    _log(f"new phases, wall s: {phase_s}; chip_smoke.py so far "
+         f"{time.perf_counter() - t_start:.1f} s")
     main_row = next(r for r in rows if r["n"] == MAIN_N)
     gen_row = gen_rows[0]
     dist_row = dist_res["row"]

@@ -3,7 +3,9 @@ CUDA graph and replayed, one dispatch per call.
 
 The JAX package compiles each per-step unit of its main path (the L1
 window, the tracked image frame, local BA's LM loop, the keyframe mapping
-step, the tracked inertial frame, VI-BA's LM loop) into one executable per
+step, the tracked inertial frame, VI-BA's LM loop, the synchronized MCI's
+candidates, the continuous tracker's chunk step, track advance and top-up,
+the pose-only solve, EVENT_MONO's joint steps) into one executable per
 key of static arguments and runs it as one dispatch. Run eagerly, the
 same step is thousands of kernel launches, each costing the host more time
 than the card spends on it. :class:`GraphRunner` wraps such a step: on the
@@ -34,7 +36,9 @@ A runner called while another runner captures (local BA's LM loop inside
 the keyframe mapping step) runs its function inline, as a jitted function
 called inside a jitted one is inlined: it warms nothing up, copies into no
 buffer of its own and neither captures nor replays, and its kernels'
-launches count once, in the outer graph's counts.
+launches count once, in the outer graph's counts. So does a runner called
+on tensors that ``torch.func`` transforms (the batched searches under
+``vmap``).
 
 A key is captured only on its second call: the first runs eagerly, which
 builds every per-device constant and table cache the step uses (a cached
@@ -237,6 +241,10 @@ class GraphRunner:
         names = [n for n in arguments if n not in self.static]
         leaves: list = []
         spec = tuple(_flatten(arguments[n], leaves, n) for n in names)
+        if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in leaves):
+            # under torch.func.vmap (a batch of searches) the step runs
+            # inline, as a jitted function does under jax.vmap
+            return self.fn(*args, **kwargs)
         devices = {t.device for t in leaves}
         if not any(d.type == self._graph_cls.device_type for d in devices):
             return self.fn(*args, **kwargs)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from eorb_slam_tpu_torch import _graphs
-from eorb_slam_tpu_torch._host import HostCopy, constant, resolve_device
+from eorb_slam_tpu_torch._host import HostCopy, constant, resolve_device, to_device
 from eorb_slam_tpu_torch.event import contrast_max, klt, tensorize
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.io import native
@@ -183,6 +183,42 @@ def _make_candidates(
     return best_img, best, scores, params
 
 
+def _chunk_step(
+    ev: torch.Tensor,          # (C,4) one padded chunk [t-t0, x, y, p]
+    valid: torch.Tensor,       # (C,)
+    prev_img: Optional[torch.Tensor],   # (H,W) the previous chunk image
+    prev_pts: Optional[torch.Tensor],   # (Np,2) its FAST corners
+    prev_ok: Optional[torch.Tensor],    # (Np,)
+    H: int,
+    W: int,
+    sigma: float,
+    n_klt: int,
+    have_prev: bool,
+    min_ncc: float = 0.3,
+    threshold: float = 0.08,
+    min_threshold: float = 0.03,
+):
+    """One chunk of the per-chunk path (``step``): the identity splat and
+    normalization, KLT from the previous chunk image with its median
+    displacement (where ``have_prev``), FAST on the new image; each step of
+    ``_window_step``'s loop, and the reference's _chunk_image, klt.track
+    and fast.detect_grid jits as one unit. Returns (img, median
+    displacement, tracked corners, their mask, new corners, their mask);
+    the KLT outputs are None without a previous image."""
+    img = _chunk_image(ev, valid, H, W, sigma)
+    med = kc = kok = None
+    if have_prev:
+        res = klt.track(prev_img, img, prev_pts, prev_ok, win=9, levels=2, iters=6,
+                        min_ncc=min_ncc)
+        med = klt.median_displacement(res, prev_pts)
+        kc, kok = res.xy, prev_ok & res.ok
+    xy, _, vmask = fast.detect_grid(
+        img, threshold=threshold, min_threshold=min_threshold, cell=24,
+        per_cell=2, max_kp=n_klt, border=6,
+    )
+    return img, med, kc, kok, xy, vmask
+
+
 def _window_step(
     chunks: torch.Tensor,     # (L,C,4) per-chunk padded events, t rebased
     #                           to the WINDOW start (float32 seconds)
@@ -212,20 +248,11 @@ def _window_step(
     img_p, pts_p, ok_p = prev_img, prev_pts, prev_ok
     mds = []
     for i in range(L):
-        e = chunks[i]
-        img_c = tensorize.normalize_to_image(
-            tensorize.splat_gauss(e[:, 1:3], cvalid[i], e[:, 3], H, W, sigma=sigma)
-        )
-        res = klt.track(
-            img_p, img_c, pts_p, ok_p, win=9, levels=2, iters=6, min_ncc=0.3
-        )
-        mds.append(klt.median_displacement(res, pts_p))
-        xy_new, _, vmask = fast.detect_grid(
-            img_c, threshold=0.08, min_threshold=0.03, cell=24,
-            per_cell=2, max_kp=n_klt, border=6,
-        )
+        img_c, md, kc, kok, xy_new, vmask = _chunk_step(
+            chunks[i], cvalid[i], img_p, pts_p, ok_p, H, W, sigma, n_klt, have_prev=True)
+        mds.append(md)
         # the last chunk's correspondences seed the measured-flow candidate
-        kp, kc, kok = pts_p, res.xy, ok_p & res.ok
+        kp = pts_p
         img_p, pts_p, ok_p = img_c, xy_new, vmask
 
     # window-level MCI candidates over the flattened (time-ordered) events
@@ -252,6 +279,18 @@ def _window_step(
 # bucket and count are shapes; have_dpose and cm_stride are static too)
 window_step = _graphs.GraphRunner(
     _window_step, static=("have_dpose", "H", "W", "sigma", "cm_iters", "cm_stride"))
+
+# build_mci's four candidates as one dispatch, the reference's
+# _make_candidates_jit: the window is padded to max_window_events, so one
+# key per have_dpose
+make_candidates = _graphs.GraphRunner(
+    _make_candidates, static=("have_dpose", "H", "W", "sigma", "cm_iters", "cm_stride"))
+
+
+# the per-chunk unit as one dispatch: one key with a previous chunk image
+# and one without
+chunk_step = _graphs.GraphRunner(_chunk_step, static=(
+    "H", "W", "sigma", "n_klt", "have_prev", "min_ncc", "threshold", "min_threshold"))
 
 
 class EventWindowBuilder:
@@ -481,27 +520,23 @@ class EventWindowBuilder:
             return None
 
         ev_pad, v_pad, _ = _pad_events(chunk, cfg.max_chunk)
-        img = _chunk_image(self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool),
-                           cfg.img_h, cfg.img_w, cfg.sigma)
-
-        # KLT continuity between consecutive chunk images: the median pixel
-        # displacement drives the adaptive chunk size
-        if self.prev_img is not None and self.prev_pts is not None:
-            res = klt.track(self.prev_img, img, self.prev_pts,
-                            self.prev_pts_valid, win=9, levels=2, iters=6,
-                            min_ncc=0.3)
-            med = float(klt.median_displacement(res, self.prev_pts))
+        # the chunk image, KLT continuity from the previous chunk image and
+        # FAST corners for the next pair, as one unit
+        have_prev = self.prev_img is not None and self.prev_pts is not None
+        img, med, kc, kok, xy, vmask = chunk_step(
+            self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool),
+            self.prev_img if have_prev else None, self.prev_pts if have_prev else None,
+            self.prev_pts_valid if have_prev else None,
+            H=cfg.img_h, W=cfg.img_w, sigma=cfg.sigma, n_klt=cfg.n_klt_pts,
+            have_prev=have_prev)
+        if have_prev:
+            # the median pixel displacement drives the adaptive chunk size
+            med = float(med)
             self.last_med_disp = med
             self._adapt_chunk_size(med)
-            self._klt_fit = (self.prev_pts, res.xy, self.prev_pts_valid & res.ok,
+            self._klt_fit = (self.prev_pts, kc, kok,
                              float(chunk[-1, 0]) - self._last_chunk_ts)
         self._last_chunk_ts = float(chunk[-1, 0])
-
-        # reference corners for the next pair
-        xy, _, vmask = fast.detect_grid(
-            img, threshold=0.08, min_threshold=0.03, cell=24,
-            per_cell=2, max_kp=cfg.n_klt_pts, border=6,
-        )
         self.prev_img, self.prev_pts, self.prev_pts_valid = img, xy, vmask
 
         self.chunks_in_window.append(chunk)
@@ -531,6 +566,24 @@ class EventWindowBuilder:
             self.stats["ev_truncated"] += n_drop
 
         dev = self.device
+        if self._klt_fit is not None and self._klt_fit[3] > 0:
+            # kdt <= 0 for the chunk pair straddling the overlap re-injection
+            # (timestamps step backward): no fit from it
+            kp, kc, kok, kdt = self._klt_fit
+            have_klt = True
+        else:
+            n = cfg.n_klt_pts
+            kp = kc = constant(((0.0, 0.0),) * n, torch.float32, dev)
+            kok = constant((False,) * n, torch.bool, dev)
+            kdt, have_klt = 1e-3, False
+        # the window's host scalars in one copy: its duration, the KLT pair's
+        # dt, the median depth of no prior, and have_klt
+        f32 = np.asarray([t1 - t0, kdt, 1.0], np.float32)
+        staged = to_device(np.concatenate([f32.view(np.uint8), np.asarray([have_klt], np.uint8)]),
+                           dev)
+        dt, kdt_t, depth = staged[:f32.nbytes].view(torch.float32).unbind()
+        have_klt_t = staged[f32.nbytes:].view(torch.bool)[0]
+
         if self.pose_prior is not None:
             # L2 posts the poses of its last two tracked frames: warp this
             # window with the constant-velocity extrapolation (T_cur,
@@ -539,27 +592,13 @@ class EventWindowBuilder:
             T0, T1 = T_cur, (T_cur @ lie.se3_inv(T_prev)) @ T_cur
             have_dpose = True
         else:
-            T0 = T1 = torch.eye(4, dtype=torch.float32, device=dev)
-            depth, have_dpose = self._to_dev(1.0), False
+            T0 = T1 = constant(tuple(map(tuple, np.eye(4))), torch.float32, dev)
+            have_dpose = False
 
-        if self._klt_fit is not None and self._klt_fit[3] > 0:
-            # kdt <= 0 for the chunk pair straddling the overlap re-injection
-            # (timestamps step backward): no fit from it
-            kp, kc, kok, kdt = self._klt_fit
-            have_klt = True
-        else:
-            n = cfg.n_klt_pts
-            kp = kc = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-            kok = torch.zeros(n, dtype=torch.bool, device=dev)
-            kdt, have_klt = 1e-3, False
-
-        best_img, best, scores, se2 = _make_candidates(
-            self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool),
-            self._to_dev(np.float32(t1 - t0)), T0, T1, depth, have_dpose,
-            kp, kc, kok, self._to_dev(np.float32(kdt)),
-            torch.full((), have_klt, dtype=torch.bool, device=dev),
-            self.cam, H=cfg.img_h, W=cfg.img_w, sigma=cfg.sigma,
-            cm_iters=cfg.cm_iters,
+        best_img, best, scores, se2 = make_candidates(
+            self._to_dev(ev_pad), self._to_dev(v_pad, torch.bool), dt, T0, T1, depth,
+            have_dpose, kp, kc, kok, kdt_t, have_klt_t, self.cam,
+            H=cfg.img_h, W=cfg.img_w, sigma=cfg.sigma, cm_iters=cfg.cm_iters,
         )
         meta = torch.cat([best[None].to(torch.float32), scores]).cpu().numpy()
         best_i = int(meta[0])

@@ -6,6 +6,10 @@ EvAsynchTrackerU). A track owns one slot for its whole life, and the slot
 index is the feature index in every keyframe it appears in: two keyframes'
 feature arrays are ALIGNED by construction, so triangulation needs no
 descriptor matching ("the same row of consecutive kf_xy arrays").
+
+``advance`` and ``top_up`` are graph runners, the reference's jits: on the
+card each call is one CUDA-graph replay per key (the store's capacity and
+the image size are shapes; the KLT and detector settings are static).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.event import klt
 from eorb_slam_tpu_torch.ops import fast
 from eorb_slam_tpu_torch.slam.map_state import scatter_set_last
@@ -48,7 +53,7 @@ def empty_tracks(T: int, device=None) -> TrackStore:
     )
 
 
-def advance(
+def _advance(
     tr: TrackStore,
     img_prev: torch.Tensor,
     img_cur: torch.Tensor,
@@ -73,7 +78,7 @@ def advance(
     return tr, med
 
 
-def top_up(
+def _top_up(
     tr: TrackStore,
     img: torch.Tensor,
     min_dist: float = 8.0,
@@ -129,3 +134,9 @@ def top_up(
         quality=put(tr.quality, torch.ones_like(xy_new[:, 0])),
     )
     return tr, take.sum(dtype=i32)
+
+
+# the reference's two jits, each one dispatch on the card
+advance = _graphs.GraphRunner(_advance, static=("win", "levels", "iters", "min_ncc"))
+top_up = _graphs.GraphRunner(_top_up, static=(
+    "min_dist", "threshold", "cell", "per_cell", "max_new", "border"))

@@ -5,13 +5,17 @@ Optimizer::PoseOptimization): 4 rounds x 10 Gauss-Newton iterations over the
 current frame's map-point matches, Huber(sqrt(5.991)) in the first two
 rounds, per-round outlier re-classification at chi2 > 5.991; outliers leave
 the normal equations but are re-tested every round. Fixed shapes: N
-observation slots with a validity mask, and no host read inside.
+observation slots with a validity mask, and no host read inside. On the
+card a call is one CUDA-graph replay (``pose_optimization``, a graph runner
+with static ``rounds`` and ``iters_per_round``, the reference's jit); inside
+another step's capture it runs inline.
 """
 
 from __future__ import annotations
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.optim import linalg, reprojection, robust
 
@@ -38,7 +42,7 @@ def _gn_step(cam_params, Tcw, pts_w, uv_obs, inv_sigma, weight_mask, use_huber):
     return dx, chi2
 
 
-def pose_optimization(
+def _pose_optimization(
     cam_params: torch.Tensor,
     Tcw0: torch.Tensor,
     pts_w: torch.Tensor,
@@ -68,3 +72,10 @@ def pose_optimization(
     Tcw = lie.se3_project(Tcw)
     inlier_mask = (inlier > 0.5) & valid
     return Tcw, inlier_mask, torch.sum(inlier_mask.to(torch.int32))
+
+
+# the pose-only solve as one dispatch (the reference's jit): on the card one
+# CUDA graph per key; inline inside the tracked-frame, inertial-frame and
+# joint-pose captures
+pose_optimization = _graphs.GraphRunner(
+    _pose_optimization, static=("rounds", "iters_per_round"))

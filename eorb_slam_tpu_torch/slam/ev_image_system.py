@@ -13,9 +13,19 @@ An image-side loop correction carries the event map with it.
 
 The two maps are two MapStates (the reference's two Atlases). A DAVIS
 sensor's events and frames share one pixel array, so one camera model
-serves both. The five fixed-shape steps are plain torch functions on the
+serves both. The five fixed-shape steps run on the
 maps' device; the host keeps the state machine, the stash of event frames
 before the joint init and the gauge estimate (numpy, as the reference's).
+
+Each of the five steps is a graph runner over a function of tensors alone
+(``joint_local_ba``, ``propagate_loop``, ``init_triangulate``,
+``joint_pose``, ``joint_writeback``: the reference's jits, one CUDA-graph
+replay per call on the card). ``_joint_local_ba_step``,
+``_propagate_loop_to_event``, ``_joint_pose_step`` and ``_joint_writeback``
+keep the steps' signatures: they stage the Sim3 bridge, numpy on the host, on the device in
+one copy that does not wait for the device queue (never inside a capture,
+where a host copy would bake one frame's gauge into the graph), then call
+the runner.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch._host import to_device
 from eorb_slam_tpu_torch.event import builder as ev_builder
 from eorb_slam_tpu_torch.geometry import camera as cam_mod
@@ -49,19 +60,21 @@ def _im_pose_to_ev(T, R, t, s):
 
 
 def _bridge(R_ie, t_ie, s_ie, like: torch.Tensor):
-    """The Sim3 bridge as tensors of ``like``'s dtype and device."""
-    return tuple(torch.as_tensor(x, dtype=like.dtype).to(like.device, non_blocking=True)
-                 for x in (R_ie, t_ie, s_ie))
+    """The Sim3 bridge (R (3,3), t (3,), s ()) as tensors of ``like``'s
+    dtype on its device. Host values (numpy, Python numbers) go in one copy
+    from pinned memory that does not wait for the device queue; tensors are
+    moved or cast, a bridge staged already passes through."""
+    xs = (R_ie, t_ie, s_ie)
+    if any(isinstance(x, torch.Tensor) for x in xs):
+        return tuple(torch.as_tensor(x, dtype=like.dtype).to(like.device, non_blocking=True)
+                     for x in xs)
+    dtype = torch.empty(0, dtype=like.dtype).numpy().dtype
+    t = to_device(np.concatenate([np.asarray(x, dtype).reshape(-1) for x in xs]), like.device)
+    return t[:9].view(3, 3), t[9:12], t[12]
 
 
-def _joint_local_ba_step(
-    im_map, ev_map, cam_params,
-    R_ie, t_ie, s_ie,            # Sim3: event-map coords -> image-map coords
-    kf_free_im, kf_free_ev,      # (K_im,), (K_ev,) bool BA windows
-    ev_sigma_scale: float = 0.5,
-    iters: int = 8,
-    twin_eps: float = 1e-3,
-):
+def _joint_local_ba(im_map, ev_map, cam_params, Rm, tm, sm, kf_free_im, kf_free_ev,
+                    ev_sigma_scale: float = 0.5, iters: int = 8, twin_eps: float = 1e-3):
     """Joint local BA over the union of the image map and the Sim3-bridged
     event map (EvOptimizer::LocalBundleAdjustment / setEventMapVxAndEdges).
 
@@ -71,9 +84,9 @@ def _joint_local_ba_step(
     inverse Sim3. Twin coupling: an event keyframe whose timestamp matches
     an image keyframe's (|dt| < twin_eps) puts its observations on that
     image vertex, drops out of the solve, and follows its twin on the way
-    out. Runs in the maps' dtype. Returns (im_map', ev_map', [cost0, cost])."""
+    out. Runs in the maps' dtype, the bridge (Rm, tm, sm) a device tensor
+    in it. Returns (im_map', ev_map', [cost0, cost])."""
     K_im = im_map.kf_T.shape[0]
-    Rm, tm, sm = _bridge(R_ie, t_ie, s_ie, im_map.kf_T)
 
     ev_T_im = _ev_pose_to_im(ev_map.kf_T, Rm, tm, sm)
     ev_lm_im = sm * (ev_map.lm_pos @ Rm.T) + tm
@@ -123,15 +136,33 @@ def _joint_local_ba_step(
     return im_map, ev_map, torch.stack([res.cost0, res.cost])
 
 
-def _propagate_loop_to_event(ev_map, im_kf_ts, im_kf_valid, T_before, T_after,
-                             R_ie, t_ie, s_ie):
+# the reference's jit with static iters (and here the two weights); local
+# BA's own runner runs inline in its capture
+joint_local_ba = _graphs.GraphRunner(
+    _joint_local_ba, static=("ev_sigma_scale", "iters", "twin_eps"))
+
+
+def _joint_local_ba_step(
+    im_map, ev_map, cam_params,
+    R_ie, t_ie, s_ie,            # Sim3: event-map coords -> image-map coords
+    kf_free_im, kf_free_ev,      # (K_im,), (K_ev,) bool BA windows
+    ev_sigma_scale: float = 0.5,
+    iters: int = 8,
+    twin_eps: float = 1e-3,
+):
+    """``joint_local_ba`` with the bridge staged (see the module notes)."""
+    return joint_local_ba(im_map, ev_map, cam_params, *_bridge(R_ie, t_ie, s_ie, im_map.kf_T),
+                          kf_free_im, kf_free_ev, ev_sigma_scale=ev_sigma_scale, iters=iters,
+                          twin_eps=twin_eps)
+
+
+def _propagate_loop(ev_map, im_kf_ts, im_kf_valid, T_before, T_after, Rm, tm, sm):
     """Carry an image-map loop correction into the synch event map: each
     event keyframe follows its nearest-in-time image keyframe's correction
     D_j = T_before_j^-1 T_after_j rigidly (findNearestPose), and each event
     landmark its first-observing keyframe's anchor, so camera-frame
     coordinates stay fixed through the weld. In the image gauge through the
-    Sim3 bridge."""
-    Rm, tm, sm = _bridge(R_ie, t_ie, s_ie, ev_map.kf_T)
+    Sim3 bridge (device tensors)."""
     d = torch.abs(ev_map.kf_ts[:, None] - im_kf_ts[None, :])
     d = torch.where(im_kf_valid[None, :], d, torch.inf)
     anchor = torch.argmin(d, dim=1)                           # (K_ev,)
@@ -147,6 +178,16 @@ def _propagate_loop_to_event(ev_map, im_kf_ts, im_kf_valid, T_before, T_after,
     x_new = ((y_new - tm) @ Rm) / sm
     x_new = torch.where(ev_map.lm_valid[:, None], x_new, ev_map.lm_pos)
     return ev_map._replace(kf_T=Te_new, lm_pos=x_new)
+
+
+propagate_loop = _graphs.GraphRunner(_propagate_loop)
+
+
+def _propagate_loop_to_event(ev_map, im_kf_ts, im_kf_valid, T_before, T_after,
+                             R_ie, t_ie, s_ie):
+    """``propagate_loop`` with the bridge staged."""
+    return propagate_loop(ev_map, im_kf_ts, im_kf_valid, T_before, T_after,
+                          *_bridge(R_ie, t_ie, s_ie, ev_map.kf_T))
 
 
 def _init_triangulate_known_poses(
@@ -179,13 +220,15 @@ def _init_triangulate_known_poses(
     return m12, idx2, pts, ok, ok.sum(dtype=torch.int32)
 
 
-def _joint_pose_step(cam_params, im_lm_pos, ev_lm_pos,
-                     feat_lm_i, xy_i, oct_i, feat_lm_e, xy_e, oct_e,
-                     R_ie, t_ie, s_ie, Tcw0):
+init_triangulate = _graphs.GraphRunner(_init_triangulate_known_poses)
+
+
+def _joint_pose(cam_params, im_lm_pos, ev_lm_pos, feat_lm_i, xy_i, oct_i,
+                feat_lm_e, xy_e, oct_e, Rm, tm, sm, Tcw0):
     """Joint image + event pose optimization: both matched landmark sets
-    (the event side Sim3-bridged, at half weight), one GN solve. Returns
-    (Tcw, packed flags [n_inl_total, n_inl_image, finite])."""
-    Rm, tm, sm = _bridge(R_ie, t_ie, s_ie, im_lm_pos)
+    (the event side Sim3-bridged, at half weight), one GN solve (the
+    pose-only runner inline). Returns (Tcw, packed flags [n_inl_total,
+    n_inl_image, finite])."""
     mi, me = feat_lm_i >= 0, feat_lm_e >= 0
     pts_i = im_lm_pos[torch.where(mi, feat_lm_i, 0).long()]
     pts_e = sm * (ev_lm_pos[torch.where(me, feat_lm_e, 0).long()] @ Rm.T) + tm
@@ -202,16 +245,34 @@ def _joint_pose_step(cam_params, im_lm_pos, ev_lm_pos,
     return Tj, flags
 
 
-def _joint_writeback(Tj, T_last_im, T_last_ev, R_ie, t_ie, s_ie, ref_T_im):
+joint_pose = _graphs.GraphRunner(_joint_pose)
+
+
+def _joint_pose_step(cam_params, im_lm_pos, ev_lm_pos,
+                     feat_lm_i, xy_i, oct_i, feat_lm_e, xy_e, oct_e,
+                     R_ie, t_ie, s_ie, Tcw0):
+    """``joint_pose`` with the bridge staged."""
+    return joint_pose(cam_params, im_lm_pos, ev_lm_pos, feat_lm_i, xy_i, oct_i,
+                      feat_lm_e, xy_e, oct_e, *_bridge(R_ie, t_ie, s_ie, im_lm_pos), Tcw0)
+
+
+def _joint_wb(Tj, T_last_im, T_last_ev, Rm, tm, sm, ref_T_im):
     """Post-solve pose algebra: both trackers' motion models, the event-gauge
     twin pose and the image trajectory entry. Returns (vel_im, Te, vel_ev,
     T_rel)."""
-    Rm, tm, sm = _bridge(R_ie, t_ie, s_ie, Tj)
     vel_im = Tj @ lie.se3_inv(T_last_im)
     Te = _im_pose_to_ev(Tj, Rm, tm, sm)
     vel_ev = Te @ lie.se3_inv(T_last_ev)
     T_rel = Tj @ lie.se3_inv(ref_T_im)
     return vel_im, Te, vel_ev, T_rel
+
+
+joint_writeback = _graphs.GraphRunner(_joint_wb)
+
+
+def _joint_writeback(Tj, T_last_im, T_last_ev, R_ie, t_ie, s_ie, ref_T_im):
+    """``joint_writeback`` with the bridge staged."""
+    return joint_writeback(Tj, T_last_im, T_last_ev, *_bridge(R_ie, t_ie, s_ie, Tj), ref_T_im)
 
 
 class EvImageSlam:
@@ -367,7 +428,7 @@ class EvImageSlam:
         Ti_t = torch.from_numpy(Ti).to(dev)
         tri = []
         for ts0, f0, T0 in cands:
-            tri.append((ts0, f0, T0) + _init_triangulate_known_poses(
+            tri.append((ts0, f0, T0) + init_triangulate(
                 self.cam, f0.desc_pm1, f0.valid, f0.xy_ud,
                 f.desc_pm1, f.valid, f.xy_ud, torch.from_numpy(T0).to(dev), Ti_t,
             )[1:])
@@ -574,12 +635,13 @@ class EvImageSlam:
         return self._joint_solve(ts, tr_i, f_i, tr_e, f_e, s, R_ie, t_ie, resid)
 
     def _joint_solve(self, ts, tr_i, f_i, tr_e, f_e, s, R_ie, t_ie, resid):
-        # one solve, one packed read: the joint flags and the image-only
-        # solve's inlier count
+        # the bridge staged once for both steps; one solve, one packed read:
+        # the joint flags and the image-only solve's inlier count
+        bridge = _bridge(R_ie, t_ie, s, self.im.map.lm_pos)
         Tj, flags = _joint_pose_step(
             self.cam, self.im.map.lm_pos, self.ev.map.lm_pos,
             tr_i.feat_lm, f_i.xy_ud, f_i.octave,
-            tr_e.feat_lm, f_e.xy_ud, f_e.octave, R_ie, t_ie, s, tr_i.Tcw,
+            tr_e.feat_lm, f_e.xy_ud, f_e.octave, *bridge, tr_i.Tcw,
         )
         packed = torch.cat([flags, tr_i.n_inliers.reshape(1).to(torch.float32)])
         n_inl, im_inl_joint, finite, n_im_only = (float(x) for x in packed.cpu().numpy())
@@ -590,7 +652,7 @@ class EvImageSlam:
             return {"n_inliers": int(n_inl), "rejected": True}
 
         vel_im, Te_j, vel_ev, T_rel = _joint_writeback(
-            Tj, self.im.T_last, self.ev.T_last, R_ie, t_ie, s,
+            Tj, self.im.T_last, self.ev.T_last, *bridge,
             self.im.map.kf_T[self.im._kf_ref()],
         )
         self.im.velocity = vel_im

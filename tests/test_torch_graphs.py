@@ -9,11 +9,13 @@ and its replay runs that call again on the same buffers (with the launch
 counters held, as a replay runs no Python) and writes the results into the
 captured outputs. That exercises everything the runner does around a graph:
 keys, warm-up, static buffers and their copies, outputs cloned out, the
-counters, a runner nested in another's capture. The six units go through
-it, each against its eager function: the L1 window, the tracked image
-frame, local BA's LM loop, the keyframe mapping step (local BA inline in
-it), the tracked inertial frame (its IMU window padded to a bucket, with
-and without the marginal prior) and VI-BA's LM loop. Whether a real
+counters, a runner nested in another's capture. The units go through it,
+each against its eager function: the L1 window, the tracked image frame,
+local BA's LM loop, the keyframe mapping step (local BA inline in it), the
+tracked inertial frame (its IMU window padded to a bucket, with and without
+the marginal prior), VI-BA's LM loop, build_mci's candidates, the
+per-chunk step, track advance and top-up, the pose-only solve (inline
+under ``torch.func.vmap``) and EVENT_MONO's five joint units. Whether a real
 capture gives the eager bits is the card's question
 (``chip_smoke.check_graphs_small``). No JAX here.
 """
@@ -30,10 +32,13 @@ from chip_smoke import _bits_equal
 from eorb_slam_tpu_torch import _graphs, _host
 from chip_smoke import _vi_ba_problem
 from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.event import feature_tracks as ft
+from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
 from eorb_slam_tpu_torch.ops import hopper_linalg, hopper_splat
-from eorb_slam_tpu_torch.optim import marginalize, schur_ba, vi_ba
+from eorb_slam_tpu_torch.optim import marginalize, pose_only, schur_ba, vi_ba
+from eorb_slam_tpu_torch.slam import ev_image_system as evi
 from eorb_slam_tpu_torch.slam import local_mapping
 from eorb_slam_tpu_torch.slam import map_state as ms
 from eorb_slam_tpu_torch.slam import system as tsys
@@ -617,3 +622,230 @@ def test_vi_bundle_adjust_second_call_builds_no_constant():
     misses = _host.constant.cache_info().misses
     vi_ba._vi_bundle_adjust(p, iters=2)
     assert _host.constant.cache_info().misses == misses
+
+
+# ------------------------------------- the event-image and continuous units
+
+def _mci_args(C, have_dpose, seed, have_klt=True):
+    """build_mci's candidates' inputs over a C-slot window (cm_iters 3):
+    the events of a moving point cloud, the pose prior and a KLT pair."""
+    a = _window_args(C // 2, have_dpose, seed, L=2)
+    rng = np.random.default_rng(seed + 100)
+    n = 16
+    kp = torch.from_numpy(np.stack([rng.uniform(20, W - 20, n), rng.uniform(20, H - 20, n)],
+                                   1).astype(np.float32))
+    kc = kp + torch.tensor([0.8, 0.1])
+    return dict(ev=a[0].reshape(-1, 4), valid=a[1].reshape(-1), dt=a[2], T0=a[7], T1=a[8],
+                med_depth=a[9], have_dpose=have_dpose, klt_prev=kp, klt_cur=kc,
+                klt_ok=torch.ones(n, dtype=torch.bool), klt_dt=torch.tensor(0.002),
+                have_klt=torch.tensor(have_klt), cam_params=a[11], H=H, W=W, sigma=1.0,
+                cm_iters=3)
+
+
+def _replays_equal(r, unit, calls):
+    """Each call through the runner ``r``; every captured or replayed
+    output bit-equal to ``unit.fn``'s on the same call (a key's first call
+    is the eager step itself)."""
+    for i, kw in enumerate(calls):
+        replays = r.replays
+        got = r(**kw)
+        if r.replays != replays:
+            assert _bits_equal(got, unit.fn(**kw)), i
+
+
+def test_make_candidates_replays_the_eager_step():
+    """Windows through the runner: without and then with the pose prior
+    (a key each), the KLT candidate on and off (the same key), new events
+    on every call; every replay bit-equal to the eager step."""
+    r = _runner(tb.make_candidates)
+    calls = [_mci_args(2048, dp, i, have_klt=i % 2 == 0)
+             for i, dp in enumerate([False] * 3 + [True] * 3)]
+    _replays_equal(r, tb.make_candidates, calls)
+    assert (r.captures, r.keys, r.replays) == (2, 2, 4)
+    assert not _bits_equal(r(**calls[4]), r(**calls[5]))
+
+
+def test_make_candidates_second_call_builds_no_constant():
+    kw = _mci_args(2048, True, 0)
+    tb._make_candidates(**kw)
+    misses = _host.constant.cache_info().misses
+    tb._make_candidates(**kw)
+    assert _host.constant.cache_info().misses == misses
+
+
+def _chunk_calls(n, seed=0):
+    """The per-chunk step's calls over ``n`` chunks of 1,948 events in
+    2,048 slots, each the next's previous image: the first without one."""
+    a = _window_args(2048, False, seed, L=n)
+    calls, prev = [], None
+    for i in range(n):
+        kw = dict(ev=a[0][i], valid=a[1][i], prev_img=None, prev_pts=None, prev_ok=None,
+                  H=H, W=W, sigma=1.0, n_klt=32, have_prev=prev is not None)
+        if prev is not None:
+            kw.update(prev_img=prev[0], prev_pts=prev[4], prev_ok=prev[5])
+        prev = tb._chunk_step(**kw)
+        calls.append(kw)
+    return calls
+
+
+def test_chunk_step_replays_the_eager_step():
+    """Chunks through the runner, each tracked from the one before: the
+    first two without a previous image (a key), then with one (a key);
+    every replay bit-equal to the eager step; the step's median and its
+    corners are the eager builder's."""
+    calls = _chunk_calls(5)
+    calls.insert(1, dict(calls[0], ev=calls[2]["ev"], valid=calls[2]["valid"]))
+    r = _runner(tb.chunk_step)
+    _replays_equal(r, tb.chunk_step, calls)
+    assert (r.captures, r.keys, r.replays) == (2, 2, 4)
+    out = tb._chunk_step(**calls[-1])
+    assert out[1] is not None and torch.isfinite(out[1]) and bool(out[5].any())
+
+
+def test_chunk_step_second_call_builds_no_constant():
+    kw = _chunk_calls(2)[1]
+    tb._chunk_step(**kw)
+    misses = _host.constant.cache_info().misses
+    tb._chunk_step(**kw)
+    assert _host.constant.cache_info().misses == misses
+
+
+def _track_calls(n=4):
+    """Track advance and top-up calls: a store topped up on a chunk image,
+    then advanced chunk by chunk and topped up again on each."""
+    imgs = [c[0] * 255.0 for c in (tb._chunk_step(**kw) for kw in _chunk_calls(n, seed=3))]
+    store = ft.top_up.fn(ft.empty_tracks(64), imgs[0])[0]
+    adv, top = [], []
+    for a, b in zip(imgs, imgs[1:]):
+        adv.append(dict(tr=store, img_prev=a, img_cur=b))
+        store = ft.advance.fn(**adv[-1])[0]
+        top.append(dict(tr=store, img=b))
+        store = ft.top_up.fn(**top[-1])[0]
+    return adv, top
+
+
+def test_track_advance_and_top_up_replay_the_eager_steps():
+    """The continuous tracker's two track units through runners on a
+    sequence of chunk images, each call on the store the last left; every
+    replay bit-equal; top-up seeds tracks and advance keeps some."""
+    adv, top = _track_calls()
+    for unit, calls in ((ft.advance, adv), (ft.top_up, top)):
+        r = _runner(unit)
+        _replays_equal(r, unit, calls)
+        assert (r.captures, r.keys, r.replays) == (1, 1, len(calls) - 1)
+    assert int(ft.top_up.fn(**top[0])[1]) > 0
+    assert bool(ft.advance.fn(**adv[-1])[0].valid.any())
+
+
+def test_track_units_second_call_build_no_constant():
+    adv, top = _track_calls(2)
+    for fn, kw in ((ft.advance.fn, adv[0]), (ft.top_up.fn, top[0])):
+        fn(**kw)
+        misses = _host.constant.cache_info().misses
+        fn(**kw)
+        assert _host.constant.cache_info().misses == misses
+
+
+def _pose_call(seed, n=96):
+    rng = np.random.default_rng(seed)
+    pts = np.c_[rng.uniform(-2, 2, (n, 2)), rng.uniform(3, 8, n)].astype(np.float32)
+    uv = (FX * pts[:, :2] / pts[:, 2:] + [W / 2.0, H / 2.0]).astype(np.float32)
+    uv[:8] += 30.0
+    T0 = lie.se3_exp(torch.from_numpy(rng.normal(0, 0.02, 6).astype(np.float32)))
+    return dict(cam_params=torch.tensor([FX, FX, W / 2.0, H / 2.0, 0, 0, 0, 0, 0]), Tcw0=T0,
+                pts_w=torch.from_numpy(pts), uv_obs=torch.from_numpy(uv),
+                inv_sigma=torch.ones(n), valid=torch.from_numpy(rng.random(n) < 0.9))
+
+
+def test_pose_optimization_replays_the_eager_solve():
+    """Solves through the runner: new scenes at the default rounds, then
+    fewer rounds (a key); every replay bit-equal; under torch.func.vmap the
+    runner runs the solve inline."""
+    r = _runner(pose_only.pose_optimization)
+    calls = [_pose_call(i) for i in range(4)] + [dict(_pose_call(i), rounds=2)
+                                                  for i in range(4, 7)]
+    _replays_equal(r, pose_only.pose_optimization, calls)
+    assert (r.captures, r.keys, r.replays) == (2, 2, 5)
+    batch = [torch.stack([a, b]) for a, b in zip(_pose_call(0).values(),
+                                                  _pose_call(1).values())]
+    got = torch.func.vmap(lambda *a: r(*a))(*batch)
+    assert r.replays == 5
+    assert _bits_equal(got, torch.func.vmap(pose_only._pose_optimization)(*batch))
+
+
+def _joint_calls(slam, m_im, m_ev, img, iters=3):
+    """The five joint units' calls (tensors only, the bridge staged) on the
+    corridor maps, the image map ``m_im`` and as the event map ``m_ev``
+    (another state of the same corridor: timestamp twins), the frame
+    ``img`` tracked against both; the init triangulation between the first keyframe
+    and that frame."""
+    kw = dict(max_kp=m_im.N, img_w=W, img_h=H)
+    ri, fi, xi, *_ = tracking._track_image_frame(img, slam.cam, m_im, slam.velocity,
+                                                  slam.T_last, m_im.kf_T[0], **kw)
+    re, fe, xe, *_ = tracking._track_image_frame(img, slam.cam, m_ev, slam.velocity,
+                                                  slam.T_last, m_ev.kf_T[0], **kw)
+    c, s_ = np.cos(0.1), np.sin(0.1)
+    R = np.asarray([[c, -s_, 0], [s_, c, 0], [0, 0, 1]])
+    bridge = evi._bridge(R, np.asarray([0.05, -0.02, 0.1]), 1.3, m_im.kf_T)
+    G = lie.se3_exp(torch.tensor([0.1, -0.05, 0.02, 0.0, 0.3, 0.0]))
+    free_im, free_ev = m_im.kf_valid.clone(), m_ev.kf_valid.clone()
+    free_im[0] = free_ev[0] = False
+    Tj = ri.Tcw
+    return {
+        "joint local BA": dict(im_map=m_im, ev_map=m_ev, cam_params=slam.cam, Rm=bridge[0],
+                               tm=bridge[1], sm=bridge[2], kf_free_im=free_im,
+                               kf_free_ev=free_ev, iters=iters),
+        "loop propagation": dict(ev_map=m_ev, im_kf_ts=m_im.kf_ts, im_kf_valid=m_im.kf_valid,
+                                 T_before=m_im.kf_T, T_after=m_im.kf_T @ G, Rm=bridge[0],
+                                 tm=bridge[1], sm=bridge[2]),
+        "init triangulation": dict(cam_params=slam.cam, d1=m_im.kf_desc_pm1[0],
+                                   v1=m_im.kf_feat_valid[0], xy1=m_im.kf_xy[0], d2=fi.desc_pm1,
+                                   v2=fi.valid, xy2=xi, T1=m_im.kf_T[0], T2=Tj),
+        "joint pose": dict(cam_params=slam.cam, im_lm_pos=m_im.lm_pos, ev_lm_pos=m_ev.lm_pos,
+                           feat_lm_i=ri.feat_lm, xy_i=xi, oct_i=fi.octave,
+                           feat_lm_e=re.feat_lm, xy_e=xe, oct_e=fe.octave, Rm=bridge[0],
+                           tm=bridge[1], sm=bridge[2], Tcw0=Tj),
+        "joint write-back": dict(Tj=Tj, T_last_im=slam.T_last, T_last_ev=slam.T_last @ G,
+                                 Rm=bridge[0], tm=bridge[1], sm=bridge[2],
+                                 ref_T_im=m_im.kf_T[0]),
+    }
+
+
+JOINT_UNITS = {"joint local BA": evi.joint_local_ba, "loop propagation": evi.propagate_loop,
+               "init triangulation": evi.init_triangulate, "joint pose": evi.joint_pose,
+               "joint write-back": evi.joint_writeback}
+
+
+@pytest.fixture(scope="module")
+def joint(tracked):
+    """Three calls of each joint unit: on the corridor's maps, then a new
+    frame, then the two maps swapped (the same key)."""
+    slam, m0, m1, imgs = tracked
+    return [_joint_calls(slam, a, b, im)
+            for a, b, im in ((m1, m0, imgs[-1]), (m1, m0, imgs[-2]), (m0, m1, imgs[-1]))]
+
+
+@pytest.mark.parametrize("kind", list(JOINT_UNITS))
+def test_joint_unit_replays_the_eager_step(joint, kind):
+    """Each of EVENT_MONO's five joint units through a runner: every replay
+    bit-equal to the eager step; a second call of the eager step builds no
+    constant."""
+    unit = JOINT_UNITS[kind]
+    calls = [c[kind] for c in joint]
+    r = _runner(unit)
+    _replays_equal(r, unit, calls)
+    assert (r.captures, r.keys, r.replays) == (1, 1, 2)
+    misses = _host.constant.cache_info().misses
+    out = unit.fn(**calls[0])
+    assert _host.constant.cache_info().misses == misses
+    # the step did work on these inputs
+    assert JOINT_WORK[kind](out, calls[0]), kind
+
+
+JOINT_WORK = {
+    "joint local BA": lambda o, kw: float(o[2][1]) < float(o[2][0]),
+    "loop propagation": lambda o, kw: not torch.equal(o.kf_T, kw["ev_map"].kf_T),
+    "init triangulation": lambda o, kw: int(o[4]) >= 20,
+    "joint pose": lambda o, kw: float(o[1][0]) >= 20 and float(o[1][2]) == 1.0,
+    "joint write-back": lambda o, kw: bool(torch.isfinite(o[1]).all()),
+}

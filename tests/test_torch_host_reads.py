@@ -21,6 +21,10 @@ frame step ``vi_system._vi_frame_step`` against the last keyframe and
 against a ``PoseImuPrior``, on the narrow and on the wide branch of its
 re-search (chosen on the device): it reads nothing, so the inertial frame's
 one read is its caller's flags (``MonoInertialSlam.process_image_imu``).
+The event-image and continuous units (build_mci's candidates, the per-chunk
+step, track advance and top-up, EVENT_MONO's five joint steps) read
+nothing; ``EventWindowBuilder.step`` reads one median per chunk, and the
+joint steps' wrappers lift their host bridge in one staging copy.
 The status checks inside ``torch.linalg.eigh``/``svd`` never reach the
 dispatcher: the card's ``chip_smoke._Syncs`` counts those, and the port no
 longer calls either on a CUDA tensor in these steps. No JAX here.
@@ -39,13 +43,16 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from eorb_slam_tpu_torch.event import builder as tb
+from eorb_slam_tpu_torch.event import feature_tracks as ft
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.io import synth_dataset as tsd
 from eorb_slam_tpu_torch.optim import marginalize, pose_only, schur_ba
 from eorb_slam_tpu_torch.slam import system as tsys
 from eorb_slam_tpu_torch.slam import tracking, vi_system
-from tests.test_torch_graphs import _ba_problem
+from eorb_slam_tpu_torch.slam import ev_image_system as evi
+from tests.test_torch_graphs import (JOINT_UNITS, _ba_problem, _chunk_calls, _joint_calls,
+                                     _mci_args, _track_calls)
 
 PKG = os.path.dirname(os.path.abspath(tsys.__file__)).rsplit(os.sep, 1)[0]
 aten = torch.ops.aten
@@ -309,3 +316,97 @@ def test_vi_frame_step_reads_nothing(frames, prior, branch):
     assert not hr.reads and not hr.lifts, (hr.reads, hr.lifts)
     flags = out[3]
     assert flags.shape == (2,) and torch.isfinite(flags).all()
+
+
+def test_event_units_read_nothing():
+    """build_mci's candidates, the per-chunk step (with and without a
+    previous image), track advance and top-up: no read, no lift."""
+    adv, top = _track_calls(2)
+    chunks = _chunk_calls(2)
+    for fn, kw in ((tb._make_candidates, _mci_args(2048, True, 0)),
+                   (tb._chunk_step, chunks[0]), (tb._chunk_step, chunks[1]),
+                   (ft._advance, adv[0]), (ft._top_up, top[0])):
+        fn(**kw)
+        with HostReads() as hr:
+            fn(**kw)
+        assert not hr.reads and not hr.lifts, (fn.__name__, hr.reads, hr.lifts)
+
+
+def test_step_reads_one_median_per_chunk():
+    """The per-chunk path over a stream: each chunk reads its median
+    displacement once (the reference reads it too), a window's MCI adds
+    only build_mci's packed read (a copy, unseen on the CPU); host data is
+    staged only by the named helpers."""
+    cfg = tb.BuilderConfig(img_w=240, img_h=180, l1_chunk_size=1000, l1_num_loop=3,
+                           max_pixel_disp=3.0, min_ev_gen_rate=0.5, cm_iters=2,
+                           max_window_events=4096)
+    bld = tb.EventWindowBuilder(cfg, np.asarray([199.0, 199.0, 120.0, 90.0, 0, 0, 0, 0, 0],
+                                                np.float32), device="cpu")
+    bld.feed(_stream(0.05))
+    seen = collections.Counter()
+    while True:
+        with HostReads() as hr:
+            pi = bld.step()
+        if pi is None:
+            break
+        if bld.stats["chunks"] > 1:
+            assert _where(hr.reads) == {"event/builder.py step"}, hr.reads
+            assert sum(hr.reads.values()) == 1, hr.reads
+        if seen[1]:          # the first MCI built the device constants
+            assert _where(hr.lifts) <= STAGING, hr.lifts
+        seen[pi.reconst_stat] += 1
+    assert seen[0] >= 4 and seen[1] >= 2, seen
+
+
+@pytest.fixture(scope="module")
+def joint_calls(frames):
+    slam, i = _tracking_slam(frames, pipelined=False)
+    return slam, _joint_calls(slam, slam.map, slam.map, frames[i][1])
+
+
+def test_joint_units_read_nothing(joint_calls):
+    for kind, kw in joint_calls[1].items():
+        fn = JOINT_UNITS[kind].fn
+        fn(**kw)
+        with HostReads() as hr:
+            fn(**kw)
+        assert not hr.reads and not hr.lifts, (kind, hr.reads, hr.lifts)
+
+
+def test_joint_wrappers_stage_the_bridge_in_one_copy(joint_calls, monkeypatch):
+    """Each joint wrapper given the host bridge (numpy and a float) lifts it
+    in one staging copy and hands its runner tensors only (a runner raises
+    on a Python number or an array); given a staged bridge it lifts none.
+    The values are the runner's on the staged bridge."""
+    slam, calls = joint_calls
+    c, s_ = np.cos(0.1), np.sin(0.1)
+    host = (np.asarray([[c, -s_, 0], [s_, c, 0], [0, 0, 1]]), np.asarray([0.05, -0.02, 0.1]),
+            1.3)
+    staged = evi._bridge(*host, slam.map.kf_T)
+    assert [tuple(t.shape) for t in staged] == [(3, 3), (3,), ()]
+    assert len({t.untyped_storage().data_ptr() for t in staged}) == 1
+    wrappers = {
+        "joint local BA": lambda b, k: evi._joint_local_ba_step(
+            k["im_map"], k["ev_map"], k["cam_params"], *b, k["kf_free_im"], k["kf_free_ev"],
+            iters=k["iters"]),
+        "loop propagation": lambda b, k: evi._propagate_loop_to_event(
+            k["ev_map"], k["im_kf_ts"], k["im_kf_valid"], k["T_before"], k["T_after"], *b),
+        "joint pose": lambda b, k: evi._joint_pose_step(
+            k["cam_params"], k["im_lm_pos"], k["ev_lm_pos"], k["feat_lm_i"], k["xy_i"],
+            k["oct_i"], k["feat_lm_e"], k["xy_e"], k["oct_e"], *b, k["Tcw0"]),
+        "joint write-back": lambda b, k: evi._joint_writeback(
+            k["Tj"], k["T_last_im"], k["T_last_ev"], *b, k["ref_T_im"]),
+    }
+    for kind, call in wrappers.items():
+        kw = calls[kind]
+        want = JOINT_UNITS[kind].fn(**dict(kw, Rm=staged[0], tm=staged[1], sm=staged[2]))
+        for bridge, lifts in ((host, 1), (staged, 0)):
+            call(bridge, kw)
+            with HostReads() as hr:
+                got = call(bridge, kw)
+            assert not hr.reads, (kind, hr.reads)
+            assert sum(hr.lifts.values()) == lifts and _where(hr.lifts) <= {
+                "_host.py to_device"}, (kind, hr.lifts)
+            for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                            torch.utils._pytree.tree_leaves(want)):
+                assert torch.equal(a, b), kind
