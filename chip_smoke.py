@@ -838,10 +838,13 @@ def check_kernel_ascent():
     image at the kernel's own params against the plain version at FWD_TOL
     of max, and its contrast against the kernel's best; two calls the same
     bits; a NaN event the loop's result; one launch of the kernel and none
-    of the pair's or of torch's cos / sin. Then its times: device only
-    (graph replay), by events, the loop on the card by events, the plain
-    version (the loop through the pair's plain versions on the card), and
-    the bound. Returns one row per N."""
+    of the pair's or of torch's cos / sin; the start contrast within one
+    f32 ulp of the f64 variance of the forward kernel's image at the start.
+    Then its times: device only (graph replay), by events, the loop on the
+    card by events, the plain version (the loop through the pair's plain
+    versions on the card), and the bound; the empty window's device time
+    (N = 0 and 16: the design's floor) and the kernel's registers and
+    shared memory. Returns one row per N."""
     from eorb_slam_tpu_torch.event import contrast_max as cm
     from eorb_slam_tpu_torch.event.tensorize import warp_se2
     from eorb_slam_tpu_torch.ops import hopper_splat as hs
@@ -872,6 +875,17 @@ def check_kernel_ascent():
         if counts != (0, 0, 1) or n_asc != 1 or n_pair or trig:
             raise RuntimeError(f"N={n}: the ascent launched {counts} (forward, VJP, ascent; "
                                f"profiler: {sorted(per)})")
+        # the start contrast is the variance of the forward kernel's image at
+        # the start (the same fixed-point sums, moments in f64): within one
+        # f32 ulp of the f64 variance of that image
+        img0 = hs.splat_se2(xy, t, valid, z, center, H, W, SIGMA, TRUNC).double()
+        mean0 = img0.sum() / img0.numel()
+        var0 = float((img0 * img0).sum() / img0.numel() - mean0 * mean0)
+        c0_ulps = abs(float(c0) - var0) / float(np.spacing(np.float32(var0)))
+        if not c0_ulps <= 1.0:
+            raise RuntimeError(f"N={n}: the kernel's start contrast {float(c0)!r} is "
+                               f"{c0_ulps:.2f} f32 ulps from the f64 variance {var0!r} of "
+                               f"the forward kernel's image")
         # the image at the kernel's own params, kernel and plain, and its contrast
         img = hs.splat_se2(xy, t, valid, p, center, H, W, SIGMA, TRUNC)
         ref = hs._splat_se2_plain(xy, t, valid, p, center, H, W, SIGMA, TRUNC)
@@ -891,6 +905,7 @@ def check_kernel_ascent():
             plain_ms = _time_ms(loop, reps=2, trials=3)
         row = dict(
             n=n, active=act, grads=n_grad, part=part, tie=tie, step_err=step_err, err=err,
+            c0_ulps=c0_ulps, smem_bytes=hs.ascent_layout(n, H, W).smem_bytes,
             ref=float(ref.abs().max()), launches=counts, prof_launches=n_asc,
             prof_us=_matching(per, "splat_ascent_kernel")[1],
             dev_ms=_device_ms(kernel, reps=10, trials=3), ms=_time_ms(kernel, reps=5, trials=3),
@@ -901,7 +916,8 @@ def check_kernel_ascent():
              + ("every step agrees" if part is None else
                 f"the steps agree until step {part}, a tie ({tie:.2e} of the contrast)")
              + f", max rel {step_err:.2e} (tol {ASCENT_TOL}); contrast {float(c0):.6f} -> "
-             f"{float(best):.6f}; the SE2 image at its params max abs {err:.3e} (max|ref| "
+             f"{float(best):.6f} (the start {c0_ulps:.2f} f32 ulps from the f64 variance of "
+             f"the forward kernel's image); the SE2 image at its params max abs {err:.3e} (max|ref| "
              f"{row['ref']:.3f}, tol {FWD_TOL}x); the same bits twice; launches {counts} "
              f"(forward, VJP, ascent), profiler: splat_ascent_kernel x{n_asc} "
              f"{row['prof_us']:.1f} us | ms device only / by events / loop on the card / "
@@ -909,6 +925,24 @@ def check_kernel_ascent():
              f"{row['dev_ms']:.4f} / {row['ms']:.4f} / {row['loop_ms']:.4f} / "
              f"{row['plain_ms']:.4f} / {row['bound'][0]:.6f}")
         rows.append(row)
+
+    # the design's own floor: 41 serial steps of barriers on an empty
+    # window (no event, and one block's worth); and the kernel as compiled
+    floor = {}
+    for n in (0, 16):
+        xy, t, valid, _ = _se2_events(n, seed=3)
+        z = torch.zeros(3, device="cuda")
+        floor[n] = 1e3 * _device_ms(lambda: cm._ascent_kernel(xy, t, valid, H, W, z, CM_ITERS,
+                                                              SIGMA, 1.0), reps=10, trials=3)
+    attrs = hs.ascent_attrs()
+    for row in rows:
+        row.update(floor_us=floor, **attrs)
+    _log(f"ascent kernel: {attrs['registers']} registers and {attrs['local_bytes']} bytes of "
+         f"local memory a thread, {attrs['threads']} threads a block, dynamic shared memory a "
+         f"block " + ", ".join(f"{r['smem_bytes']} at N={r['n']}" for r in rows)
+         + f" | the empty window, device us: N=0 {floor[0]:.1f}, N=16 {floor[16]:.1f} "
+         f"(device us at " + ", ".join(f"N={r['n']} {1e3 * r['dev_ms']:.1f}" for r in rows)
+         + ")")
 
     # a NaN coordinate poisons every image: the contrast is NaN and no step
     # is taken, as in the loop
@@ -5219,7 +5253,10 @@ def main() -> int:
                ms=r["ms"], device_ms=r["dev_ms"], plain_ms=r["plain_ms"],
                loop_ms=r["loop_ms"], loop_host_ms=asc_times["loop"]["ms"] if r["n"] == MAIN_N
                else None, host_ms=asc_times["kernel"]["ms"] if r["n"] == MAIN_N else None,
-               bound_ms=r["bound"][0], bound_by=r["bound"][1])
+               bound_ms=r["bound"][0], bound_by=r["bound"][1], c0_ulps=r["c0_ulps"],
+               floor_ms={str(k): v / 1e3 for k, v in r["floor_us"].items()},
+               registers=r["registers"], local_bytes=r["local_bytes"],
+               smem_bytes=r["smem_bytes"])
           for r in asc_rows),
         # the same forward kernel as the dataset generator calls it
         dict(common, name="splat_gauss (generator: identity form, sigma 1.1)",

@@ -4,7 +4,8 @@ PyTorch port of ``eorb_slam_tpu/event/contrast_max.py``. On the TPU the
 whole ascent is one XLA program (a ``fori_loop`` of ``jax.grad`` steps). On
 the card it is one kernel launch: ``ops/hopper_splat.splat_ascent_se2``
 runs every step in one thread-block cluster, the image in the cluster's
-shared memory and the events loaded once. On CPU tensors it is
+shared memory, each trial image splatted and gathered for its gradient
+between two cluster barriers. On CPU tensors it is
 :func:`_ascent_loop`, the same ascent written as the kernel runs it, with
 no autograd: the contrast's cotangent in closed form feeds the plain SE2
 VJP, and the accepted trial's image becomes the current one, so ``iters``

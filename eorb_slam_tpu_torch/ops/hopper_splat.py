@@ -9,9 +9,12 @@ of each event's <= 36 taps of the cotangent. The splat is the hottest op of
 the event front-end. Its hottest caller, ``event/contrast_max``'s ascent
 (1 + 2 * iters forwards and ``iters`` VJPs when it called the pair), runs
 as one launch of ``splat_ascent_se2`` (:func:`splat_ascent_se2`): one
-thread-block cluster holds the image in its shared memory for every step.
-Per L1 window at the default config that leaves 8 forward splats (4 chunk
-images, 4 MCI candidates) and one ascent.
+thread-block cluster of 16 blocks holds the image, a band of rows per
+block, in its shared memory for every step, and each step is one trial
+image and its gradient between two cluster barriers (csrc/splat.cu says
+how, what bounds it and what was measured slower). Per L1 window at the
+default config that leaves 8 forward splats (4 chunk images, 4 MCI
+candidates) and one ascent.
 
 What bounds the pair on the card is not the device (the bytes that must move
 take 0.1-0.3 us, the image sits in L2) but launches and host time per launch,
@@ -61,8 +64,9 @@ _LIB = "splat"
 # build) and what a block of it may hold
 ASCENT_CLUSTER = 16
 ASCENT_SMEM_MAX = 232_448     # bytes of dynamic shared memory per block
-_ASCENT_HEADER = 1024         # csrc/splat.cu: kAscentHeader
-_ASCENT_LIST = 1024 * 16      # csrc/splat.cu: kAscentList float4 entries
+ASCENT_MAX_EVENTS = 65_536    # csrc/splat.cu: kAscentMaxEvents, the limb sums' range
+_ASCENT_HEADER = 2304         # csrc/splat.cu: kAscentHeader
+_ASCENT_LIST = 3072 * 24      # csrc/splat.cu: kAscentList entries of 24 bytes
 ASCENT_MAX_TAPS = 8           # csrc/splat.cu: kAscentTap, taps per row and column
 
 
@@ -88,16 +92,29 @@ def _kernels():
                     i32, i32, i32, f32, f32, i32, f32, f32, i32, i32, i32, ptr]
     lib.splat_threads.restype = i32
     lib.splat_ascent_cluster.restype = i32
+    lib.splat_ascent_attrs.restype = i32
+    lib.splat_ascent_attrs.argtypes = [ptr]
     if lib.splat_ascent_cluster() != ASCENT_CLUSTER:
         raise RuntimeError(f"the ascent kernel runs clusters of "
                            f"{lib.splat_ascent_cluster()}, its wrapper lays out "
                            f"{ASCENT_CLUSTER}")
-    return fwd, vjp, asc, lib.splat_threads()
+    return fwd, vjp, asc, lib.splat_threads(), lib.splat_ascent_attrs
 
 
 def build() -> None:
     """Build (or reuse) and load the kernel library now."""
     _kernels()
+
+
+def ascent_attrs() -> dict:
+    """The ascent kernel as compiled (``cudaFuncGetAttributes``): registers
+    and local (stack) bytes per thread, static shared bytes and threads per
+    block."""
+    out = (ctypes.c_int * 4)()
+    rc = _kernels()[4](out)
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes of the ascent kernel failed: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "static_smem", "threads"), out))
 
 
 def _n_taps(trunc: float) -> int:
@@ -133,7 +150,7 @@ def _vjp_cuda(g, xy, t, w, params, center, H, W, sigma, trunc,
               need_xy=False, need_w=False):
     """Launch the VJP kernel. Identity form (``t`` None): (g_xy, g_w), each
     None unless asked for. SE2 form: (3,) dL/dparams."""
-    _, vjp, _, threads = _kernels()
+    _, vjp, _, threads, _ = _kernels()
     n, dev = xy.shape[0], xy.device
     g = g.contiguous()
     g_xy = g_w = partials = g_params = None
@@ -346,24 +363,28 @@ class AscentLayout(NamedTuple):
     smem_bytes: int   # dynamic shared memory of one block
 
 
-def ascent_layout(n: int, H: int, W: int, mask: bool = True) -> AscentLayout:
+def ascent_layout(n: int, H: int, W: int) -> AscentLayout:
     """The ascent kernel's layout of ``n`` events on an (H, W) image: each of
-    the ASCENT_CLUSTER blocks holds a 1 KB header, two bands of ``rows``
-    image rows as 64-bit sums (the current image and the trial), and
-    ``per_rank`` events: the inputs (xy 8 bytes, t 4, the weight 1 as a
-    mask or 4) and the warped ones (24), and a 16 KB list of the events
-    that reach its rows. Raises ValueError where a block would need more
-    than ASCENT_SMEM_MAX bytes."""
+    the ASCENT_CLUSTER blocks holds a 2,304-byte header, a band of ``rows``
+    image rows as three 32-bit limb sums a pixel and as f32 (16 bytes a
+    pixel), ``per_rank`` warped events (25 bytes each: (x, y, w, t), (a, b)
+    and a band code) and a list of 3,072 events that reach its rows (24
+    bytes each). The raw events stay in device memory, so the
+    weight's type does not change the layout. Raises ValueError where a
+    block would need more than ASCENT_SMEM_MAX bytes, or for more than
+    ASCENT_MAX_EVENTS events."""
     rows = -(-H // ASCENT_CLUSTER)
     per_rank = -(-n // (16 * ASCENT_CLUSTER)) * 16
-    band = -(-rows * W * 8 // 16) * 16
-    smem = (_ASCENT_HEADER + 2 * band + per_rank * (12 + (1 if mask else 4) + 24)
-            + _ASCENT_LIST)
+    band = -(-rows * W * 12 // 16) * 16 + -(-rows * W * 4 // 16) * 16
+    smem = _ASCENT_HEADER + band + per_rank * 25 + _ASCENT_LIST
     if smem > ASCENT_SMEM_MAX:
         raise ValueError(
             f"the ascent kernel holds a {H}x{W} image and {n} events in the shared "
             f"memory of {ASCENT_CLUSTER} blocks: {smem} bytes per block, above the "
             f"{ASCENT_SMEM_MAX} a block may use")
+    if n > ASCENT_MAX_EVENTS:
+        raise ValueError(f"the ascent kernel takes at most {ASCENT_MAX_EVENTS} events "
+                         f"(its limb sums' range), got {n}")
     return AscentLayout(rows, per_rank, smem)
 
 
@@ -377,7 +398,14 @@ def splat_ascent_se2(xy: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
     the card and never read back; with ``trace``, an (iters + 1, 4) f32
     tensor on the card, also (omega, vx, vy, contrast) of the start and of
     every trial point. CUDA tensors only: on the CPU the ascent is
-    ``contrast_max._ascent_loop``."""
+    ``contrast_max._ascent_loop``.
+
+    Every trial image is the forward's fixed-point sum (its taps enter
+    three 32-bit limb sums with adds that return nothing), so each contrast,
+    and every accept decision with it, has the bits the pair's forward
+    gives; the gradient is an f32 sum in a fixed order, the same bits every
+    call. At most ASCENT_MAX_EVENTS events (the limb sums' range) and
+    ``trunc < 3.5``."""
     _check_se2(xy, t, w, params0, H, W, trunc)
     if _n_taps(trunc) > ASCENT_MAX_TAPS:
         raise ValueError(f"the ascent kernel takes trunc < 3.5, got {trunc}")
@@ -391,7 +419,7 @@ def splat_ascent_se2(xy: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
                               or not trace.is_contiguous() or trace.device != dev):
         raise ValueError(f"trace must be contiguous float32 ({iters + 1}, 4) on {dev}, "
                          f"got {trace.dtype} {tuple(trace.shape)} on {trace.device}")
-    lay = ascent_layout(n, H, W, mask=w.dtype == torch.bool)
+    lay = ascent_layout(n, H, W)
     asc = _kernels()[2]
     # the kernel's bulk copies read 16-byte aligned rows
     xy, t, w = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (xy, t, w))

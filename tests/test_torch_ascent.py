@@ -234,8 +234,11 @@ def test_maximize_rt2d_dispatch(monkeypatch):
 def test_ascent_layout_fits(H, W, n, mask):
     """Every image row is owned by exactly one block, every event by one
     block, the event arrays stay 16-byte aligned, and a block's shared
-    memory stays within the card's 232,448 bytes."""
-    lay = hopper_splat.ascent_layout(n, H, W, mask=mask)
+    memory stays within the card's 232,448 bytes: a 2,304-byte header, a
+    band of three 32-bit limb sums and an f32 value a pixel, 25 bytes per
+    warped event and a list of 3,072 entries of 24 bytes. The weight's type (a 1-byte mask or an f32
+    weight) no longer changes it: the raw events stay in device memory."""
+    lay = hopper_splat.ascent_layout(n, H, W)
     C = hopper_splat.ASCENT_CLUSTER
     owner = np.concatenate([np.full(max(0, min(H - r * lay.rows, lay.rows)), r)
                             for r in range(C)])
@@ -243,8 +246,8 @@ def test_ascent_layout_fits(H, W, n, mask):
     events = sum(max(0, min(n - r * lay.per_rank, lay.per_rank)) for r in range(C))
     assert events == n and lay.per_rank % 16 == 0
     assert lay.smem_bytes <= hopper_splat.ASCENT_SMEM_MAX == 232_448
-    band = -(-lay.rows * W * 8 // 16) * 16
-    assert lay.smem_bytes == 1024 + 2 * band + lay.per_rank * (37 if mask else 40) + 16384
+    band = -(-lay.rows * W * 12 // 16) * 16 + -(-lay.rows * W * 4 // 16) * 16
+    assert lay.smem_bytes == 2304 + band + lay.per_rank * 25 + 3072 * 24
 
 
 @pytest.mark.parametrize("H,W,n", [(180, 240, 131072), (480, 752, 1), (260, 346, 65536)])
@@ -253,3 +256,91 @@ def test_ascent_layout_raises_above_capacity(H, W, n):
     use is refused, with the limit in the message."""
     with pytest.raises(ValueError, match="232448"):
         hopper_splat.ascent_layout(n, H, W)
+
+
+@pytest.mark.parametrize("H,W,n", [(60, 80, 65537), (7, 5, 70000)])
+def test_ascent_layout_raises_above_events(H, W, n):
+    """More than 65,536 events are refused even where they would fit: a
+    pixel takes one tap per event, and the limb sums' range holds 2^16
+    taps."""
+    with pytest.raises(ValueError, match="65536"):
+        hopper_splat.ascent_layout(n, H, W)
+
+
+# ---- the ascent kernel's fixed-point adds (csrc/splat.cu: add_fix_limbs and
+# FixBand::at): a tap v (int64, |v| < 2^48) enters a pixel's three 32-bit
+# words as bits 0-15, bits 16-31 and v >> 32 (arithmetic) mod 2^32, with adds
+# that return nothing; the pixel's value is W0 + 2^16 W1 + 2^32 W2 mod 2^64.
+
+def _f32_taps(w, g):
+    """The kernel's taps: __float2ll_rn(gy * gx * 2^32) with gy = g_row * w
+    and gx = g_col, each product rounded to f32."""
+    gy = (g[:, 0] * w).astype(np.float32)
+    prod = (gy * g[:, 1]).astype(np.float32) * np.float32(2.0**32)
+    return np.rint(prod.astype(np.float32).astype(np.float64)).astype(np.int64)
+
+
+def _limb_words(taps):
+    """The three words of one pixel after every tap's adds, as the card's
+    32-bit adds leave them; asserts the two low words never wrap."""
+    u = taps.view(np.uint64)
+    lo = u & np.uint64(0xFFFFFFFF)
+    w0 = int((lo & np.uint64(0xFFFF)).astype(object).sum())
+    w1 = int((lo >> np.uint64(16)).astype(object).sum())
+    w2 = int((u >> np.uint64(32)).astype(object).sum()) % 2**32
+    assert w0 < 2**32 and w1 < 2**32, (w0, w1)
+    return w0, w1, w2
+
+
+def _recombined(words) -> int:
+    w0, w1, w2 = words
+    s = (w0 + (w1 << 16) + (w2 << 32)) % 2**64
+    return s - 2**64 if s >= 2**63 else s
+
+
+_GAUSS_MAX = np.float32(1.0)   # a tap at d = 0 in both directions
+
+
+@pytest.mark.parametrize("case", [
+    "mask, one event", "mask, 65536 events on one pixel", "weights of both signs",
+    "weights near +-2^16", "65536 events at the largest weight (wraps)", "cancelling",
+])
+def test_limb_sums_match_int64(case):
+    """The limb model of a pixel's fixed-point sum against np.int64 sums of
+    the same taps (which wrap mod 2^64 as the single 64-bit accumulator
+    did): the same value in any order of the adds, with negative weights,
+    weights next to the 2^16 range limit and a pixel hit by every event of a
+    65,536-event window, where the two low words reach their largest sums
+    without wrapping."""
+    rng = np.random.default_rng(len(case))
+    big = np.float32(np.nextafter(np.float32(65536.0), np.float32(0.0)))   # < 2^16
+    if case == "mask, one event":
+        w = np.ones(1, np.float32)
+        g = rng.uniform(0.04, 1.0, (1, 2)).astype(np.float32)
+    elif case == "mask, 65536 events on one pixel":
+        w = np.ones(65536, np.float32)
+        g = rng.uniform(0.04, 1.0, (65536, 2)).astype(np.float32)
+        g[:1000] = _GAUSS_MAX                      # taps of exactly 2^32
+    elif case == "weights of both signs":
+        w = rng.uniform(-300.0, 300.0, 20000).astype(np.float32)
+        g = rng.uniform(0.04, 1.0, (20000, 2)).astype(np.float32)
+    elif case == "weights near +-2^16":
+        w = np.where(rng.random(4096) < 0.5, big, -big).astype(np.float32)
+        g = np.full((4096, 2), _GAUSS_MAX, np.float32)
+        g[::3] = rng.uniform(0.04, 1.0, (len(g[::3]), 2))
+    elif case == "65536 events at the largest weight (wraps)":
+        w = np.full(65536, big, np.float32)
+        g = np.full((65536, 2), _GAUSS_MAX, np.float32)
+    else:
+        w = rng.uniform(-2.0, 2.0, 5000).astype(np.float32)
+        w = np.concatenate([w, -w])
+        g = np.tile(rng.uniform(0.04, 1.0, (5000, 2)).astype(np.float32), (2, 1))
+    taps = _f32_taps(w, g)
+    assert np.abs(taps).max() < 2**48 + 1
+    with np.errstate(over="ignore"):
+        ref = int(taps.sum(dtype=np.int64))
+    got = _recombined(_limb_words(taps))
+    shuffled = _recombined(_limb_words(taps[rng.permutation(len(taps))]))
+    assert got == ref == shuffled
+    if case == "cancelling":
+        assert got == 0
