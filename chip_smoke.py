@@ -69,7 +69,13 @@ EvImageSlam, EventSlamContinuous and EventWindowBuilder.step and holds each
 replay against its eager step bit for bit, check_ev_image_small holds
 build_mci's capture and replay at 65,536 events against the card's first
 MCI, and the continuous app and EVENT_MONO gate their host-issued launches
-per window and per paired tracked image. A
+per window and per paired tracked image. The feature-path units (extract,
+undistort_points, track_frame, stereo_match) replay at every call site:
+check_graphs_small records them through StereoSlam at 752x480 (uint8 and
+float32 images, the narrow and the wide search) and holds each replay
+against its eager step bit for bit, STEREO and RGBD gate their tracked
+frames' host-issued launches, and the inertial app runs print the launches
+of steps tracked before the IMU init (_PreInit). A
 replay runs no Python, so it adds the hand kernels' launches counted at
 capture: EventSlam holds each profiled step's counts against the kernels
 the profiler saw run, and check_graph_nodes, at the end, holds every
@@ -177,9 +183,11 @@ VI_READ_FRAMES = 1         # of the VI_EXTRA frames, under the blocking-read cou
 # STEREO, RGBD and IMU_STEREO at the configs/synth_euroc_{stereo,rgbd,
 # imu_stereo}.yaml width share one generated corridor_st_01 (cam1 at
 # bf / fx = 0.11 m, depth0); each runs its frames through run_slam, then
-# DEPTH_EXTRA more under the read counter and the profiler
+# DEPTH_EXTRA more under the read counter and the profiler (STEREO and
+# RGBD, whose tracked frames are gated by launches, STEREO_RGBD_EXTRA)
 DEPTH_BASELINE = 0.11
 DEPTH_GEN_FRAMES, DEPTH_FRAMES, IMU_STEREO_FRAMES, DEPTH_EXTRA = 66, 30, 64, 2
+STEREO_RGBD_EXTRA = 4
 # IMU_STEREO: the JAX app on a CPU initializes the IMU after frame
 # IMU_STEREO_INIT_REF of this sequence (tools/vi_init_check.py --stereo
 # --kind corridor); IMU_STEREO_FRAMES leaves ~20 inertial frames after it
@@ -224,6 +232,10 @@ GRAPH_IMU_S, GRAPH_VIBA_ITERS, GRAPH_VIBA = (10, 5), (8, 24), (16, 1024)
 # synth_ev_only width, twice (each builder's first chunk has no previous
 # image; the second posts the pose prior after GRAPH_PRIOR_AFTER windows)
 GRAPH_STEP_S, GRAPH_PRIOR_AFTER = 0.04, 1
+# the feature-path units (extract, undistort_points, track_frame,
+# stereo_match): StereoSlam frames of the rendered corridor pair at the
+# synth_euroc_stereo width
+GRAPH_STEREO_FRAMES = 6
 # the profiled steps of EVENT_MONO's second run, every key met in the first
 # (its images from this one on), and of the continuous app (the windows
 # after CONT_PROFILED full images)
@@ -234,6 +246,11 @@ EV_STEADY_FROM, CONT_APP_PROFILED = 6, 3
 # sym_eig kernel, which reads nothing back); an L1 window at most its
 # metadata's HostCopy
 READS_TRACK_MAX, READS_KF_MAX, READS_L1_MAX = 1, 1, 1
+# the inertial app runs' steps tracked before the IMU init (their own
+# eager preintegration around the feature units' replays): the
+# PREINIT_PROFILED after the first PREINIT_SKIP (every key met by then)
+# under the profiler, their launches logged by kind
+PREINIT_SKIP, PREINIT_PROFILED = 4, 2
 # the app phases' limits per step of each kind: the flags on a tracked
 # frame, keyframe or not. An inertial keyframe frame reads besides where the
 # reference reads too: the keyframe times for the IMU init's time span
@@ -349,11 +366,15 @@ def _runners() -> dict:
     """The port's graph runners (the reference's one-dispatch steps) by
     kind of step."""
     from eorb_slam_tpu_torch.event import builder, feature_tracks
+    from eorb_slam_tpu_torch.geometry import camera
+    from eorb_slam_tpu_torch.ops import frontend, stereo_match
     from eorb_slam_tpu_torch.optim import pose_only, schur_ba, vi_ba
     from eorb_slam_tpu_torch.slam import ev_image_system as evi
     from eorb_slam_tpu_torch.slam import local_mapping, tracking, vi_system
 
-    return {"L1 window": builder.window_step, "tracked frame": tracking.track_image_frame,
+    return {"extract": frontend.extract, "undistort": camera.undistort_points,
+            "track search": tracking.track_frame, "stereo match": stereo_match.stereo_match,
+            "L1 window": builder.window_step, "tracked frame": tracking.track_image_frame,
             "local BA": schur_ba.bundle_adjust,
             "keyframe mapping": local_mapping.keyframe_mapping_step,
             "VI frame": vi_system.vi_frame_step, "VI-BA": vi_ba.vi_bundle_adjust,
@@ -376,8 +397,9 @@ def _first_calls() -> int:
 
 
 def _graph_stats() -> dict:
-    """{kind: (captures, keys, replays, capture s)} of each runner."""
-    return {k: (r.captures, r.keys, r.replays, round(r.capture_s, 3))
+    """{kind: (captures, keys, replays, capture s, graph pool MB)} of each
+    runner."""
+    return {k: (r.captures, r.keys, r.replays, round(r.capture_s, 3), _pool_mb(r.pool))
             for k, r in _runners().items()}
 
 
@@ -1961,6 +1983,47 @@ def _frame_kind(out) -> str:
     return "other"
 
 
+def _step_kind(res, keys) -> str:
+    """The kind of a step that returned ``res`` and began with the runners'
+    (captures, first calls) at ``keys``: "capture" where it captured a
+    graph, "first call" where it met a new key (run eagerly), else
+    _frame_kind."""
+    if _captures() != keys[0]:
+        return "capture"
+    if _first_calls() != keys[1]:
+        return "first call"
+    return _frame_kind(res)
+
+
+class _PreInit:
+    """Inside an inertial app run, the steps that track before the IMU
+    init: the PREINIT_PROFILED that follow the first PREINIT_SKIP of them
+    run under the profiler. ``rows`` holds (index among such steps, kind,
+    host-issued launches, device kernels, device ms) of each."""
+
+    def __init__(self):
+        self.seen, self.rows = 0, []
+
+    def __call__(self, pre_init: bool, step):
+        """``step()``, under the profiler where due."""
+        if not pre_init or len(self.rows) >= PREINIT_PROFILED:
+            return step()
+        self.seen += 1
+        if self.seen <= PREINIT_SKIP:
+            return step()
+        keys = (_captures(), _first_calls())
+        res, per = _profile(step)
+        self.rows.append((self.seen - 1, _step_kind(res, keys), per.launches,
+                          sum(c for c, _ in per.values()),
+                          round(sum(us for _, us in per.values()) / 1e3, 3)))
+        return res
+
+    def log(self, tag, unit):
+        _log(f"run_slam {tag} {unit}s tracked before the IMU init, under torch.profiler in "
+             f"the app run (index among them, kind, host-issued launches, device kernels, "
+             f"device ms): {self.rows}")
+
+
 class _Reads:
     """A finished _Syncs's steps split by the kind of each step (None: a
     step that is no frame and no MCI)."""
@@ -2317,6 +2380,56 @@ def _recorder(unit, calls):
     return rec
 
 
+def _feature_unit_calls(units) -> dict:
+    """Recorded eager calls of the feature-path units on the card, each
+    with its outputs, by kind: StereoSlam as the app builds
+    it from configs/synth_euroc_stereo.yaml (752x480, N 512) through its
+    entry point on GRAPH_STEREO_FRAMES frames of the rendered corridor
+    pair, its left images uint8 and its right ones float32 (as _frame_args
+    makes them: two keys of extract); then every recorded search again
+    with the wide re-search's window and ratio (a key of its own)."""
+    from eorb_slam_tpu_torch.apps import run_slam
+    from eorb_slam_tpu_torch.geometry import camera
+    from eorb_slam_tpu_torch.io import config, synth_dataset as sd
+    from eorb_slam_tpu_torch.ops import frontend, stereo_match
+    from eorb_slam_tpu_torch.slam import tracking
+    from eorb_slam_tpu_torch.slam.system import OK
+
+    st = config.load_settings(os.path.join(REPO, "configs", "synth_euroc_stereo.yaml"))
+    slam = run_slam.build_system(st)
+    render = sd.make_box_renderer("corridor", st.cam.width, st.cam.height, st.cam.fx)
+    pose = sd.make_trajectory("corridor", 10.0)
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -DEPTH_BASELINE
+    sites = {"extract": (frontend, "extract"), "undistort": (camera, "undistort_points"),
+             "stereo match": (stereo_match, "stereo_match"),
+             "track search": (tracking, "track_frame")}
+    calls = {k: [] for k in sites}
+    for kind, (mod, name) in sites.items():
+        setattr(mod, name, _recorder(units[kind], calls[kind]))
+    try:
+        for i in range(GRAPH_STEREO_FRAMES):
+            Tcw = np.asarray(pose(i / st.cam.fps), np.float32)
+            slam.process_stereo((render(Tcw) * 255.0).to(torch.uint8),
+                                render(T_rl @ Tcw) * 255.0, i / st.cam.fps)
+    finally:
+        for kind, (mod, name) in sites.items():
+            setattr(mod, name, units[kind])
+    unit = units["track search"]
+    for kw, _ in list(calls["track search"]):
+        wide = dict(kw, search_radius=tracking.WIDE_RADIUS, nn_ratio=tracking.WIDE_NN_RATIO)
+        calls["track search"].append((wide, _cloned(unit.fn(**wide))))
+    dtypes = sorted({str(kw["img"].dtype) for kw, _ in calls["extract"]})
+    radii = sorted({kw["search_radius"] for kw, _ in calls["track search"]})
+    _log(f"graphs feature units: StereoSlam {slam.img_w}x{slam.img_h}, N={slam.map.N}, "
+         f"{GRAPH_STEREO_FRAMES} frames, state {slam.state}; calls by kind "
+         f"{ {k: len(c) for k, c in calls.items()} }; images {dtypes}, search radii {radii}")
+    if slam.state != OK or len(calls["track search"]) < 6 or len(dtypes) != 2:
+        raise RuntimeError(f"the stereo corridor gave no replayable calls: state "
+                           f"{slam.state}, images {dtypes}, calls {len(calls['track search'])}")
+    return calls
+
+
 EVENT_UNITS = ("joint pose", "joint write-back", "joint local BA", "init triangulation",
                "loop propagation", "track advance", "track top-up", "pose-only",
                "MCI candidates", "chunk step")
@@ -2542,6 +2655,11 @@ def check_graphs_small():
     # the pose-only solve at the continuous tracker's, the candidates and
     # the chunk step at the synth_ev_only width
     for kind, calls in _event_unit_calls(units).items():
+        g = _replayed(kind, units[kind], calls)
+        out[kind] = _report_costs(kind, g, calls[-1][0])
+    # the feature-path units at the synth_euroc_stereo width, each step's
+    # last recorded call timed (the search: its last wide call)
+    for kind, calls in _feature_unit_calls(units).items():
         g = _replayed(kind, units[kind], calls)
         out[kind] = _report_costs(kind, g, calls[-1][0])
     # a continuous window, eagerly, by unit: l1_num_loop chunk steps and
@@ -2898,10 +3016,11 @@ def run_app_imu_monocular(work: str):
     process = vi_system.MonoInertialSlam.process_image_imu
     insert = vi_system.MonoInertialSlam._insert_keyframe
     run_seq = run_slam.run_sequence
-    sy = _Syncs()
+    sy, pre = _Syncs(), _PreInit()
 
     def recording(self, img, ts, imu, **kw):
-        res = process(self, img, ts, imu, **kw)
+        res = pre(not self.imu_initialized and self.state == vi_system.OK,
+                  lambda: process(self, img, ts, imu, **kw))
         sy.mark()
         states.append(res["state"])
         inits.append(self.imu_initialized)
@@ -2979,6 +3098,7 @@ def run_app_imu_monocular(work: str):
     app_reads.log("run_slam IMU_MONOCULAR (the app run)", "frame")
     app_reads.not_above("IMU_MONOCULAR", "frame")
     app_reads.at_most("IMU_MONOCULAR", READS_APP_MAX["IMU_MONOCULAR"])
+    pre.log("IMU_MONOCULAR", "frame")
     _log(f"run_slam IMU_MONOCULAR per frame after the init: {np.mean(reads):.1f} blocking "
          f"reads (each frame: {reads}); under torch.profiler "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
@@ -3012,12 +3132,14 @@ def run_app_event_imu(work: str, data_root: str):
     from eorb_slam_tpu_torch.slam import event_inertial
 
     settings = _settings_with_root("synth_ev_imu.yaml", data_root, work)
-    rec, slams = [], []
+    rec, slams, pre = [], [], _PreInit()
     track_mci = event_inertial.EventInertialSlam._track_mci
     run_seq = run_slam.run_sequence
+    OK = event_inertial.slam_system.OK
 
     def recording(self, pi):
-        res = track_mci(self, pi)
+        res = pre(not self.l2.imu_initialized and self.l2.state == OK,
+                  lambda: track_mci(self, pi))
         rec.append(res)
         return res
 
@@ -3044,7 +3166,6 @@ def run_app_event_imu(work: str, data_root: str):
     ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
     n = st["mci"]
     states = [r["state"] for r in rec]
-    OK = event_inertial.slam_system.OK
     first_ok = states.index(OK) if OK in states else n
     after = states[first_ok:]
     n_ok = sum(s == OK for s in after)
@@ -3067,6 +3188,7 @@ def run_app_event_imu(work: str, data_root: str):
          f"poses (Sim3-aligned, scale {ev.get('ate_scale')}), path {path_len:.4f} m -> "
          f"{100 * ate_frac:.2f}% of the path; SE3 (scale fixed at 1, --eval) "
          f"{se3.get('ate_rmse')} m; stats {st}")
+    pre.log("EVENT_IMU", "MCI")
     if out["device"] != "cuda":
         raise RuntimeError(f"run_slam ran on {out['device']}")
     if not after or n_ok < EVI_TRACK_MIN * len(after):
@@ -3478,10 +3600,11 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     settings = _settings_with_root(config, root, work)
     rec, slams, kinds = [], [], []
     fn, run_seq = getattr(cls, method), run_slam.run_sequence
-    sy = _Syncs()
+    sy, pre = _Syncs(), _PreInit()
 
     def recording(self, *a, **kw):
-        res = fn(self, *a, **kw)
+        res = pre(getattr(self, "imu_initialized", True) is False and self.state == OK,
+                  lambda: fn(self, *a, **kw))
         sy.mark()
         rec.append((res["state"], bool(getattr(self, "imu_initialized", False)),
                     bool(res.get("new_map")), self.map_merges))
@@ -3517,10 +3640,11 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
                 sy.mark()
             reads.append(sy.steps[0])
         else:
-            c0 = _captures()
+            keys = (_captures(), _first_calls())
             res, per = _profile(lambda: step(slam, sq, i))
-            kind = "capture" if _captures() != c0 else (
-                _frame_kind(res) + (" VI" if getattr(slam, "imu_initialized", False) else ""))
+            kind = _step_kind(res, keys)
+            if kind in ("track", "KF") and getattr(slam, "imu_initialized", False):
+                kind += " VI"
             per_frame.append((sum(c for c, _ in per.values()),
                               sum(us for _, us in per.values()) / 1e3, per.launches, kind))
     states = [s for s, *_ in rec]
@@ -3557,6 +3681,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
     app_reads.not_above(tag, "frame")
     if tag in READS_APP_MAX:
         app_reads.at_most(tag, READS_APP_MAX[tag])
+    if pre.rows:
+        pre.log(tag, "frame")
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
          f"launches and {r['device_ms']:.2f} ms of device time (each, with the host-issued "
@@ -3573,6 +3699,13 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         raise RuntimeError(f"{tag}: the splat kernels ran on this path: {launches}")
     if not (np.isfinite(r["ate"] or np.inf) and np.isfinite(r["ate_sim3"] or np.inf)):
         raise RuntimeError(f"{tag}: evaluate gave {ev} / {sim3}")
+    if tag in ("STEREO", "RGBD"):
+        # a tracked frame: the feature units' replays and the eager glue
+        # around them
+        tracked = [h for _, _, h, kd in per_frame if kd == "track"]
+        if not tracked or max(tracked) > GRAPH_LAUNCH_MAX["frame"]:
+            raise RuntimeError(f"{tag}: host-issued launches per tracked frame {tracked}, "
+                               f"none profiled or above {GRAPH_LAUNCH_MAX['frame']}")
     return slam, r
 
 
@@ -3615,7 +3748,7 @@ def run_app_stereo(work: str, root: str):
 
     slam, r = _run_app_image(
         work, "synth_euroc_stereo.yaml", root, "corridor_st_01", rgbd_stereo.StereoSlam,
-        "process_stereo", DEPTH_FRAMES, DEPTH_EXTRA,
+        "process_stereo", DEPTH_FRAMES, STEREO_RGBD_EXTRA,
         lambda s, q, i: s.process_stereo(*_frame_args(s, q, i, right=True)), "STEREO")
     _check_metric(slam, r, "STEREO")
     return r
@@ -3627,7 +3760,7 @@ def run_app_rgbd(work: str, root: str):
 
     slam, r = _run_app_image(
         work, "synth_euroc_rgbd.yaml", root, "corridor_st_01", rgbd_stereo.RgbdSlam,
-        "process_rgbd", DEPTH_FRAMES, DEPTH_EXTRA,
+        "process_rgbd", DEPTH_FRAMES, STEREO_RGBD_EXTRA,
         lambda s, q, i: s.process_rgbd(*_frame_args(s, q, i, depth=True)), "RGBD")
     _check_metric(slam, r, "RGBD")
     return r
@@ -4374,8 +4507,9 @@ def _run_app_event_image(work, root, config, tag):
     with _Syncs() as sy:
         def recording(self, *a, **kw):
             if len(rec) == n_images - 1:       # the last image, under the profiler
+                keys, ev_ok = (_captures(), _first_calls()), self.ev.state == OK
                 res, per = _profile(lambda: track(self, *a, **kw))
-                prof.append((per, self.ev.state))
+                prof.append((per, self.ev.state, _image_kind(res, keys, ev_ok)))
             else:
                 res = track(self, *a, **kw)
             sy.mark()
@@ -4398,8 +4532,9 @@ def _run_app_event_image(work, root, config, tag):
     slam, seq = slams[0]
     windows = slam.builder.stats["windows"]
     chains = slam.fused_trajectory().get("chains", 0)
-    per, ev_state_prof = prof[0] if prof else ({}, None)
-    prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3)
+    per, ev_state_prof, kind_prof = prof[0] if prof else ({}, None, None)
+    prof = (sum(c for c, _ in per.values()), sum(us for _, us in per.values()) / 1e3,
+            getattr(per, "launches", 0))
     st = out["stats"]
     ev = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
     states = [a for a, _, _ in rec]
@@ -4426,8 +4561,9 @@ def _run_app_event_image(work, root, config, tag):
          f"synch MCIs, splat launches {launches[0]} forward + {launches[1]} VJP + {launches[2]} "
          f"ascent; blocking "
          f"reads per image after the init {r['reads']:.1f} (each: {reads}); the last image "
-         f"under torch.profiler (event state after it {ev_state_prof}): {prof[0]} device "
-         f"kernels, {prof[1]:.2f} ms of device time")
+         f"under torch.profiler (event state after it {ev_state_prof}, kind {kind_prof}): "
+         f"{prof[2]} host-issued launches, {prof[0]} device kernels, {prof[1]:.2f} ms of "
+         f"device time")
     app_reads.log(f"run_slam {tag}", "image")
     app_reads.not_above(tag, "image")
     _log(f"run_slam {tag} result: image KFs {st['im']['kf']}, event KFs {st['ev']['kf']}, "
@@ -4454,6 +4590,23 @@ def _run_app_event_image(work, root, config, tag):
     if tag == "EVENT_MONO":
         r["host_launches_frame"] = _event_image_steady(settings, work, tag)
     return slam, r
+
+
+def _image_kind(res, keys, ev_ok) -> str:
+    """The kind of an image-clock step that returned ``res``, begun with
+    the runners' (captures, first calls) at ``keys`` and the event tracker
+    tracking where ``ev_ok``: "capture" where it met a new key, "KF",
+    "paired" where both trackers tracked without a keyframe and the joint
+    solve was accepted, else the image tracker's kind (_frame_kind)."""
+    im, evr, joint = res["image"] or {}, res["event"] or {}, res["joint"]
+    if (_captures(), _first_calls()) != keys:
+        return "capture"
+    if im.get("kf") or evr.get("kf"):
+        return "KF"
+    if (ev_ok and _frame_kind(im) == _frame_kind(evr) == "track" and joint is not None
+            and not joint.get("rejected")):
+        return "paired"
+    return _frame_kind(im)
 
 
 def _event_image_steady(settings, work, tag):
@@ -4486,17 +4639,7 @@ def _event_image_steady(settings, work, tag):
             return track(self, *a, **kw)
         keys, ev_ok = (_captures(), _first_calls()), self.ev.state == OK
         res, per = _profile(lambda: track(self, *a, **kw))
-        im, evr, joint = res["image"] or {}, res["event"] or {}, res["joint"]
-        if (_captures(), _first_calls()) != keys:
-            kind = "capture"
-        elif im.get("kf") or evr.get("kf"):
-            kind = "KF"
-        elif (ev_ok and _frame_kind(im) == _frame_kind(evr) == "track" and joint is not None
-              and not joint.get("rejected")):
-            kind = "paired"
-        else:
-            kind = _frame_kind(im)
-        host.append((i, kind, per.launches))
+        host.append((i, _image_kind(res, keys, ev_ok), per.launches))
         return res
 
     profiled.n = 0

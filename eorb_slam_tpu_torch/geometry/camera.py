@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
+
 PINHOLE = 0
 FISHEYE_KB8 = 1
 
@@ -119,9 +121,14 @@ def pinhole_project_jac_point(params, pts3d):
     return torch.stack([row0, row1], dim=-2)
 
 
-def undistort_points(params, uv):
+def _undistort_points(params, uv):
     """Distorted observed pixels -> undistorted pixels (linear model)."""
     return pinhole_project_linear(params, pinhole_unproject(params, uv))
+
+
+# one dispatch per call, as the reference's jit (no static arguments): the
+# 20-step fixed-point loop is ~100 launches run eagerly
+undistort_points = _graphs.GraphRunner(_undistort_points)
 
 
 def build_rectify_map(params, w: int, h: int, model: int = PINHOLE):

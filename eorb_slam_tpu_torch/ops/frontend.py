@@ -2,9 +2,9 @@
 
 PyTorch port of ``eorb_slam_tpu/ops/frontend.py``: one call per image
 producing fixed-capacity keypoint tensors with octave bookkeeping
-(``extract``), and the mixed ORB + AKAZE extraction (``extract_mixed``).
-Per-level keypoint budgets are geometric in 1/scale, as in the reference
-ORBextractor.
+(``extract``, one graph replay per image on the card), and the mixed ORB +
+AKAZE extraction (``extract_mixed``). Per-level keypoint budgets are
+geometric in 1/scale, as in the reference ORBextractor.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.ops import fast, orb, pyramid
 
 
@@ -45,7 +46,7 @@ def inv_sigma(octave: torch.Tensor, scale: float = pyramid.SCALE_FACTOR):
     return (1.0 / scale) ** octave.to(torch.float32)
 
 
-def extract(
+def _extract(
     img: torch.Tensor,
     max_kp: int = 1024,
     n_levels: int = pyramid.N_LEVELS,
@@ -88,6 +89,15 @@ def extract(
     # accidental agreement (their distance is forced by the valid mask too)
     desc_pm1 = desc_pm1 * valid[:, None].to(torch.int8)
     return Features(xy, angle, octave, response, desc, desc_pm1, valid)
+
+
+# one dispatch per image, as the reference's jit with static max_kp,
+# n_levels, cell, per_cell; the FAST thresholds are Python floats here, so
+# they are in the key too. The image's dtype is part of the key (a uint8
+# frame and a float32 one are two graphs).
+extract = _graphs.GraphRunner(
+    _extract, static=("max_kp", "n_levels", "threshold", "min_threshold", "cell",
+                      "per_cell"))
 
 
 def extract_mixed(

@@ -12,10 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.ops import matching
 
 
-def stereo_match(
+def _stereo_match(
     xy_l: torch.Tensor,       # (Nl,2) undistorted left keypoints
     oct_l: torch.Tensor,      # (Nl,)
     desc_l: torch.Tensor,     # (Nl,256) int8 +-1
@@ -24,16 +25,18 @@ def stereo_match(
     oct_r: torch.Tensor,
     desc_r: torch.Tensor,
     valid_r: torch.Tensor,
-    fx,
-    baseline,
+    fx: float,
+    baseline: float,
     min_depth: float = 0.3,
     max_depth: float = 60.0,
 ):
     """Returns (depth (Nl,), u_right (Nl,), matched (Nl,) bool).
 
     depth < 0 where unmatched. Admissible pairs: same pyramid level +-1,
-    |row difference| <= 2*1.2^octave px, disparity within the depth band."""
-    bf = fx * baseline
+    |row difference| <= 2*1.2^octave px, disparity within the depth band.
+    ``bf`` is float32(fx) * baseline in float32, as the reference computes
+    it from its traced fx and baseline."""
+    bf = torch.full((), fx, dtype=torch.float32, device=xy_l.device) * baseline
     min_disp = bf / max_depth
     max_disp = bf / min_depth
 
@@ -66,6 +69,12 @@ def stereo_match(
     depth = torch.where(ok, bf / torch.clamp(disp_m, min=1e-3), -1.0)
     u_right = torch.where(ok, xy_r[idx_r, 0], -1.0)
     return depth, u_right, ok
+
+
+# one dispatch per stereo pair, as the reference's jit; the rig's fx and
+# baseline and the depth band are Python floats here, so they are the key
+stereo_match = _graphs.GraphRunner(
+    _stereo_match, static=("fx", "baseline", "min_depth", "max_depth"))
 
 
 def depth_from_depthmap(

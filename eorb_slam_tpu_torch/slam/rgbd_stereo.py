@@ -68,7 +68,7 @@ def _stereo_depth(slam, xy_l, oct_l, desc_l, valid_l, img_r, max_kp):
     xy_r = cam_mod.undistort_points(slam.cam, fr.xy)
     depth, _, _ = stereo_match.stereo_match(
         xy_l, oct_l, desc_l, valid_l, xy_r, fr.octave, fr.desc_pm1, fr.valid,
-        slam.cam[0], slam.baseline)
+        slam.fx, slam.baseline)
     return depth
 
 
@@ -78,6 +78,8 @@ class StereoSlam(_DepthInitMixin, MonoSlam):
 
     def __init__(self, cam_params, baseline: float, **kw):
         super().__init__(cam_params, **kw)
+        # the rig's fx and baseline as Python floats: the stereo matcher's key
+        self.fx = float(cam_params[0])
         self.baseline = float(baseline)
 
     def make_stereo_frame(self, img_l: torch.Tensor, img_r: torch.Tensor,
@@ -127,6 +129,7 @@ class StereoInertialSlam(_DepthInitMixin, MonoInertialSlam):
 
     def __init__(self, cam_params, calib, baseline: float, **kw):
         super().__init__(cam_params, calib, **kw)
+        self.fx = float(cam_params[0])
         self.baseline = float(baseline)
         self._imu_fix_scale = True
         # right image of the in-flight frame (deferred stereo depth at KFs)

@@ -144,7 +144,7 @@ def _search(m, cam_params, xy_ud, octave, desc_pm1, feat_valid, T_pred,
     )
 
 
-def track_frame(
+def _track_frame(
     m: MapState,
     cam_params: torch.Tensor,
     xy_ud: torch.Tensor,        # (N,2) undistorted feature coords
@@ -161,6 +161,14 @@ def track_frame(
     proj = _project(m, cam_params, T_pred, img_w, img_h)
     return _search(m, cam_params, xy_ud, octave, desc_pm1, feat_valid, T_pred,
                    proj, search_radius, max_dist, nn_ratio)
+
+
+# one dispatch per search, as the reference's jit with static img_w, img_h;
+# the search's window, distance and ratio are Python numbers here, so they
+# are in the key too (two settings: the narrow search and the wide one). The
+# map is copied into the graph's buffers at every call.
+track_frame = _graphs.GraphRunner(
+    _track_frame, static=("img_w", "img_h", "search_radius", "max_dist", "nn_ratio"))
 
 
 def track_frame_with_retry(
