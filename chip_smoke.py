@@ -180,6 +180,7 @@ MONO_FRAMES, MONO_PROFILED = 40, 2
 # the sync counter and the profiler.
 VI_GEN_FRAMES, VI_FRAMES, VI_EXTRA, VI_INIT_REF, VI_ROOM_S = 84, 60, 6, 71, 10.0
 VI_READ_FRAMES = 1         # of the VI_EXTRA frames, under the blocking-read counter
+VI_KF_FRAMES = 1           # then frames made keyframes, by site (_vi_keyframe_sites)
 # STEREO, RGBD and IMU_STEREO at the configs/synth_euroc_{stereo,rgbd,
 # imu_stereo}.yaml width share one generated corridor_st_01 (cam1 at
 # bf / fx = 0.11 m, depth0); each runs its frames through run_slam, then
@@ -236,6 +237,19 @@ GRAPH_STEP_S, GRAPH_PRIOR_AFTER = 0.04, 1
 # stereo_match): StereoSlam frames of the rendered corridor pair at the
 # synth_euroc_stereo width
 GRAPH_STEREO_FRAMES = 6
+# the inertial units (check_graphs_inertial): the IMU init at the app's two
+# keys (vi_system's first init and its scale refinement, INIT_KEYS; ~2.5 s
+# a call eagerly) GRAPH_INIT_KEY_CALLS calls each and the linear alignment
+# GRAPH_INIT_CALLS, on check_vi_small's K = 8 problem with new poses each
+# call; the pre-init preintegration at GRAPH_IMU_S's buckets (each replay
+# held against the unpadded window's eager bits) and the keyframe IMU-state
+# write into GRAPH_KF_SLOTS slots, GRAPH_INIT_CALLS calls each.
+# IMU_MONOCULAR's own init and refinement calls on its map (K = 32): the
+# first VI_INIT_REPLAYED of each key recorded in the app run and replayed
+# after it
+INIT_KEYS = {"IMU init": dict(prior_gyro=1e2, prior_acc=1e6, iters=60),
+             "IMU refinement": dict(prior_gyro=1.0, prior_acc=1e4, iters=40)}
+GRAPH_INIT_CALLS, GRAPH_INIT_KEY_CALLS, GRAPH_KF_SLOTS, VI_INIT_REPLAYED = 3, 2, 32, 2
 # the profiled steps of EVENT_MONO's second run, every key met in the first
 # (its images from this one on), and of the continuous app (the windows
 # after CONT_PROFILED full images)
@@ -246,11 +260,13 @@ EV_STEADY_FROM, CONT_APP_PROFILED = 6, 3
 # sym_eig kernel, which reads nothing back); an L1 window at most its
 # metadata's HostCopy
 READS_TRACK_MAX, READS_KF_MAX, READS_L1_MAX = 1, 1, 1
-# the inertial app runs' steps tracked before the IMU init (their own
-# eager preintegration around the feature units' replays): the
-# PREINIT_PROFILED after the first PREINIT_SKIP (every key met by then)
-# under the profiler, their launches logged by kind
-PREINIT_SKIP, PREINIT_PROFILED = 4, 2
+# the inertial app runs' steps tracked before the IMU init (the feature
+# units' and the preintegration's replays): after the first PREINIT_SKIP
+# (every key met by then) under the profiler until PREINIT_PROFILED of them
+# tracked without a keyframe, at most PREINIT_PROFILED_MAX; their launches
+# logged by kind, IMU_MONOCULAR's and IMU_STEREO's tracked ones gated at
+# GRAPH_LAUNCH_MAX["frame"]
+PREINIT_SKIP, PREINIT_PROFILED, PREINIT_PROFILED_MAX = 4, 2, 6
 # the app phases' limits per step of each kind: the flags on a tracked
 # frame, keyframe or not. An inertial keyframe frame reads besides where the
 # reference reads too: the keyframe times for the IMU init's time span
@@ -368,7 +384,7 @@ def _runners() -> dict:
     from eorb_slam_tpu_torch.event import builder, feature_tracks
     from eorb_slam_tpu_torch.geometry import camera
     from eorb_slam_tpu_torch.ops import frontend, stereo_match
-    from eorb_slam_tpu_torch.optim import pose_only, schur_ba, vi_ba
+    from eorb_slam_tpu_torch.optim import inertial, pose_only, schur_ba, vi_ba
     from eorb_slam_tpu_torch.slam import ev_image_system as evi
     from eorb_slam_tpu_torch.slam import local_mapping, tracking, vi_system
 
@@ -382,7 +398,10 @@ def _runners() -> dict:
             "track advance": feature_tracks.advance, "track top-up": feature_tracks.top_up,
             "pose-only": pose_only.pose_optimization, "joint local BA": evi.joint_local_ba,
             "loop propagation": evi.propagate_loop, "init triangulation": evi.init_triangulate,
-            "joint pose": evi.joint_pose, "joint write-back": evi.joint_writeback}
+            "joint pose": evi.joint_pose, "joint write-back": evi.joint_writeback,
+            "IMU init": inertial.inertial_init, "linear alignment": inertial.linear_alignment,
+            "pre-init preintegration": vi_system.preintegrate_frame,
+            "KF IMU-state write": vi_system.write_kf_imu_state}
 
 
 def _captures() -> int:
@@ -496,17 +515,21 @@ class _Per(dict):
         return sum(self.host.values())
 
 
-def _profile_pure(fn, tries=3):
+def _profile_pure(fn, tries=6):
     """``_profile`` of a call that changes no state, with the splat counts
-    set to 0 just before it, profiled again (``tries`` times in all) while
-    the profiler recorded no device activity at all: two runs have
-    recorded none around an ascent kernel that the counters saw launched
-    (PERF.md section 6), and the next try recorded it."""
-    for _ in range(tries):
+    set to 0 just before it, profiled again (``tries`` times in all, a
+    second apart) while the profiler recorded no device activity at all:
+    two runs have recorded none around an ascent kernel that the counters
+    saw launched (PERF.md section 6), and the next try recorded it; a third
+    recorded none in three tries back to back."""
+    for k in range(tries):
+        if k:
+            time.sleep(1.0)
         _reset_counts()
         out, per = _profile(fn)
         if per:
             break
+        _log(f"torch.profiler recorded no device activity (try {k + 1} of {tries})")
     return out, per
 
 
@@ -1997,16 +2020,26 @@ def _step_kind(res, keys) -> str:
 
 class _PreInit:
     """Inside an inertial app run, the steps that track before the IMU
-    init: the PREINIT_PROFILED that follow the first PREINIT_SKIP of them
-    run under the profiler. ``rows`` holds (index among such steps, kind,
-    host-issued launches, device kernels, device ms) of each."""
+    init: the ones that follow the first PREINIT_SKIP of them run under the
+    profiler until PREINIT_PROFILED of them were tracked frames without a
+    keyframe (kind "track"), at most PREINIT_PROFILED_MAX in all. ``rows``
+    holds (index among such steps, kind, host-issued launches, device
+    kernels, device ms) of each."""
 
     def __init__(self):
         self.seen, self.rows = 0, []
 
+    def _done(self) -> bool:
+        return (len(self.rows) >= PREINIT_PROFILED_MAX
+                or len(self.tracked()) >= PREINIT_PROFILED)
+
+    def tracked(self) -> list:
+        """The host-issued launches of each profiled "track" step."""
+        return [h for _, kind, h, _, _ in self.rows if kind == "track"]
+
     def __call__(self, pre_init: bool, step):
         """``step()``, under the profiler where due."""
-        if not pre_init or len(self.rows) >= PREINIT_PROFILED:
+        if not pre_init or self._done():
             return step()
         self.seen += 1
         if self.seen <= PREINIT_SKIP:
@@ -2022,6 +2055,18 @@ class _PreInit:
         _log(f"run_slam {tag} {unit}s tracked before the IMU init, under torch.profiler in "
              f"the app run (index among them, kind, host-issued launches, device kernels, "
              f"device ms): {self.rows}")
+
+    def gate(self, tag):
+        """Raise unless PREINIT_PROFILED tracked frames were profiled (when
+        any is due) and each issued at most GRAPH_LAUNCH_MAX["frame"]
+        launches: the feature units' and the preintegration's replays and
+        the glue around them."""
+        tracked = self.tracked()
+        if PREINIT_PROFILED and (len(tracked) < PREINIT_PROFILED
+                                 or max(tracked) > GRAPH_LAUNCH_MAX["frame"]):
+            raise RuntimeError(f"{tag}: host-issued launches per tracked frame before the "
+                               f"IMU init {tracked}: fewer than {PREINIT_PROFILED} profiled "
+                               f"or above {GRAPH_LAUNCH_MAX['frame']} ({self.rows})")
 
 
 class _Reads:
@@ -2430,6 +2475,102 @@ def _feature_unit_calls(units) -> dict:
     return calls
 
 
+def _inertial_unit_calls(units) -> dict:
+    """Recorded eager calls of the inertial units on the card, each with
+    its outputs, by kind: {kind: (unit, calls)}. The IMU init at each of
+    INIT_KEYS (GRAPH_INIT_KEY_CALLS calls) and the linear alignment on
+    check_vi_small's K = 8 problem, its poses moved by a seeded few
+    millimetres each call; the pre-init preintegration of IMU windows of
+    GRAPH_IMU_S samples, padded to their buckets as MonoInertialSlam pads
+    them, onto a keyframe window holding one frame, each call's outputs
+    the unpadded window's eager ones; the keyframe IMU-state write into
+    GRAPH_KF_SLOTS slots, the slot a device tensor, its outputs those of
+    the eager write at the int slot."""
+    from eorb_slam_tpu_torch import convert
+    from eorb_slam_tpu_torch.imu import preintegration as pre_mod
+    from eorb_slam_tpu_torch.slam import vi_system
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    Twb, stack, ev = _vi_init_problem(8)
+    fixed = dict(pre_stack=convert.pre_from_numpy(stack, dev),
+                 edge_valid=torch.from_numpy(ev).to(dev),
+                 prev=torch.arange(8, device=dev) - 1)
+
+    def poses():
+        T = Twb.copy()
+        T[:, :3, 3] += rng.normal(0, 3e-3, (8, 3)).astype(np.float32)
+        return torch.from_numpy(T).to(dev)
+
+    def chunk(S):
+        return vi_system.ImuChunk(
+            gyro=rng.normal(0, 0.05, (S, 3)).astype(np.float32),
+            acc=(rng.normal(0, 0.2, (S, 3)) + [0, 0, 9.81]).astype(np.float32),
+            dts=np.full(S, 1.0 / 200.0, np.float32))
+
+    out = {}
+    for kind, key in (*INIT_KEYS.items(), ("linear alignment", {})):
+        unit = units["linear alignment" if key == {} else "IMU init"]
+        calls = []
+        for _ in range(GRAPH_INIT_CALLS if key == {} else GRAPH_INIT_KEY_CALLS):
+            kw = dict(fixed, Twb=poses(), **key)
+            calls.append((_call_of(unit, (), kw), _cloned(unit.fn(**kw))))
+        out[kind] = (unit, calls)
+    unit = units["pre-init preintegration"]
+    calib = pre_mod.make_calib(device=dev)
+    names = ("gyro", "acc", "dts", "imu_ok")
+    calls = []
+    for S in GRAPH_IMU_S:
+        for _ in range(GRAPH_INIT_CALLS):
+            _, since = unit.fn(*vi_system._chunk_tensors(chunk(9), dev),
+                               pre_mod.identity_preintegrated(device=dev), calib)
+            c = chunk(S)
+            kw = dict(zip(names, vi_system._chunk_tensors(c, dev, pad=True)),
+                      pre_since_kf=since, calib=calib)
+            want = unit.fn(**dict(kw, **dict(zip(names, vi_system._chunk_tensors(c, dev)))))
+            calls.append((_call_of(unit, (), kw), _cloned(want)))
+    out["pre-init preintegration"] = (unit, calls)
+    unit = units["KF IMU-state write"]
+    K = GRAPH_KF_SLOTS
+    f = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev)  # noqa: E731
+    calls = []
+    for slot in (3, K - 1, 0):
+        pre_kf = pre_mod.Preintegrated(*(f(K, *x.shape) for x in since))
+        kw = dict(pre_kf=pre_kf, kf_vel=f(K, 3), kf_bg=f(K, 3), kf_ba=f(K, 3),
+                  pre_window=pre_mod.Preintegrated(*(f(*x.shape) for x in since)),
+                  vel=f(3), bg=f(3), ba=f(3))
+        want = unit.fn(**kw, slot=slot)
+        calls.append((_call_of(unit, (), dict(kw, slot=torch.tensor(slot, device=dev))),
+                      _cloned(want)))
+    out["KF IMU-state write"] = (unit, calls)
+    return out
+
+
+def check_graphs_inertial() -> dict:
+    """check_graphs_small's part for the inertial units, run after
+    EventSlam's profiled gate (a full run with it inside check_graphs_small
+    saw torch.profiler miss one of a replayed window's 8 forward kernels in
+    run_event_slam; PERF.md section 7): their recorded calls
+    (_inertial_unit_calls) again, eagerly and through fresh runners; raise
+    unless every output is the recorded one, bit for bit. Prints the kernel
+    nodes of each graph, and each step's last call timed but the init's:
+    run_app_imu_monocular times it at the app's K = 32 on its own map."""
+    out = {}
+    for kind, (unit, calls) in _inertial_unit_calls(_runners()).items():
+        g = _replayed(kind, unit, calls)
+        if not kind.startswith("IMU"):
+            out[kind] = _report_costs(kind, g, calls[-1][0])
+        _log(f"graphs {kind}: kernel nodes of each captured graph {_graph_nodes(g)}, "
+             f"{g.captures} captures in {1e3 * g.capture_s:.1f} ms, graph pool "
+             f"{_pool_mb(g.pool)} MB")
+    return out
+
+
+def _graph_nodes(g) -> list:
+    """The kernel nodes of each graph the runner ``g`` captured."""
+    return [len(_kernel_nodes(e.graph.raw_graph())) for e in g._entries.values()]
+
+
 EVENT_UNITS = ("joint pose", "joint write-back", "joint local BA", "init triangulation",
                "loop propagation", "track advance", "track top-up", "pose-only",
                "MCI candidates", "chunk step")
@@ -2756,8 +2897,9 @@ def check_graph_nodes():
     say (by name, sym_eig summed over n), every keyframe mapping graph
     holds its triangulations' sym_eig nodes, and the main and app paths
     captured a mapping, an inertial frame, a VI-BA, an MCI candidates, a
-    chunk step, a track advance and top-up, a pose-only, a joint pose and a
-    joint write-back graph."""
+    chunk step, a track advance and top-up, a pose-only, a joint pose, a
+    joint write-back, a pre-init preintegration and a keyframe IMU-state
+    write graph."""
     from eorb_slam_tpu_torch import _graphs
 
     held, off = {}, []
@@ -2784,7 +2926,8 @@ def check_graph_nodes():
                            f"counted, nodes): {off}")
     missing = [k for k in ("keyframe mapping", "VI frame", "VI-BA", "MCI candidates",
                            "chunk step", "track advance", "track top-up", "pose-only",
-                           "joint pose", "joint write-back") if k not in held]
+                           "joint pose", "joint write-back", "pre-init preintegration",
+                           "KF IMU-state write") if k not in held]
     if missing:
         raise RuntimeError(f"no path captured a graph of {missing}")
 
@@ -2877,6 +3020,34 @@ def _vi_ba_problem(K, M, seed, device, dtype):
         g=f(_G_W), prev=None)
 
 
+def _vi_init_problem(K: int, slots: int = None):
+    """The inertial init's problem of tests/test_imu.py: K keyframes 0.4 s
+    apart on the analytic trajectory, the vision frame rotated and scaled
+    by 1/2.5, the gyro and acc biases on; as numpy (Twb (slots,4,4), the
+    preintegration stack as convert.pre_to_numpy gives it, edge_valid).
+    With ``slots`` > K the map's other slots are free (identity poses and
+    preintegrations, no edge), as in a map of that capacity."""
+    from eorb_slam_tpu_torch import convert
+    from eorb_slam_tpu_torch.geometry import lie
+    from eorb_slam_tpu_torch.imu import preintegration as pre
+
+    slots = slots or K
+    kf_times = np.arange(K) * 0.4 + 0.1
+    R_vw = lie.so3_exp(torch.tensor([0.25, -0.15, 0.0])).numpy()
+    Twb = np.tile(np.eye(4, dtype=np.float32), (slots, 1, 1))
+    for k, t in enumerate(kf_times):
+        R, p, _ = _imu_state(t)
+        Twb[k, :3, :3], Twb[k, :3, 3] = R_vw @ R, (R_vw @ p) / 2.5
+    stack = _kf_pre_stack(kf_times, pre.make_calib(), "cpu",
+                          bg=np.asarray([0.01, -0.02, 0.005]),
+                          ba=np.asarray([0.05, -0.03, 0.08]))
+    if slots > K:
+        free = pre.stack([pre.identity_preintegrated()] * (slots - K))
+        stack = pre.Preintegrated(*(torch.cat([a, b]) for a, b in zip(stack, free)))
+    ev = np.asarray([False] + [True] * (K - 1) + [False] * (slots - K))
+    return Twb, convert.pre_to_numpy(stack), ev
+
+
 def check_vi_small():
     """The IMU stack on the card against the CPU from the same seeded
     inputs (the states cross through convert.py): preintegration with
@@ -2913,16 +3084,7 @@ def check_vi_small():
 
     # inertial_init: 8 keyframes, vision frame rotated and scaled by 1/2.5
     K = 8
-    kf_times = np.arange(K) * 0.4 + 0.1
-    R_vw = lie.so3_exp(torch.tensor([0.25, -0.15, 0.0])).numpy()
-    Twb = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
-    for k, t in enumerate(kf_times):
-        R, p, _ = _imu_state(t)
-        Twb[k, :3, :3], Twb[k, :3, 3] = R_vw @ R, (R_vw @ p) / 2.5
-    stack = convert.pre_to_numpy(_kf_pre_stack(kf_times, calib, "cpu",
-                                               bg=np.asarray([0.01, -0.02, 0.005]),
-                                               ba=np.asarray([0.05, -0.03, 0.08])))
-    ev = np.asarray([False] + [True] * (K - 1))
+    Twb, stack, ev = _vi_init_problem(K)
     init = {}
     for dev in devs:
         r = inertial.inertial_init(torch.from_numpy(Twb).to(dev),
@@ -2994,12 +3156,16 @@ def check_vi_small():
 def run_app_imu_monocular(work: str):
     """IMU_MONOCULAR through run_slam.main with the configs/synth_euroc_vi.yaml
     settings (only DS.Paths.root differs) on a generated room_01 (with its
-    IMU) at 752x480, 512 features, K=32, M=4096, no --device: the card. Then
-    VI_EXTRA more frames: half under the blocking-read counter, half under
-    the profiler."""
+    IMU) at 752x480, 512 features, K=32, M=4096, no --device: the card; its
+    IMU init and scale refinement attempts timed (synchronised), the first
+    VI_INIT_REPLAYED of each recorded and replayed through a fresh runner
+    after the run. Then VI_EXTRA more frames: half under the blocking-read
+    counter, half under the profiler; then VI_KF_FRAMES more frames, each
+    made a keyframe, under the profiler by site (_vi_keyframe_sites)."""
     from eorb_slam_tpu_torch._host import to_device
     from eorb_slam_tpu_torch.apps import run_slam
     from eorb_slam_tpu_torch.io import config, synth_dataset as sd
+    from eorb_slam_tpu_torch.optim import inertial
     from eorb_slam_tpu_torch.slam import vi_system
 
     root = os.path.join(work, "euroc_vi")
@@ -3039,9 +3205,26 @@ def run_app_imu_monocular(work: str):
         slams.append((slam, seq))
         return slam, out
 
+    # each init or refinement attempt: its key, its ms (synchronised), and
+    # the first VI_INIT_REPLAYED calls of each key with their outputs
+    solve, attempts, init_calls = inertial.inertial_init, [], {}
+
+    def tapped(unit, *a, **k):
+        kind = next((n for n, key in INIT_KEYS.items()
+                     if all(k.get(x) == v for x, v in key.items())), "other key")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = unit(*a, **k)
+        torch.cuda.synchronize()
+        attempts.append((kind, 1e3 * (time.perf_counter() - t)))
+        if len(init_calls.get(kind, ())) < VI_INIT_REPLAYED:
+            init_calls.setdefault(kind, []).append((_call_of(solve, a, k), _cloned(res)))
+        return res
+
     vi_system.MonoInertialSlam.process_image_imu = recording
     vi_system.MonoInertialSlam._insert_keyframe = timed_insert
     run_slam.run_sequence = keep
+    inertial.inertial_init = _Tap(solve, tapped)
     try:
         with sy:
             (out,) = run_slam.main([settings, "--sequence", "room_01", "--eval",
@@ -3052,8 +3235,12 @@ def run_app_imu_monocular(work: str):
         vi_system.MonoInertialSlam.process_image_imu = process
         vi_system.MonoInertialSlam._insert_keyframe = insert
         run_slam.run_sequence = run_seq
+        inertial.inertial_init = solve
     app_reads = _Reads(sy, kinds)
     slam, seq = slams[0]
+    # the app run's scale and world transforms (the frames after it add
+    # keyframes, and so refinements)
+    scale_run, transforms_run = slam.scale_applied, len(slam.pending_world_transforms)
     ev = out.get("eval", {})
     sim3 = run_slam.evaluate(seq, out["trajectory_file"], monocular=True)
     n = len(states)
@@ -3083,6 +3270,15 @@ def run_app_imu_monocular(work: str):
             host.append(("capture" if _captures() != c0 else
                          _frame_kind(r) + (" VI" if slam.imu_initialized else ""),
                          per.launches))
+    # VI_KF_FRAMES more frames, each made a keyframe (the frame count's
+    # trigger), by site: every key of the keyframe path met before them
+    for i in range(VI_FRAMES + VI_EXTRA, VI_FRAMES + VI_EXTRA + VI_KF_FRAMES):
+        img = to_device((seq.image(i) * 255.0).astype(np.uint8), slam.device)
+        t = float(seq.image_ts[i])
+        chunk = run_slam._imu_chunk(seq, float(seq.image_ts[i - 1]), t)
+        slam.frames_since_kf = slam.max_frames_between_kf
+        _vi_keyframe_sites(lambda: slam.process_image_imu(img, t, chunk), slam)
+    by_kind = {k: [round(ms, 1) for kd, ms in attempts if kd == k] for k in INIT_KEYS}
     data_s = n * dt_frame
     path_len = ev.get("ape_piecewise", {}).get("traj_len", 0.0)
     _log(f"run_slam IMU_MONOCULAR {slam.img_w}x{slam.img_h}, N={slam.map.N}, K={slam.map.K}, "
@@ -3091,14 +3287,27 @@ def run_app_imu_monocular(work: str):
          f"{n / out['wall_s']:.3f} frames/s (real-time x {data_s / out['wall_s']:.4f}); "
          f"{ms_frame:.2f} ms per frame, of which keyframe mapping (with VI-BA / IMU init) "
          f"{ms_map:.2f} ms ({len(t_map)} keyframes, "
-         f"{1e3 * sum(t_map) / max(len(t_map), 1):.2f} ms each, synchronised); initialised "
+         f"{1e3 * sum(t_map) / max(len(t_map), 1):.2f} ms each, synchronised; "
+         + "; ".join(f"{len(v)} {k} attempts, ms each {v}" for k, v in by_kind.items())
+         + f"); initialised "
          f"at frame {first_ok}, then {n_ok}/{len(after)} tracked; IMU initialised at frame "
          f"{init_at} (the JAX app on the CPU, same data: frame {VI_INIT_REF}); scale applied "
-         f"{slam.scale_applied:.4f}; {len(slam.pending_world_transforms)} world transforms")
+         f"{scale_run:.4f} ({scale_run!r}), {transforms_run} world transforms in the run "
+         f"({slam.scale_applied:.4f}, {len(slam.pending_world_transforms)} after the frames "
+         f"after it)")
     app_reads.log("run_slam IMU_MONOCULAR (the app run)", "frame")
     app_reads.not_above("IMU_MONOCULAR", "frame")
     app_reads.at_most("IMU_MONOCULAR", READS_APP_MAX["IMU_MONOCULAR"])
     pre.log("IMU_MONOCULAR", "frame")
+    pre.gate("IMU_MONOCULAR")
+    # the app's own init and refinement calls (its map, K = 32) again,
+    # eagerly and through a fresh runner: bit-equal to what the app got (a
+    # key met once in the run: its call twice, so that the second replays)
+    for kind, calls in init_calls.items():
+        g = _replayed(f"{kind}, IMU_MONOCULAR map", solve, calls * (3 - min(len(calls), 2)))
+        _report_costs(f"{kind}, IMU_MONOCULAR map", g, calls[-1][0], eager_reps=1)
+        _log(f"graphs {kind}, IMU_MONOCULAR map: kernel nodes of each captured graph "
+             f"{_graph_nodes(g)}")
     _log(f"run_slam IMU_MONOCULAR per frame after the init: {np.mean(reads):.1f} blocking "
          f"reads (each frame: {reads}); under torch.profiler "
          f"{np.mean([c for c, _ in per_frame]):.0f} device launches and "
@@ -3122,6 +3331,114 @@ def run_app_imu_monocular(work: str):
         raise RuntimeError(f"host-issued launches per tracked inertial frame {vi_host}: none "
                            f"profiled, or above {GRAPH_LAUNCH_MAX['vi frame']} ({host})")
     return dict(frames=n, wall_s=out["wall_s"], reads=app_reads)
+
+
+class _Tap:
+    """The runner ``unit`` called as ``fn(unit, *args, **kwargs)``; every
+    other attribute is the runner's (its counts, keys and graphs), so that
+    the tallies over _runners() see through it."""
+
+    def __init__(self, unit, fn):
+        self.unit, self.tap = unit, fn
+
+    def __call__(self, *a, **k):
+        return self.tap(self.unit, *a, **k)
+
+    def __getattr__(self, name):
+        return getattr(self.unit, name)
+
+
+# the sites of a keyframe frame after the IMU init, each a range under
+# torch.profiler: (module or class, attribute, label). A host-issued launch
+# counts for the innermost range around it.
+VI_KF_SITES = (
+    ("vi_system", "vi_frame_step", "VI frame (replay)"),
+    ("system.MonoSlam", "_drain_mapping", "stats read and culling"),
+    ("system.MonoSlam", "_cull_keyframes", "culling"),
+    ("vi_system.MonoInertialSlam", "_on_cull_keyframe", "culled keyframe's IMU chain"),
+    ("local_mapping", "keyframe_mapping_step", "keyframe mapping (replay)"),
+    ("map_state", "keyframe_redundancy", "redundancy ranking"),
+    ("vi_system", "write_kf_imu_state", "KF IMU-state write (replay)"),
+    ("vi_system.MonoInertialSlam", "_maybe_initialize_imu", "IMU init stage"),
+    ("vi_system.MonoInertialSlam", "_scale_refinement", "scale refinement"),
+    ("inertial", "inertial_init", "init / refinement solve (replay)"),
+    ("vi_system.MonoInertialSlam", "_solve_readback", "solve readback"),
+    ("vi_system.MonoInertialSlam", "_apply_world_transform", "world transform"),
+    ("vi_system.MonoInertialSlam", "_vi_local_ba", "VI local BA: problem build, write-back"),
+    ("vi_system.MonoInertialSlam", "_imu_chain_masks", "inertial chain masks"),
+    ("vi_ba", "vi_bundle_adjust", "VI-BA (replay)"),
+)
+
+
+def _vi_keyframe_sites(step, slam):
+    """``step()`` (a frame that inserts a keyframe after the IMU init)
+    under torch.profiler with the host's ops, each of VI_KF_SITES in a
+    range of its own; prints each site's calls, host-issued launches (those
+    of its own, not of a site inside it) and host ms (inclusive; a replay's
+    range grows with its graph's kernels while the profiler records
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from eorb_slam_tpu_torch.optim import inertial, vi_ba
+    from eorb_slam_tpu_torch.slam import local_mapping, map_state, system, vi_system
+
+    mods = dict(vi_system=vi_system, system=system, local_mapping=local_mapping,
+                map_state=map_state, inertial=inertial, vi_ba=vi_ba)
+    undo = []
+    for owner, attr, label in VI_KF_SITES:
+        mod, _, cls = owner.partition(".")
+        target = getattr(mods[mod], cls) if cls else mods[mod]
+        orig = target.__dict__[attr]
+
+        def ranged(fn, *a, _label=label, **k):
+            with record_function("site: " + _label):
+                return fn(*a, **k)
+
+        def method(self, *a, _fn=orig, _label=label, **k):
+            with record_function("site: " + _label):
+                return _fn(self, *a, **k)
+        # a method stays a function (bound to its instance); a runner stays
+        # visible to _runners() through its tap
+        setattr(target, attr, method if cls else _Tap(orig, ranged))
+        undo.append((target, attr, orig))
+    kf0 = slam.stats["kf"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = step()
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for target, attr, orig in undo:
+            setattr(target, attr, orig)
+    events = prof.events()
+    # the host's ranges (each also has a device-side annotation of its name)
+    ranges = [e for e in events
+              if e.name.startswith("site: ") and e.device_type == DeviceType.CPU]
+    sites = {}
+    for e in ranges:
+        n, ms = sites.get(e.name[6:], (0, 0.0))
+        sites[e.name[6:]] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    launches = {}
+    for e in events:
+        if not e.name.startswith(HOST_LAUNCH_APIS):
+            continue
+        inside = [r for r in ranges if r.time_range.start <= e.time_range.start
+                  and e.time_range.end <= r.time_range.end]
+        best = min(inside, key=lambda r: r.time_range.elapsed_us(), default=None)
+        site = best.name[6:] if best else "the frame's other host work"
+        launches[site] = launches.get(site, 0) + 1
+    rows = {k: (n, launches.get(k, 0), round(ms, 2)) for k, (n, ms) in sites.items()}
+    rows["the frame's other host work"] = (1, launches.get("the frame's other host work", 0),
+                                           None)
+    _log(f"run_slam IMU_MONOCULAR keyframe frame after the IMU init by site, under "
+         f"torch.profiler with the host's ops (site: calls, host-issued launches of its own, "
+         f"host ms inclusive): {rows}; in all {sum(launches.values())} host-issued "
+         f"launches, {wall:.1f} ms wall with the profiler; the frame "
+         f"{'inserted a keyframe' if slam.stats['kf'] != kf0 else 'inserted NO keyframe'} "
+         f"({res.get('state')}, IMU initialised {slam.imu_initialized})")
 
 
 def run_app_event_imu(work: str, data_root: str):
@@ -3683,6 +4000,8 @@ def _run_app_image(work, config, root, seq, cls, method, frames, extra, step, ta
         app_reads.at_most(tag, READS_APP_MAX[tag])
     if pre.rows:
         pre.log(tag, "frame")
+    if tag == "IMU_STEREO":
+        pre.gate(tag)
     _log(f"run_slam {tag} per frame after the run ({extra} frames): {r['reads']:.1f} blocking "
          f"reads (each: {reads}); under torch.profiler {r['launches_frame']:.0f} device "
          f"launches and {r['device_ms']:.2f} ms of device time (each, with the host-issued "
@@ -5303,6 +5622,7 @@ def main() -> int:
     res = path("EventSlam", run_event_slam)
     path("pipelined MonoSlam", check_pipelined_small)
     check_vi_small()
+    timed("check_graphs_inertial", check_graphs_inertial)
     check_depth_small()
     check_loop_small()
     timed("check_akaze_small", check_akaze_small)
@@ -5324,11 +5644,11 @@ def main() -> int:
         timed("check_checkpoint", path, "checkpoint", check_checkpoint, work)
         bag_res = timed("check_rosbag", path, "rosbag", check_rosbag, work, gen["root"])
         dist_res = timed("check_dist", check_dist, work)
-        path("IMU_MONOCULAR", run_app_imu_monocular, work)
+        timed("run_app_imu_monocular", path, "IMU_MONOCULAR", run_app_imu_monocular, work)
         depth_root = run_generate_depth(work)
         path("STEREO", run_app_stereo, work, depth_root)
         path("RGBD", run_app_rgbd, work, depth_root)
-        path("IMU_STEREO", run_app_imu_stereo, work, depth_root)
+        timed("run_app_imu_stereo", path, "IMU_STEREO", run_app_imu_stereo, work, depth_root)
         path("MONOCULAR+loop", run_app_loop, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

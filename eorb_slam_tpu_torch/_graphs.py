@@ -5,7 +5,9 @@ The JAX package compiles each per-step unit of its main path (the L1
 window, the tracked image frame, local BA's LM loop, the keyframe mapping
 step, the tracked inertial frame, VI-BA's LM loop, the synchronized MCI's
 candidates, the continuous tracker's chunk step, track advance and top-up,
-the pose-only solve, EVENT_MONO's joint steps) into one executable per
+the pose-only solve, EVENT_MONO's joint steps, the feature path's units,
+the IMU init, a frame's preintegration before it and the keyframe's
+inertial-state write) into one executable per
 key of static arguments and runs it as one dispatch. Run eagerly, the
 same step is thousands of kernel launches, each costing the host more time
 than the card spends on it. :class:`GraphRunner` wraps such a step: on the

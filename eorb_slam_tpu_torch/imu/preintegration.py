@@ -137,7 +137,9 @@ def integrate(
     their in-window predecessor first (the reference's PreintegrateIMU
     interpolates consecutive measurements the same way).
 
-    The JAX package scans the samples; here a host loop runs them. A masked
+    The JAX package scans the samples; here a host loop runs them (on the
+    card inside a captured graph: ``vi_system.preintegrate_frame`` and
+    ``vi_frame_step``). A masked
     sample integrates with dt = 0 and its rotation update is discarded with
     ``torch.where`` (in the JAX scan it re-projects dR onto SO(3), a
     last-ulp change)."""

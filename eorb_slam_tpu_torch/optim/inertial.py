@@ -9,6 +9,14 @@ PyTorch port of ``eorb_slam_tpu/optim/inertial.py``:
   the residual function, as the JAX package takes ``jax.jacfwd``: the
   parameter count (3K+9) is small next to the residual work.
 
+Both solves are jitted in the JAX package (``inertial_init`` with static
+``iters`` and ``fix_scale``); here they are graph runners
+(``_graphs.GraphRunner``) over ``_linear_alignment`` and
+``_inertial_init``: on the card each key is captured once and replayed, one
+dispatch per attempt. The init's priors are Python numbers and so part of
+its key (the IMU init and the scale refinement are two keys); inside the
+init's capture the linear alignment runs inline.
+
 The residual functions are pure (no in-place writes, no reads to the host,
 no Python branch on a tensor's value), so ``torch.func`` can transform them.
 Every accept/reject of the LM loop stays on the device. Rotations and
@@ -26,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from eorb_slam_tpu_torch import _graphs
 from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.imu.preintegration import _mv
@@ -124,7 +133,7 @@ def _pred(prev: Optional[torch.Tensor], K: int, device) -> torch.Tensor:
     return prev.to(torch.int64)
 
 
-def linear_alignment(
+def _linear_alignment(
     Twb: torch.Tensor,                  # (K,4,4) body poses in vision frame
     pre_stack: pre_mod.Preintegrated,   # batched (K,...)
     edge_valid: torch.Tensor,           # (K,) bool
@@ -185,6 +194,10 @@ def linear_alignment(
     return s, g, vel
 
 
+# the reference's @jax.jit linear_alignment: one graph per key on the card
+linear_alignment = _graphs.GraphRunner(_linear_alignment)
+
+
 class InertialInitResult(NamedTuple):
     vel: torch.Tensor     # (K,3) body velocities
     bg: torch.Tensor      # (3,)
@@ -196,7 +209,7 @@ class InertialInitResult(NamedTuple):
     cost: torch.Tensor
 
 
-def inertial_init(
+def _inertial_init(
     Twb: torch.Tensor,                 # (K,4,4) body poses (fixed)
     pre_stack: pre_mod.Preintegrated,  # batched (K,...); slot k = prev[k] -> k
     edge_valid: torch.Tensor,          # (K,) bool
@@ -285,6 +298,13 @@ def inertial_init(
         ba=theta[3 * K + 3: 3 * K + 6], rwg=rwg, g=gravity_from_dir(rwg),
         scale=s, cost0=c0, cost=c,
     )
+
+
+# the reference's jit with static iters and fix_scale, and the priors the
+# port passes as Python numbers: on the card one graph per key (the IMU
+# init and the scale refinement), the GN loop unrolled in it
+inertial_init = _graphs.GraphRunner(
+    _inertial_init, static=("prior_gyro", "prior_acc", "iters", "fix_scale"))
 
 
 def apply_scaled_rotation(

@@ -764,6 +764,7 @@ class MonoSlam:
         self.n_inliers_ref = int(res.n_inliers) if n_inl is None else int(n_inl)
 
         slot_t, tri_t, fuse_t, ts_t = self._mapping_slots(slot, tri, fuse_nb, f.ts)
+        self.last_kf_slot_t = slot_t
         self.map, T_new, stats = local_mapping.keyframe_mapping_step(
             self.map, self.cam, slot_t, res.Tcw, ts_t, f.xy_ud, f.octave,
             f.angle, f.desc_pm1, f.valid, res.feat_lm, tri_t, fuse_t,

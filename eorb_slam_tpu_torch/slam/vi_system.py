@@ -24,6 +24,11 @@ the JAX package pads it: the window's length is part of the graph's key,
 and the bucket keeps the keys few. A masked sample integrates with dt = 0
 and keeps the rotation, so a padded window gives the unpadded window's
 bits.
+
+Before the IMU init a frame's window is preintegrated and merged into the
+keyframe window as one dispatch (``preintegrate_frame``, the window padded
+the same way); the keyframe's inertial-state write (``write_kf_imu_state``)
+and the inertial solves (``optim/inertial``) are graph runners too.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from eorb_slam_tpu_torch.geometry import lie
 from eorb_slam_tpu_torch.imu import preintegration as pre_mod
 from eorb_slam_tpu_torch.ops import frontend
 from eorb_slam_tpu_torch.optim import inertial, marginalize, schur_ba, vi_ba
-from eorb_slam_tpu_torch.slam import tracking
+from eorb_slam_tpu_torch.slam import map_state, tracking
 from eorb_slam_tpu_torch.slam.system import OK, RECENTLY_LOST, FrameInput, MonoSlam
 
 
@@ -61,13 +66,18 @@ def _stack_identity_pre(K: int, device) -> pre_mod.Preintegrated:
 def _write_kf_imu_state(pre_kf, kf_vel, kf_bg, kf_ba, slot, pre_window,
                         vel, bg, ba):
     """The per-KF inertial-state writes (copies; the inputs stay as they
-    were)."""
-    out = []
-    for t, x in ((kf_vel, vel), (kf_bg, bg), (kf_ba, ba)):
-        t = t.clone()
-        t[slot] = x
-        out.append(t)
-    return (pre_mod.put(pre_kf, slot, pre_window), *out)
+    were). ``slot`` is an int or a 0-d int64 tensor (the graph's form,
+    written with ``index_copy``: indexing by a 0-d tensor reads it on the
+    host)."""
+    pre = pre_mod.Preintegrated(*(map_state._set_row(f, slot, x)
+                                  for f, x in zip(pre_kf, pre_window)))
+    return (pre, *(map_state._set_row(t, slot, x)
+                   for t, x in ((kf_vel, vel), (kf_bg, bg), (kf_ba, ba))))
+
+
+# the reference's @jax.jit _write_kf_imu_state: one graph on the card, the
+# slot a device tensor
+write_kf_imu_state = _graphs.GraphRunner(_write_kf_imu_state)
 
 
 def _imu_predict(T_last, vel, pre_last, bg, ba, Tbc):
@@ -103,6 +113,23 @@ def _chunk_tensors(imu: ImuChunk, device, pad: bool = False):
     return t[:, 0:3], t[:, 3:6], t[:, 6], t[:, 7] > 0
 
 
+def _preintegrate_frame(gyro, acc, dts, imu_ok, pre_since_kf: pre_mod.Preintegrated,
+                        calib: pre_mod.ImuCalib):
+    """A frame's IMU window preintegrated at zero bias and the keyframe
+    window extended by it: (pre_frame, pre_since_kf_new). Before the IMU
+    init one replay (``preintegrate_frame``), after it inside the inertial
+    frame step."""
+    z3 = torch.zeros(3, dtype=torch.float32, device=gyro.device)
+    pre = pre_mod.integrate(gyro, acc, dts, imu_ok, z3, z3, calib)
+    return pre, pre_mod.merge(pre_since_kf, pre)
+
+
+# the reference's integrate (one lax.scan) and merge as one dispatch: on
+# the card one graph per IMU bucket (the window padded as the inertial
+# frame step pads it)
+preintegrate_frame = _graphs.GraphRunner(_preintegrate_frame)
+
+
 def _vi_frame_step(
     img: torch.Tensor,           # (H,W) uint8/float
     cam_params: torch.Tensor,
@@ -132,12 +159,9 @@ def _vi_frame_step(
 
     Returns (res, feats, xy_ud, flags, vel_mm, T_rel, T_pred, pre_frame,
     pre_since_kf_new, vel_out, bg_out, ba_out, next_prior)."""
-    dev = cam_params.device
-    z3 = torch.zeros(3, dtype=torch.float32, device=dev)
     # 1. preintegrate the inter-frame window (zero-bias integration; the
     # bias enters through the stored Jacobians at every use site)
-    pre = pre_mod.integrate(gyro, acc, dts, imu_ok, z3, z3, calib)
-    pre_since2 = pre_mod.merge(pre_since_kf, pre)
+    pre, pre_since2 = _preintegrate_frame(gyro, acc, dts, imu_ok, pre_since_kf, calib)
 
     # 2. PredictStateIMU
     Twb = pre_mod.Twb_from_Tcw(T_last, calib.Tbc)
@@ -316,13 +340,13 @@ class MonoInertialSlam(MonoSlam):
     def process_features_imu(self, f: FrameInput, imu: ImuChunk):
         """One frame with the IMU samples since the previous frame."""
         if imu.gyro.shape[0] > 0:
-            z3 = torch.zeros(3, dtype=torch.float32, device=self.device)
-            pre = pre_mod.integrate(*_chunk_tensors(imu, self.device), z3, z3,
-                                    self.calib)
+            pre, self.pre_since_kf = preintegrate_frame(
+                *_chunk_tensors(imu, self.device, pad=True), self.pre_since_kf,
+                self.calib)
         else:
             pre = pre_mod.identity_preintegrated(device=self.device)
+            self.pre_since_kf = pre_mod.merge(self.pre_since_kf, pre)
         self.pre_last_frame = pre
-        self.pre_since_kf = pre_mod.merge(self.pre_since_kf, pre)
         return self.process_features(f)
 
     # ------------------------------------------------------ overridden hooks
@@ -484,9 +508,9 @@ class MonoInertialSlam(MonoSlam):
         # the map changed -> the next frame re-anchors on the keyframe state
         self._prior = None
         slot = self.last_kf_slot
-        self.pre_kf, self.kf_vel, self.kf_bg, self.kf_ba = _write_kf_imu_state(
-            self.pre_kf, self.kf_vel, self.kf_bg, self.kf_ba, slot, pre_window,
-            self.vel, self.bg, self.ba,
+        self.pre_kf, self.kf_vel, self.kf_bg, self.kf_ba = write_kf_imu_state(
+            self.pre_kf, self.kf_vel, self.kf_bg, self.kf_ba, self.last_kf_slot_t,
+            pre_window, self.vel, self.bg, self.ba,
         )
         self.kf_prev[slot] = prev_slot
         self.pre_since_kf = pre_mod.identity_preintegrated(device=self.device)
